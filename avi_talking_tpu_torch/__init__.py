@@ -1,10 +1,12 @@
 """avi_talking_tpu_torch: the PyTorch / CUDA port of avi_talking_tpu.
 
-It mirrors the JAX package's layout (``audio/``, ``core/``, ``models/``,
-``ops/``, ``pipeline/``, ``text/``) and imports neither JAX nor the JAX
-package. Entry points run on the CUDA card unless the caller passes
-``device="cpu"``. The one hand-written kernel on the generate path is the
-wav2vec2 key-bias attention (``ops/kernels/keybias_attention.py`` over
-``csrc/keybias_attention.cu``), built with nvcc at first use into
+It mirrors the JAX package's layout (``audio/``, ``cli/``, ``core/``,
+``data/``, ``models/``, ``ops/``, ``pipeline/``, ``text/``, ``viz/``) and
+imports neither JAX nor the JAX package. Entry points run on the CUDA card
+unless the caller passes ``device="cpu"``. Two hand-written kernels carry
+the product path: the wav2vec2 key-bias attention
+(``ops/kernels/keybias_attention.py`` over ``csrc/keybias_attention.cu``)
+and the rasterizer's per-tile visibility (``ops/kernels/rasterize.py`` over
+``csrc/rasterize_visibility.cu``), built with nvcc at first use into
 ``build/avi_talking_tpu_torch/``.
 """

@@ -1,0 +1,33 @@
+"""Command-line interface of the port (``python -m avi_talking_tpu_torch.cli``).
+
+Subcommands:
+  generate   one (wav, instruction) pair -> coeffs npz (+ normal-map video
+             with --save-video)
+  instruct   over a caption corpus (experiments/json_dir format), one
+             generate per caption
+  serve      the same corpus through the micro-batching InferenceServer
+             (batch coalescing, warmup, p50 / p99)
+
+Everything runs on the CUDA card unless ``--device cpu`` is given; without
+a card and without ``--device`` the commands raise. Weights are seeded
+random (``--checkpoint`` and ``--bf16`` are not ported yet and exit with an
+error); ``--flame-npz`` gives real FLAME assets. The JAX package's other
+subcommands (portrait, bench, diversity, training and importers) are still
+to port.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None) -> int:
+    from . import run
+    from ._common import common_args
+
+    p = argparse.ArgumentParser(prog="avi-talking-tpu-torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+    run.register(sub, common_args)
+    args = p.parse_args(argv)
+    return args.fn(args)

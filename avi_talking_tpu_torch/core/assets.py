@@ -1,5 +1,5 @@
 """FLAME asset loading (host side; port of ``avi_talking_tpu/core/assets.py``
-``load_flame_assets`` and ``synthetic_assets``).
+``default_assets_path``, ``load_flame_assets`` and ``synthetic_assets``).
 
 ``synthetic_assets`` makes the same numpy draws in the same order as the
 JAX version, so one seed gives the same arrays in both packages. Assets come
@@ -7,6 +7,9 @@ back as CPU tensors; the head moves them to its device.
 """
 
 from __future__ import annotations
+
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -23,6 +26,18 @@ _LANDMARK_FIELDS = (
     "mediapipe_lmk_faces_idx",
     "mediapipe_lmk_bary_coords",
 )
+
+
+def default_assets_path() -> Optional[str]:
+    """FLAME assets from ``AVI_TALKING_FLAME_NPZ`` or the checkout's
+    ``assets/flame.npz``, else None."""
+    for cand in (
+        os.environ.get("AVI_TALKING_FLAME_NPZ"),
+        os.path.join(os.path.dirname(__file__), "..", "..", "assets", "flame.npz"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    return None
 
 
 def load_flame_assets(npz_path: str, n_shape: int = 100, n_exp: int = 50) -> FlameAssets:

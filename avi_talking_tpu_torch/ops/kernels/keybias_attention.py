@@ -11,6 +11,7 @@ function, which the tests hold to JAX and the chip check holds the kernel to.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -21,6 +22,13 @@ HEAD_DIM_MAX = 128
 # Kernel launches since the count was last set to 0 (the chip check zeroes
 # it before driving the main path and reads it after).
 launches = 0
+_launches_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    global launches
+    with _launches_lock:  # the server runs the pipeline from several threads
+        launches += 1
 
 
 def keybias_attention_reference(
@@ -67,7 +75,6 @@ def keybias_attention(
     CUDA tensors take the kernel, which raises on what it does not take
     (non-fp32, non-contiguous, head_dim not a multiple of 8 or above 128,
     inputs that require grad)."""
-    global launches
     if q.device.type == "cpu":
         return keybias_attention_reference(q, k, v, key_bias)
     if q.device.type != "cuda":
@@ -86,5 +93,5 @@ def keybias_attention(
                  out.data_ptr(), B, H, T, S, d, stream)
     if err != 0:
         raise RuntimeError(f"keybias_attention kernel launch failed: cudaError {err}")
-    launches += 1
+    _count_launch()
     return out

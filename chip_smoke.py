@@ -2,23 +2,38 @@
 """Chip check of the PyTorch / CUDA port (avi_talking_tpu_torch) on one card.
 
     python3 chip_smoke.py              # the check; needs one CUDA card and nvcc
-    python3 chip_smoke.py --profile    # also profiles one generate call
+    python3 chip_smoke.py --profile    # also profiles one generate and one render
 
 Run it from the root of a checkout: it builds the port's CUDA kernels from
 the checkout's sources into build/, then
 
-1. build:   every kernel of the generate path, reported in seconds;
-2. kernels: each kernel against its plain PyTorch version on the card, at
-            the main path's shapes, with its time, the plain version's, one
-            PyTorch library call's and the card's lower bound;
+1. build:   every kernel of the port (one nvcc per source, all started
+            together), reported in seconds with the compiler's register and
+            spill report;
+2. kernels: K1 (key-bias attention) against its plain PyTorch version on the
+            card at the generate path's shapes, with its time, the plain
+            version's, one PyTorch library call's and the card's lower bound;
 3. generate: full-width PipelineConfig() with seeded random weights and
             full-size synthetic FLAME assets on an 8 s clip: shapes,
             finiteness, same seed -> same output, kernel launches, time;
 4. generate_batch: six requests over three length buckets;
 5. GPU vs CPU: the same weights and explicit noise through the port on the
             card and on the CPU, as an explicit reference;
-6. the kernels summary line and the card's name and power limit;
-7. the result line.
+6. visibility: K2 (rasterizer visibility) held bit-equal to its plain
+            version at three shapes (the render path's launch, a closed
+            FLAME-density head mesh at 256^2 / tile 32 and at 224^2 /
+            tile 56), with times and bounds;
+7. render:  the 200 frames of the 8 s clip through FlameVisualizer into a
+            video under build/chip_smoke/: K2 launches, repeatability, wall
+            time; the kernel route against the dense plain rasterizer on the
+            head mesh;
+8. render GPU vs CPU: four head-mesh frames through the visualizer on the
+            card and on the CPU;
+9. serve:   the fixture caption corpus (experiments/) through InferenceServer
+            at max_batch 4, driven as `cli serve` drives it, each result held
+            to generate_batch on the same padded micro-batch; p50 / p99;
+10. the kernels summary line and the card's name and power limit;
+11. the result line.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without the result line. It imports nothing of JAX.
@@ -88,6 +103,63 @@ def keybias_bound(B, H, T, S, d, peaks):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
+def visibility_bound(tri, valid, px, py, peaks, chunk=64):
+    """K2's least time for these inputs. Every (pixel, valid slot) pair
+    costs 15 fp32 operations (two offsets, two edge functions of 4, w2 of
+    2, three sign tests); a pair that passes the test 6 more (the depth, 5,
+    and its compare): the covered pairs of this data are counted here.
+    Bytes: tri, valid, px and py read once, zbuf and slot written once."""
+    import torch
+
+    n, cap, _ = tri.shape
+    px_n = px.shape[1]
+    pairs = int(valid.sum()) * px_n
+    covered = 0
+    for c0 in range(0, cap, chunk):
+        t = tri[:, c0:c0 + chunk]
+        x0, y0, x1, y1, x2, y2 = (t[..., i:i + 1] for i in (0, 1, 3, 4, 6, 7))
+        denom = (y1 - y2) * (x0 - x2) + (x2 - x1) * (y0 - y2)
+        ok = (denom.abs() > 1e-12) & (valid[:, c0:c0 + chunk] > 0)
+        inv = 1.0 / torch.where(ok, denom, torch.ones_like(denom))
+        dx, dy = px[:, None] - x2, py[:, None] - y2
+        w0 = ((y1 - y2) * dx + (x2 - x1) * dy) * inv
+        w1 = ((y2 - y0) * dx + (x0 - x2) * dy) * inv
+        covered += int(((w0 >= 0) & (w1 >= 0) & (1.0 - w0 - w1 >= 0) & ok).sum())
+    flops = 15 * pairs + 6 * covered
+    nbytes = 4 * n * cap * 10 + 4 * n * px_n * 4
+    t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes, "pairs": pairs, "covered_pairs": covered}
+
+
+def head_mesh(n_lat: int = 72, n_lon: int = 72):
+    """A closed head ellipsoid in NDC at FLAME density (10368 faces at
+    72 x 72): front and back faces bin like FLAME's, and its small coherent
+    triangles leave most of a tile's 1024 slots as sentinels."""
+    import numpy as np
+
+    i = np.arange(n_lat + 1)[:, None]
+    j = np.arange(n_lon)[None, :]
+    th, ph = np.pi * i / n_lat, 2 * np.pi * j / n_lon
+    verts = np.stack(np.broadcast_arrays(0.58 * np.sin(th) * np.cos(ph), 0.78 * np.cos(th),
+                                         0.5 * np.sin(th) * np.sin(ph) + 0.6), axis=-1)
+    a = (i[:-1] * n_lon + j).reshape(-1)
+    b = (i[:-1] * n_lon + (j + 1) % n_lon).reshape(-1)
+    faces = np.stack([np.stack([a, b, a + n_lon], -1), np.stack([b, b + n_lon, a + n_lon], -1)],
+                     axis=1).reshape(-1, 3)
+    return verts.reshape(-1, 3).astype(np.float32), faces.astype(np.int32)
+
+
+def head_frames(verts, n: int):
+    """n frames of the head mesh, each a little smaller and shifted."""
+    import numpy as np
+
+    k = np.arange(n, dtype=np.float32)[:, None, None]
+    return (verts[None] * (1.0 - 0.01 * k) + np.float32(0.004) * k * np.float32([1, -1, 0])
+            ).astype(np.float32)
+
+
 def synthetic_wav(seconds: float, seed: int):
     import numpy as np
 
@@ -106,8 +178,9 @@ def phase_build():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    built = build.build(["keybias_attention"])
+    built = build.build(["keybias_attention", "rasterize_visibility"])
     build.load("keybias_attention")
+    build.load("rasterize_visibility")
     emit({"phase": "build",
           "kernels": {name: {"seconds": b["seconds"],
                              "ptxas": [line.strip() for line in b["log"].splitlines()
@@ -187,7 +260,7 @@ def phase_generate(pipe, kb):
     emit({"phase": "generate", "audio_s": 8.0, "shapes": shapes, "finite": True,
           "keybias_launches": launches, "same_seed_max_abs_diff": repeat_diff,
           "wall_s_median": wall, "wall_s_all": walls, "s_per_audio_s": wall / 8.0})
-    return launches
+    return launches, out
 
 
 def phase_generate_batch(pipe, kb):
@@ -250,12 +323,242 @@ def phase_gpu_vs_cpu(pipe):
         check(e < tol, f"GPU vs CPU {k}: max |d| {e} >= {tol}")
 
 
-def phase_profile(pipe):
-    """The style stage's wall time alone (CLIP, brain, 100-step prior), then
-    one generate call under torch.profiler: device time by kernel and the
-    device's busy share of the wall time."""
+def phase_visibility(verts, faces, peaks):
+    """K2 against its plain version, bit for bit, at three shapes: the
+    render path's launch (16 frames of the generate output, 256^2, tile 32,
+    cap 1024), and the head mesh (16 frames) at 256^2 / tile 32 and at
+    224^2 / tile 56."""
+    import torch
+
+    from avi_talking_tpu_torch.ops.kernels import rasterize as kras
+    from avi_talking_tpu_torch.viz import FlameVisualizer
+    from avi_talking_tpu_torch.viz.rasterizer import _visibility_inputs
+
+    hv, hf = head_mesh()
+    head = torch.from_numpy(head_frames(hv, 16)).cuda()
+    render_ndc = FlameVisualizer(faces, 256).project(torch.from_numpy(verts[:16]).cuda())
+    cases = [
+        ("render_256_tile32", render_ndc, faces, 256, 32),
+        ("head_256_tile32", head, torch.from_numpy(hf).cuda(), 256, 32),
+        ("head_224_tile56", head, torch.from_numpy(hf).cuda(), 224, 56),
+    ]
+    rows = []
+    for name, v, f, size, tile in cases:
+        _, tri, valid, px, py, *_ = _visibility_inputs(v, f.long(), size, size, tile, 1024)
+        z, s = kras.rasterize_tiles_visibility(tri, valid, px, py)
+        torch.cuda.synchronize()
+        rz, rs = kras.rasterize_tiles_visibility_reference(tri, valid, px, py)
+        err = float((z - rz).abs().max())
+        check(torch.equal(s, rs) and torch.equal(z, rz),
+              f"K2 {name}: not bit-equal to the plain version ({int((s != rs).sum())} slots "
+              f"differ, max |dz| {err})")
+        row = {"case": name, "shape": list(tri.shape[:2]) + [px.shape[1]],
+               "frames": v.shape[0], "faces": f.shape[0], "valid_slots": int(valid.sum()),
+               "slots": valid.numel(), "covered_pixels": int((s >= 0).sum()),
+               "max_abs_err": err, "slot_mismatches": int((s != rs).sum()),
+               "ms": time_ms(lambda: kras.rasterize_tiles_visibility(tri, valid, px, py),
+                             iters=10, reps=5),
+               "plain_ms": time_ms(lambda: kras.rasterize_tiles_visibility_reference(
+                   tri, valid, px, py), iters=2, reps=3)}
+        row.update(visibility_bound(tri, valid, px, py, peaks))
+        rows.append(row)
+        emit({"phase": "kernel_check", "kernel": "rasterize_tiles_visibility", **row})
+    return rows
+
+
+def phase_render(verts, faces):
+    """The 8 s clip's 200 frames through FlameVisualizer.visualize_verts
+    (13 chunks of 16 frames, so 13 K2 launches), repeatability, the wall
+    time (median of 3); then the kernel route against the dense plain
+    rasterizer on the head mesh."""
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.ops.kernels import rasterize as kras
+    from avi_talking_tpu_torch.viz import FlameVisualizer, compute_vertex_normals, rasterize_auto
+
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    viz = FlameVisualizer(faces, 256)
+    kras.launches = 0
+    t0 = time.perf_counter()
+    path = viz.visualize_verts(verts, os.path.join(out_dir, "render.mp4"))
+    walls = [time.perf_counter() - t0]
+    launches = kras.launches
+    check(launches == 13, f"the 200-frame render launched K2 {launches} times, not 13")
+    if path.endswith(".mp4"):
+        check(os.path.getsize(path) > 0, "empty mp4")
+    else:
+        check(len(os.listdir(path)) == 200, "PNG directory without 200 frames")
+    frames = viz.render_verts(verts)
+    again = viz.render_verts(verts)
+    check(frames.shape == (200, 256, 256, 3) and np.isfinite(frames).all(),
+          f"render frames {frames.shape}, finite {np.isfinite(frames).all()}")
+    covered = float((frames != 0).any(-1).mean())
+    check(covered > 0.05, f"the mesh covers {covered} of the frame")
+    check(np.array_equal(frames, again), "the same vertices rendered twice differ")
+    render_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        viz.render_verts(verts)
+        render_s.append(time.perf_counter() - t0)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        viz.visualize_verts(verts, os.path.join(out_dir, "render.mp4"))
+        walls.append(time.perf_counter() - t0)
+
+    hv, hf = head_mesh()
+    head = torch.from_numpy(head_frames(hv, 2)).cuda()
+    hf = torch.from_numpy(hf).cuda()
+    normals = compute_vertex_normals(head, hf)
+    before = kras.launches
+    img_k, m_k = rasterize_auto(head, hf, normals, 256, 256)
+    head_launches = kras.launches - before
+    img_d, m_d = rasterize_auto(head, hf, normals, 256, 256, backend="dense")
+    torch.cuda.synchronize()
+    head_err = float((img_k - img_d).abs().max())
+    check(head_launches == 1, f"rasterize_auto on the head mesh launched K2 {head_launches} times")
+    check(torch.equal(m_k, m_d), f"head mesh: {int((m_k != m_d).sum())} mask pixels differ")
+    check(head_err <= 1e-5, f"head mesh: kernel route vs dense max |d| {head_err}")
+    emit({"phase": "render", "frames": list(frames.shape), "finite": True,
+          "covered_share": covered, "k2_launches": launches, "repeat_identical": True,
+          "output": "mp4" if path.endswith(".mp4") else "png_dir",
+          "path": os.path.relpath(path, HERE),
+          "visualize_wall_s_median": statistics.median(walls), "visualize_wall_s_all": walls,
+          "render_verts_s_median": statistics.median(render_s), "render_verts_s_all": render_s,
+          "head_mesh": {"faces": int(hf.shape[0]), "k2_launches": head_launches,
+                        "mask_equal_dense": True, "max_abs_err_vs_dense": head_err,
+                        "covered_pixels": int(m_k.sum())}})
+    return launches
+
+
+def phase_render_gpu_vs_cpu():
+    """Four head-mesh frames (moved into model space so the visualizer's
+    camera frames them) through FlameVisualizer on the card (kernel route)
+    and on the CPU (plain binned route)."""
+    import numpy as np
+
+    from avi_talking_tpu_torch.viz import FlameVisualizer
+
+    hv, hf = head_mesh()
+    ndc = head_frames(hv, 4)
+    verts = np.stack([ndc[..., 0] / 8, -ndc[..., 1] / 8 + 0.01, -ndc[..., 2] / 8], axis=-1)
+    g = FlameVisualizer(hf, 256).render_verts(verts)
+    t0 = time.perf_counter()
+    c = FlameVisualizer(hf, 256, device="cpu").render_verts(verts)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(g - c).max())
+    mask_diff = int(((g != 0).any(-1) != (c != 0).any(-1)).sum())
+    emit({"phase": "render_gpu_vs_cpu", "frames": 4, "faces": int(hf.shape[0]),
+          "mask_pixels_differing": mask_diff, "max_abs_err": err, "tol": 1e-5,
+          "cpu_wall_s": cpu_s})
+    check(mask_diff == 0, f"render GPU vs CPU: {mask_diff} mask pixels differ")
+    check(err <= 1e-5, f"render GPU vs CPU: max |d| {err}")
+
+
+class _RecordingPipeline:
+    """Forwards the server's generate_batch calls to the pipeline and keeps
+    each call's micro-batch and outputs, so the check can run the same
+    padded micro-batch again."""
+
+    def __init__(self, pipe):
+        import threading
+
+        self.pipe, self.cfg = pipe, pipe.cfg
+        self.calls = []
+        self._lock = threading.Lock()
+
+    def generate_batch(self, wavs, instructions, **kw):
+        outs = self.pipe.generate_batch(wavs, instructions, **kw)
+        with self._lock:
+            self.calls.append((list(wavs), list(instructions), dict(kw), outs))
+        return outs
+
+
+def phase_serve(pipe, kb):
+    """The fixture corpus through InferenceServer at max_batch 4, submitted
+    and collected as `cli serve` does it, three rounds (the first is cold);
+    each result against generate_batch on the same padded micro-batch."""
+    import numpy as np
+
+    from avi_talking_tpu_torch.data import CaptionDataset
+    from avi_talking_tpu_torch.pipeline.server import InferenceServer, ServingConfig
+
+    ds = CaptionDataset(os.path.join(HERE, "experiments", "json_dir"),
+                        os.path.join(HERE, "experiments", "wav_dir"))
+    requests = [(item.wav_path, caption) for item in ds for caption in item.captions]
+    check(len(requests) >= 4, f"fixture corpus has {len(requests)} requests")
+    rec = _RecordingPipeline(pipe)
+    scfg = ServingConfig(max_batch=4, max_wait_ms=5.0, batch_buckets=(1, 2, 4),
+                         length_buckets=(64, 128, 256, 512))
+    rounds, results = [], []
+    kb.launches = 0
+    with InferenceServer(rec, scfg) as server:
+        for r in range(3):
+            t0 = time.perf_counter()
+            futs = [(wav, cap, server.submit(wav, cap, seed=0)) for wav, cap in requests]
+            results += [(wav, cap, f.result(timeout=600)) for wav, cap, f in futs]
+            rounds.append({"wall_s": time.perf_counter() - t0, **server.latency_percentiles(),
+                           "stage_breakdown_ms": server.stage_breakdown(),
+                           "batch_sizes": list(server.stats["batch_size"])})
+            server.clear_stats()
+    launches = kb.launches
+    rerun, worst = {}, 0.0
+    for wav, cap, out in results:
+        hits = [(ci, j) for ci, call in enumerate(rec.calls) for j, o in enumerate(call[3])
+                if o is out]
+        check(len(hits) == 1, "a served result is not one row of one micro-batch")
+        ci, j = hits[0]
+        wavs, instrs, kw, _ = rec.calls[ci]
+        check(wavs[j] == wav and instrs[j] == cap, "a result came back to another request")
+        T = out["exp"].shape[0]
+        check(out["exp"].shape == (T, pipe.cfg.emote.n_exp) and out["jaw"].shape == (T, 3)
+              and out["style_emb"].shape == (pipe.cfg.clip_size,) and "vertices" not in out,
+              f"served shapes {[(k, v.shape) for k, v in out.items()]}")
+        check(all(np.isfinite(v).all() for v in out.values()), "served output not finite")
+        if ci not in rerun:
+            kw = {k: v for k, v in kw.items() if k != "stage_times"}
+            rerun[ci] = pipe.generate_batch(wavs, instrs, **kw)
+        ref = rerun[ci][j]
+        worst = max(worst, *(float(np.abs(out[k] - ref[k]).max())
+                              for k in ("exp", "jaw", "style_emb")))
+    check(worst <= 1e-4, f"served results vs generate_batch: max |d| {worst}")
+    emit({"phase": "serve", "requests_per_round": len(requests), "rounds": rounds,
+          "micro_batches": len(rec.calls), "padded_sizes": sorted({len(c[0]) for c in rec.calls}),
+          "max_abs_err_vs_generate_batch": worst, "tol": 1e-4, "keybias_launches": launches})
+
+
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: wall time, device time by
+    kernel and the device's busy share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = []
+    for evt in prof.key_averages():
+        # device-side rows only (kernels, copies); CPU op rows repeat their time
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append((evt.self_device_time_total, evt.key, evt.count))
+    kernels.sort(reverse=True)
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+            "device_launches": sum(k[2] for k in kernels),
+            "top": [{"kernel": k[:90], "ms": t / 1e3, "count": n} for t, k, n in kernels[:15]]}
+
+
+def phase_profile(pipe, verts, faces):
+    """The style stage's wall time alone (CLIP, brain, 100-step prior), then
+    one generate call and one 200-frame render_verts under torch.profiler."""
+    import torch
+
+    from avi_talking_tpu_torch.viz import FlameVisualizer
 
     wav = synthetic_wav(8.0, seed=1)
     instruction = "A fairly angry man speaks with brow fairly down"
@@ -266,23 +569,13 @@ def phase_profile(pipe):
         pipe.sample_style(instruction, seed=0)
         torch.cuda.synchronize()
         style_walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe.generate(wav, instruction, seed=0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = []
-    for evt in prof.key_averages():
-        # device-side rows only (kernels, copies); CPU op rows repeat their time
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels.append((evt.self_device_time_total, evt.key, evt.count))
-    kernels.sort(reverse=True)
-    busy_ms = sum(k[0] for k in kernels) / 1e3
-    emit({"phase": "profile", "style_wall_ms_median": statistics.median(style_walls) * 1e3,
-          "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
-          "device_launches": sum(k[2] for k in kernels),
-          "top": [{"kernel": k[:90], "ms": t / 1e3, "count": n} for t, k, n in kernels[:15]]})
+    emit({"phase": "profile", "call": "generate",
+          "style_wall_ms_median": statistics.median(style_walls) * 1e3,
+          **profile_call(lambda: pipe.generate(wav, instruction, seed=0))})
+    viz = FlameVisualizer(faces, 256)
+    viz.render_verts(verts)
+    emit({"phase": "profile", "call": "render_verts", "frames": len(verts),
+          **profile_call(lambda: viz.render_verts(verts))})
 
 
 def main() -> int:
@@ -310,17 +603,23 @@ def main() -> int:
     rows = phase_kernels(peaks)
 
     t0 = time.perf_counter()
-    pipe = AviTalkingPipeline.random_init(
-        PipelineConfig(), synthetic_assets(num_vertices=5023, n_shape=300, n_exp=50,
-                                           num_faces=9976), seed=0)
+    assets = synthetic_assets(num_vertices=5023, n_shape=300, n_exp=50, num_faces=9976)
+    pipe = AviTalkingPipeline.random_init(PipelineConfig(), assets, seed=0)
     emit({"phase": "init", "device": str(pipe.device), "seconds": time.perf_counter() - t0})
-    gen_launches = phase_generate(pipe, kb)
+    gen_launches, gen_out = phase_generate(pipe, kb)
     phase_generate_batch(pipe, kb)
     phase_gpu_vs_cpu(pipe)
+    faces = assets.faces.cuda()
+    vis_rows = phase_visibility(gen_out["vertices"], faces, peaks)
+    render_launches = phase_render(gen_out["vertices"], faces)
+    phase_render_gpu_vs_cpu()
+    phase_serve(pipe, kb)
     if "--profile" in sys.argv[1:]:
-        phase_profile(pipe)
+        phase_profile(pipe, gen_out["vertices"], faces)
 
+    peaks_line = {"variant": variant, "fp32_flops": peaks[0], "bytes_per_s": peaks[1]}
     main_row = rows[0]  # the generate path's shape: B=1, H=12, T=S=200, d=64
+    vis_row = vis_rows[0]  # the render path's launch: 16 frames x 64 tiles
     emit({"kernels": [{
         "name": "keybias_attention",
         "route": "cuda",
@@ -334,7 +633,21 @@ def main() -> int:
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": main_row["shape"],
-        "peaks": {"variant": variant, "fp32_flops": peaks[0], "bytes_per_s": peaks[1]},
+        "peaks": peaks_line,
+    }, {
+        "name": "rasterize_tiles_visibility",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/rasterize_visibility.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/rasterize.py:111",
+        "launches": render_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in vis_rows),
+        "ms": vis_row["ms"],
+        "plain_ms": vis_row["plain_ms"],
+        "bound_ms": vis_row["bound_ms"],
+        "bound_by": vis_row["bound_by"],
+        "library_ms": None,  # no PyTorch call computes z-buffer visibility
+        "shape": vis_row["shape"],
+        "peaks": peaks_line,
     }], "total_s": time.perf_counter() - t_start})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)

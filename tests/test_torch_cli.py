@@ -1,0 +1,104 @@
+"""The port's command line (``python -m avi_talking_tpu_torch.cli``) on the
+CPU at the tiny config: ``generate --save-video``, ``instruct`` and
+``serve`` over the fixture corpus in experiments/, each output held to the
+port's direct API on the same seeded weights."""
+
+import os
+import wave
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from avi_talking_tpu.viz.pngio import read_png
+from avi_talking_tpu_torch.cli import main
+from avi_talking_tpu_torch.core.assets import synthetic_assets
+from avi_talking_tpu_torch.data import CaptionDataset
+from avi_talking_tpu_torch.pipeline import AviTalkingPipeline, PipelineConfig
+from avi_talking_tpu_torch.viz import visualizer as tviz
+
+REPO = Path(__file__).resolve().parents[1]
+CORPUS = ["--json-dir", str(REPO / "experiments" / "json_dir"),
+          "--wav-dir", str(REPO / "experiments" / "wav_dir")]
+
+
+@pytest.fixture(scope="module")
+def direct():
+    """The pipeline the CLI builds for ``--tiny`` (weights seed 0)."""
+    cfg = PipelineConfig.tiny()
+    return AviTalkingPipeline.random_init(
+        cfg, synthetic_assets(n_shape=cfg.emote.n_shape, n_exp=cfg.emote.n_exp), device="cpu")
+
+
+def _write_wav(path, seconds, seed):
+    rng = np.random.default_rng(seed)
+    pcm = (rng.uniform(-0.3, 0.3, int(seconds * 16000)) * 32767).astype("<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+
+
+def _assert_npz_matches(path, ref):
+    got = np.load(path)
+    for key in ("exp", "jaw", "style_emb"):
+        np.testing.assert_allclose(got[key], ref[key], atol=1e-6, rtol=0, err_msg=key)
+
+
+def test_generate_save_video(tmp_path, monkeypatch, direct, capsys):
+    monkeypatch.setattr(tviz.shutil, "which", lambda name: None)  # PNG frames, no ffmpeg
+    wav = tmp_path / "clip.wav"
+    _write_wav(wav, 1.5, seed=0)
+    rc = main(["generate", "--wav", str(wav), "--text", "a happy person", "--tiny",
+               "--device", "cpu", "--save-video", "--image-size", "64", "--seed", "2",
+               "--out", str(tmp_path / "out")])
+    assert rc == 0 and "generate:" in capsys.readouterr().out
+    ref = direct.generate(str(wav), "a happy person", seed=2)
+    _assert_npz_matches(tmp_path / "out" / "clip_coeffs.npz", ref)
+    frame_dir = tmp_path / "out" / "clip_frames"
+    frames = sorted(os.listdir(frame_dir))
+    assert len(frames) == ref["exp"].shape[0] == ref["vertices"].shape[0]
+    imgs = tviz.FlameVisualizer(direct.head.flame_assets.faces, 64,
+                                device="cpu").render_verts(ref["vertices"][-2:])
+    for img, name in zip(imgs, frames[-2:]):
+        np.testing.assert_array_equal(read_png(str(frame_dir / name)),
+                                      (np.clip(img, 0, 1) * 255).astype(np.uint8))
+
+
+def test_instruct_over_corpus(tmp_path, direct):
+    rc = main(["instruct", *CORPUS, "--tiny", "--device", "cpu", "--out", str(tmp_path)])
+    assert rc == 0
+    for item in CaptionDataset(*CORPUS[1::2]):
+        ref = direct.generate(item.wav_path, item.captions[0], seed=0)
+        _assert_npz_matches(tmp_path / f"{item.name}_cap0_coeffs.npz", ref)
+
+
+def test_serve_over_corpus(tmp_path, capsys):
+    rc = main(["serve", *CORPUS, "--tiny", "--device", "cpu", "--max-batch", "4",
+               "--max-wait-ms", "30", "--length-buckets", "128", "256", "512",
+               "--out", str(tmp_path)])
+    assert rc == 0
+    assert "served 4 requests" in capsys.readouterr().out
+    outs = sorted(tmp_path.glob("*_coeffs.npz"))
+    assert len(outs) == 4
+    for path in outs:
+        z = np.load(path)
+        assert z["exp"].shape == (z["jaw"].shape[0], 6) and z["jaw"].shape[1] == 3
+        assert all(np.isfinite(z[k]).all() for k in ("exp", "jaw", "style_emb"))
+
+
+def test_cli_runs_on_the_card_unless_told_otherwise(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wav = tmp_path / "clip.wav"
+    _write_wav(wav, 0.5, seed=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["generate", "--wav", str(wav), "--text", "x", "--tiny", "--out", str(tmp_path)])
+
+
+@pytest.mark.parametrize("flag", [["--bf16"], ["--checkpoint", "ckpt"]])
+def test_unported_flags_exit_with_a_message(tmp_path, flag):
+    with pytest.raises(SystemExit, match="not ported"):
+        main(["generate", "--wav", "x.wav", "--text", "x", "--tiny", "--device", "cpu",
+              "--out", str(tmp_path), *flag])

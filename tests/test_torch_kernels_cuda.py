@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
+from avi_talking_tpu_torch.ops.kernels import rasterize as kras
 
 CASES = [
     # B, H, T, S, d, valid key lengths per batch
@@ -60,3 +61,61 @@ def test_keybias_kernel_refuses_what_it_does_not_take():
                              v[..., :12].contiguous(), bias)
     with pytest.raises(ValueError):  # not contiguous
         kb.keybias_attention(q.transpose(2, 3), k, v, bias)
+
+
+VIS_CASES = [
+    # n tiles, cap, px_n, share of valid slots, triangle size
+    (3, 100, 37, 0.8, 1.0),  # ragged cap (not a multiple of 256) and px_n
+    (2, 600, 1500, 0.7, 1.0),  # several staging steps and pixel passes
+    (4, 64, 1024, 0.0, 1.0),  # all-sentinel tiles
+    (5, 1024, 3136, 0.3, 0.2),  # the 224^2 / tile 56 shape, small faces
+    (1024, 1024, 1024, 1.0, 1.0),  # the render path's launch: 16 frames x 64 tiles
+]
+
+
+def _visibility_inputs(n, cap, px_n, valid_share, size, seed=3):
+    """Random tiles with degenerate faces (two equal corners), exact
+    duplicates of the previous slot (z ties) and sentinel slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform(-1.0, 1.0, (n, cap, 1, 3))
+    tri = (centre + size * rng.uniform(-1.0, 1.0, (n, cap, 3, 3))).reshape(n, cap, 9)
+    tri = tri.astype(np.float32)
+    tri[:, ::7, 3:6] = tri[:, ::7, 0:3]
+    tri[:, 1::5] = tri[:, 0:-1:5]
+    valid = (rng.random((n, cap, 1)) < valid_share).astype(np.float32)
+    px = rng.uniform(-1.0, 1.0, (n, px_n)).astype(np.float32)
+    py = rng.uniform(-1.0, 1.0, (n, px_n)).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (tri, valid, px, py)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cap,px_n,valid_share,size", VIS_CASES)
+def test_visibility_kernel_bit_equal_to_plain_version(n, cap, px_n, valid_share, size):
+    """zbuf and slot bit-equal to the plain version; one launch counted."""
+    tri, valid, px, py = _visibility_inputs(n, cap, px_n, valid_share, size)
+    before = kras.launches
+    z, s = kras.rasterize_tiles_visibility(tri, valid, px, py)
+    torch.cuda.synchronize()
+    assert kras.launches == before + 1
+    rz, rs = kras.rasterize_tiles_visibility_reference(tri, valid, px, py)
+    assert s.dtype == torch.int32 and z.dtype == torch.float32
+    assert torch.equal(s, rs) and torch.equal(z, rz)
+    if valid_share == 0.0:
+        assert (s == -1).all() and (z == kras.BIG).all()
+    else:
+        assert (s >= 0).any()
+
+
+@pytest.mark.cuda
+def test_visibility_kernel_refuses_what_it_does_not_take():
+    tri, valid, px, py = _visibility_inputs(2, 64, 32, 0.5, 1.0)
+    with pytest.raises(NotImplementedError, match="grad"):
+        kras.rasterize_tiles_visibility(tri.clone().requires_grad_(), valid, px, py)
+    with pytest.raises(TypeError):
+        kras.rasterize_tiles_visibility(tri.double(), valid, px, py)
+    with pytest.raises(ValueError):  # not contiguous
+        kras.rasterize_tiles_visibility(tri, valid, px.t().contiguous().t(), py)
+    with pytest.raises(ValueError):  # shape mismatch
+        kras.rasterize_tiles_visibility(tri, valid[:, :32], px, py)
