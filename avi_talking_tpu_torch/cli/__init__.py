@@ -7,13 +7,15 @@ Subcommands:
              generate per caption
   serve      the same corpus through the micro-batching InferenceServer
              (batch coalescing, warmup, p50 / p99)
+  train-faceformer
+             stage-1 FaceFormer training (AdamW) on synthetic batches
 
 Everything runs on the CUDA card unless ``--device cpu`` is given; without
 a card and without ``--device`` the commands raise. Weights are seeded
 random (``--checkpoint`` and ``--bf16`` are not ported yet and exit with an
 error); ``--flame-npz`` gives real FLAME assets. The JAX package's other
-subcommands (portrait, bench, diversity, training and importers) are still
-to port.
+subcommands (portrait, bench, diversity, the other trainers and importers)
+are still to port.
 """
 
 from __future__ import annotations
@@ -22,12 +24,13 @@ import argparse
 
 
 def main(argv=None) -> int:
-    from . import run
+    from . import run, train
     from ._common import common_args
 
     p = argparse.ArgumentParser(prog="avi-talking-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
     run.register(sub, common_args)
+    train.register(sub, common_args)
     args = p.parse_args(argv)
     return args.fn(args)

@@ -1,0 +1,82 @@
+"""train-faceformer: stage-1 coefficient-space FaceFormer training on
+synthetic batches (the JAX command without ``--root``)."""
+
+from __future__ import annotations
+
+import time
+
+REFUSED = {
+    "root": "--root (MEAD / EMOCA data) waits for the data-backed batches (ROADMAP Queue 1, item 15)",
+    "render_loss": "--render-loss needs PIRender (ROADMAP Queue 1, items 12 and 13)",
+    "emo_loss": "--emo-loss needs EmoNet (ROADMAP Queue 1, items 10 and 12)",
+    "fan_checkpoint": "--fan-checkpoint needs the FanEncoder (ROADMAP Queue 1, item 13)",
+    "emonet_checkpoint": "--emonet-checkpoint needs EmoNet (ROADMAP Queue 1, item 10)",
+    "ckpt_dir": "--ckpt-dir needs checkpoint saving (ROADMAP Queue 1, item 15)",
+    "flame_npz": "--flame-npz feeds the landmark terms, which need FLAME landmarks "
+                 "(ROADMAP Queue 1, item 12)",
+    "bf16": "--bf16: the port computes in float32",
+    "checkpoint": "--checkpoint: the port trains from seeded random weights",
+}
+
+
+def synthetic_batches(cfg, batch_size: int, seq_length: int, seed: int, device):
+    """Endless synthetic batches from ``numpy.random.default_rng(seed)``,
+    drawn in the JAX command's order."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    B, T = batch_size, seq_length
+
+    def draw(shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    while True:
+        out = {"audio": draw((B, T * 640)), "coeff": draw((B, T, cfg.vertice_dim)) * 0.3}
+        if cfg.with_condition_merge:
+            out["eye_embed"] = draw((B, T, cfg.eye_dim))
+            out["emo_embed"] = draw((B, T, cfg.emo_dim))
+            out["ref_coeff"] = draw((B, 1, cfg.vertice_dim))
+        yield {k: torch.from_numpy(a).to(device) for k, a in out.items()}
+
+
+def cmd_train_faceformer(args) -> int:
+    from ..infra.device import resolve_device
+    from ..models.faceformer import FaceFormerCoeff, FaceFormerConfig
+    from ..train.faceformer_trainer import FaceFormerTrainer, adamw
+
+    for name, why in REFUSED.items():
+        if getattr(args, name, None):
+            raise SystemExit(f"train-faceformer: not ported to avi_talking_tpu_torch yet: {why}")
+    device = resolve_device(args.device)
+    cfg = FaceFormerConfig.tiny() if args.tiny else FaceFormerConfig()
+    model = FaceFormerCoeff.random_init(cfg, seed=args.seed, device=device)
+    trainer = FaceFormerTrainer(model=model, optimizer=adamw(model.parameters(), args.lr))
+    batches = synthetic_batches(cfg, args.batch_size, args.seq_length, args.seed, device)
+    next(batches)  # the JAX command draws its first batch to initialise the params
+
+    metrics = {}
+    t0 = time.time()
+    for i in range(args.steps):
+        metrics = trainer.train_step(next(batches))
+        if (i + 1) % 50 == 0:
+            print(f"step {i+1}: " + " ".join(f"{k}={float(v):.4f}" for k, v in metrics.items())
+                  + f" ({(i+1)/(time.time()-t0):.1f} it/s)")
+    print("final:", {k: float(v) for k, v in metrics.items()})
+    return 0
+
+
+def register(sub, common):
+    tf = sub.add_parser("train-faceformer", help="stage-1 FaceFormer training (synthetic batches)")
+    tf.add_argument("--steps", type=int, default=200)
+    tf.add_argument("--batch-size", type=int, default=16)
+    tf.add_argument("--seq-length", type=int, default=25)
+    tf.add_argument("--lr", type=float, default=1e-4)
+    tf.add_argument("--root", default=None, help="(not ported yet)")
+    tf.add_argument("--fan-checkpoint", default=None, help="(not ported yet)")
+    tf.add_argument("--render-loss", action="store_true", help="(not ported yet)")
+    tf.add_argument("--emo-loss", action="store_true", help="(not ported yet)")
+    tf.add_argument("--emonet-checkpoint", default=None, help="(not ported yet)")
+    tf.add_argument("--ckpt-dir", default=None, help="(not ported yet)")
+    common(tf)
+    tf.set_defaults(fn=cmd_train_faceformer)

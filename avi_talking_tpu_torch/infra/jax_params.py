@@ -83,6 +83,51 @@ def transformer_encoder_state_from_jax(params: Tree) -> State:
     return out
 
 
+def _attention(p: Tree) -> State:
+    return {"in_proj_weight": _a(p["in_proj_weight"]), "in_proj_bias": _a(p["in_proj_bias"]),
+            "out_proj.weight": _a(p["out_proj_weight"]), "out_proj.bias": _a(p["out_proj_bias"])}
+
+
+def transformer_decoder_state_from_jax(params: Tree) -> State:
+    """``ops.transformer.TransformerDecoder`` params -> port state."""
+    out: State = {}
+    for i in range(_count(params, "layers_")):
+        lp, pre = params[f"layers_{i}"], f"layers.{i}."
+        for name in ("self_attn", "multihead_attn"):
+            _put(out, f"{pre}{name}.", _attention(lp[name]))
+        for name in ("linear1", "linear2"):
+            _put(out, f"{pre}{name}.", _dense(lp[name]))
+        for name in ("norm1", "norm2", "norm3"):
+            _put(out, f"{pre}{name}.", _norm(lp[name]))
+    return out
+
+
+def faceformer_state_from_jax(params: Tree) -> State:
+    """``models.faceformer.FaceFormerCoeff`` params -> port state."""
+    out: State = {"obj_embedding": _a(params["obj_embedding"])}
+    _put(out, "audio_encoder.", wav2vec2_state_from_jax(params["audio_encoder"]))
+    for name in ("audio_feature_map", "vertice_map", "vertice_map_r", "coeff2style",
+                 "v_merge2hidden"):
+        if name in params:
+            _put(out, name + ".", _dense(params[name]))
+    _put(out, "transformer_decoder.",
+         transformer_decoder_state_from_jax(params["transformer_decoder"]))
+    return out
+
+
+def faceformer_vert_state_from_jax(params: Tree) -> State:
+    """``models.faceformer_vert.FaceFormerVert`` params -> port state."""
+    out: State = {"learnable_eye_embed": _a(params["learnable_eye_embed"])}
+    _put(out, "audio_encoder.", wav2vec2_state_from_jax(params["audio_encoder"]))
+    for name in ("audio_feature_map", "vertice_map", "vertice_map_r", "obj_vector",
+                 "v_merge2hidden"):
+        if name in params:
+            _put(out, name + ".", _dense(params[name]))
+    _put(out, "transformer_decoder.",
+         transformer_decoder_state_from_jax(params["transformer_decoder"]))
+    return out
+
+
 def wav2vec2_state_from_jax(params: Tree) -> State:
     """``audio.wav2vec2.Wav2Vec2Model`` params -> port (HF-named) state."""
     out: State = {}

@@ -2,10 +2,17 @@
 
 The port of ``avi_talking_tpu/ops/pallas/attention.py::fused_keybias_attention``
 (the TPU kernel K1). On CUDA tensors ``keybias_attention`` launches the
-hand-written kernel ``csrc/keybias_attention.cu`` (fp32, sm_90a; its header
-says what bounds it and how it is laid out) or raises; on CPU tensors it
+hand-written kernel ``csrc/bias_attention.cu`` through its key-bias entry
+(fp32, sm_90a; the source's header says what bounds it and how it is laid
+out; K3 shares the kernel) or raises; on CPU tensors it
 runs ``keybias_attention_reference``, the plain PyTorch version of the same
 function, which the tests hold to JAX and the chip check holds the kernel to.
+
+``keybias_attention`` is differentiable on both devices: a
+``torch.autograd.Function`` whose backward is ``attention_backward``, the
+port of the JAX custom_vjp's ``_keybias_bwd``. That backward is plain XLA in
+JAX, outside any Pallas kernel, and stays plain PyTorch here: it recomputes
+the softmax and launches no kernel.
 """
 
 from __future__ import annotations
@@ -44,11 +51,22 @@ def keybias_attention_reference(
     return torch.einsum("bhts,bhsd->bhtd", weights, v).to(q.dtype)
 
 
+def attention_backward(q, k, v, bias, do):
+    """The recompute backward of ``softmax(q . k^T + bias) . v`` (JAX's
+    ``_keybias_bwd``), with ``bias`` broadcastable to (B, H, T, S). Returns
+    (dq, dk, dv, ds); ds is the gradient of the biased scores, (B, H, T, S)."""
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) + bias.float()
+    w = torch.softmax(s, dim=-1)
+    do32 = do.float()
+    dv = torch.einsum("bhts,bhtd->bhsd", w, do32)
+    dw = torch.einsum("bhtd,bhsd->bhts", do32, v.float())
+    ds = w * (dw - (dw * w).sum(-1, keepdim=True))
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, k.float())
+    dk = torch.einsum("bhts,bhtd->bhsd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds
+
+
 def _check_cuda_inputs(q, k, v, key_bias) -> None:
-    if any(t.requires_grad for t in (q, k, v, key_bias)):
-        raise NotImplementedError(
-            "keybias_attention has no backward on CUDA yet; it comes with the "
-            "training slice (the JAX backward is _keybias_bwd)")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or key_bias.dim() != 2:
         raise ValueError("expected q/k/v of rank 4 and key_bias of rank 2")
     B, H, T, d = q.shape
@@ -68,13 +86,7 @@ def _check_cuda_inputs(q, k, v, key_bias) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def keybias_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor
-) -> torch.Tensor:
-    """(B, H, T, d) attention output. CPU tensors take the plain version;
-    CUDA tensors take the kernel, which raises on what it does not take
-    (non-fp32, non-contiguous, head_dim not a multiple of 8 or above 128,
-    inputs that require grad)."""
+def _forward(q, k, v, key_bias) -> torch.Tensor:
     if q.device.type == "cpu":
         return keybias_attention_reference(q, k, v, key_bias)
     if q.device.type != "cuda":
@@ -82,7 +94,7 @@ def keybias_attention(
     _check_cuda_inputs(q, k, v, key_bias)
     B, H, T, d = q.shape
     S = k.shape[2]
-    lib = load("keybias_attention")
+    lib = load("bias_attention")
     fn = lib.avi_keybias_attention_f32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -95,3 +107,30 @@ def keybias_attention(
         raise RuntimeError(f"keybias_attention kernel launch failed: cudaError {err}")
     _count_launch()
     return out
+
+
+class _KeybiasAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias):
+        ctx.save_for_backward(q, k, v, key_bias)
+        return _forward(q, k, v, key_bias)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_bias = ctx.saved_tensors
+        dq, dk, dv, ds = attention_backward(q, k, v, key_bias[:, None, None, :], do)
+        dkb = ds.sum((1, 2)).to(key_bias.dtype) if ctx.needs_input_grad[3] else None
+        return dq, dk, dv, dkb
+
+
+def keybias_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor
+) -> torch.Tensor:
+    """(B, H, T, d) attention output, differentiable. CPU tensors take the
+    plain version; CUDA tensors take the kernel, which raises on what it
+    does not take (non-fp32, non-contiguous, head_dim not a multiple of 8 or
+    above 128). The gradient of ``key_bias`` is computed only when it
+    requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, key_bias)):
+        return _KeybiasAttention.apply(q, k, v, key_bias)
+    return _forward(q, k, v, key_bias)  # inference: no autograd node to build

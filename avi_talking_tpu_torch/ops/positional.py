@@ -1,5 +1,5 @@
-"""Positional encodings and the T5 relative-position bucket (port of the
-parts of ``avi_talking_tpu/ops/positional.py`` the generate path uses)."""
+"""Positional encodings, the FaceFormer attention biases and the T5
+relative-position bucket (port of ``avi_talking_tpu/ops/positional.py``)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,54 @@ import math
 
 import numpy as np
 import torch
+
+NEG_INF = -1e9  # finite -inf stand-in: a fully masked row stays a uniform softmax
+
+
+def alibi_slopes(n_heads: int) -> np.ndarray:
+    """ALiBi per-head slopes (Press et al.), built in Python floats and cast
+    to float32 as the JAX function does."""
+
+    def pow2_slopes(n: int) -> list[float]:
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(n_heads).is_integer():
+        return np.asarray(pow2_slopes(n_heads), dtype=np.float32)
+    closest = 2 ** math.floor(math.log2(n_heads))
+    extra = pow2_slopes(2 * closest)[0::2][: n_heads - closest]
+    return np.asarray(pow2_slopes(closest) + extra, dtype=np.float32)
+
+
+def faceformer_bias(
+    n_heads: int, seq_len: int, period: int, causal: bool = True,
+    dtype=torch.float32, device=None,
+) -> torch.Tensor:
+    """(H, T, T) additive self-attention bias: causal mask plus periodised
+    ALiBi, ``bias[h, i, j] = -slope[h] * ((i - j) // period)`` for ``j <= i``
+    and ``NEG_INF`` above the diagonal (when ``causal``)."""
+    slopes = torch.as_tensor(alibi_slopes(n_heads), dtype=dtype, device=device)
+    i = torch.arange(seq_len, device=device)[:, None]
+    j = torch.arange(seq_len, device=device)[None, :]
+    dist = torch.where(i >= j, torch.div(i - j, period, rounding_mode="floor"), 0)
+    bias = -slopes[:, None, None] * dist[None].to(dtype)
+    if causal:
+        bias = torch.where((j > i)[None], torch.tensor(NEG_INF, dtype=dtype, device=device), bias)
+    return bias
+
+
+def enc_dec_alignment_bias(
+    tgt_len: int, src_len: int, frames_per_step: int = 1, dtype=torch.float32, device=None,
+) -> torch.Tensor:
+    """(T, S) additive cross-attention bias: target frame ``i`` sees only
+    source frames ``[i*k, i*k + k)`` (k=1: the diagonal)."""
+    i = torch.arange(tgt_len, device=device)[:, None]
+    j = torch.arange(src_len, device=device)[None, :]
+    k = frames_per_step
+    allowed = (j >= i * k) & (j < i * k + k)
+    return torch.where(allowed, torch.tensor(0.0, dtype=dtype, device=device),
+                       torch.tensor(NEG_INF, dtype=dtype, device=device))
+
 
 def _sinusoid_table(length: int, d_model: int) -> np.ndarray:
     position = np.arange(length, dtype=np.float64)[:, None]

@@ -1,12 +1,22 @@
 """Post-LN transformer blocks with torch-layout parameters (port of
 ``avi_talking_tpu/ops/transformer.py``: ``MultiHeadAttention``,
-``TransformerEncoderLayer``, ``TransformerEncoder``).
+``TransformerEncoderLayer``, ``TransformerEncoder``,
+``TransformerDecoderLayer``, ``TransformerDecoder``).
 
 Parameter names are those of ``torch.nn.MultiheadAttention`` /
-``TransformerEncoderLayer`` (packed ``in_proj_weight``), so reference state
-dicts load as they are. The LayerNorms use epsilon 1e-6, the JAX package's
-(flax's default), not torch's 1e-5. Masks are additive float biases
-(0 keep, -1e9 drop) broadcastable to (B, H, T, S).
+``TransformerEncoderLayer`` / ``TransformerDecoderLayer`` (packed
+``in_proj_weight``), so reference state dicts load as they are. The
+LayerNorms use epsilon 1e-6, the JAX package's (flax's default), not
+torch's 1e-5. Masks are additive float biases (0 keep, -1e9 drop)
+broadcastable to (B, H, T, S).
+
+``MultiHeadAttention(use_fused_kernel=True)`` sends the scores through
+``fused_bias_attention``, the CUDA kernel K3 on the card, with the bias as
+it is stored. The JAX flag defaults to off because of a TPU v5e measurement
+(XLA's own fusion won at the decoder's shape there), which says nothing of
+this card: the port's decoder layers, the FaceFormer family's, set it, as
+the port's wav2vec2 runs K1 whatever the JAX ``use_pallas_attention`` gate
+says. The encoder layers (EMOTE, FLINT) keep the plain path.
 """
 
 from __future__ import annotations
@@ -17,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .kernels.bias_attention import fused_bias_attention
 
 FLAX_LN_EPS = 1e-6
 
@@ -34,30 +46,44 @@ def _merge_bias(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 class MultiHeadAttention(nn.Module):
     """``torch.nn.MultiheadAttention``-compatible attention, batch first."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, use_fused_kernel: bool = False):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.use_fused_kernel = use_fused_kernel
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Self-attention over x (B, T, D) with one packed projection (the
-        only use on this path; cross-attention comes with the decoders)."""
+    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """query (B, T, D), key / value (B, S, D). One packed projection when
+        all three are the same tensor (self-attention), else the three
+        slices of it, as the JAX layer does."""
         d, h = self.embed_dim, self.num_heads
         hd = d // h
-        b, t = x.shape[:2]
-        q, k, v = (y.reshape(b, t, h, hd).transpose(1, 2)
-                   for y in F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, -1))
+        if query is key and key is value:
+            q, k, v = F.linear(query, self.in_proj_weight, self.in_proj_bias).chunk(3, -1)
+        else:
+            wq, wk, wv = self.in_proj_weight.chunk(3, 0)
+            bq, bk, bv = self.in_proj_bias.chunk(3, 0)
+            q, k, v = F.linear(query, wq, bq), F.linear(key, wk, bk), F.linear(value, wv, bv)
+        b, t, s = q.shape[0], q.shape[1], k.shape[1]
+        q, k, v = (y.reshape(b, -1, h, hd).transpose(1, 2) for y in (q, k, v))
         scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))  # fp32, as the JAX layer
-        logits = torch.einsum("bhtd,bhsd->bhts", q * scale, k)
-        merged = _merge_bias(bias)
-        if merged is not None:
-            logits = logits + merged.to(logits.dtype)
-        weights = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhts,bhsd->bhtd", weights, v)
+        if self.use_fused_kernel:
+            if bias is None:
+                bias = torch.zeros(t, s, dtype=q.dtype, device=q.device)
+            out = fused_bias_attention((q * scale).contiguous(), k.contiguous(),
+                                       v.contiguous(), bias.contiguous())
+        else:
+            logits = torch.einsum("bhtd,bhsd->bhts", q * scale, k)
+            merged = _merge_bias(bias)
+            if merged is not None:
+                logits = logits + merged.to(logits.dtype)
+            weights = torch.softmax(logits, dim=-1)
+            out = torch.einsum("bhts,bhsd->bhtd", weights, v)
         return self.out_proj(out.transpose(1, 2).reshape(b, t, d))
 
 
@@ -86,7 +112,7 @@ class TransformerEncoderLayer(nn.Module):
         self.activation_name = activation
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.norm1(x + self.dropout(self.self_attn(x, bias)))
+        x = self.norm1(x + self.dropout(self.self_attn(x, x, x, bias)))
         h = self.dropout(activation(self.activation_name)(self.linear1(x)))
         return self.norm2(x + self.dropout(self.linear2(h)))
 
@@ -107,3 +133,50 @@ class TransformerEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, bias)
         return x
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Post-LN ``torch.nn.TransformerDecoderLayer`` equivalent, batch first:
+    self-attention over the target with ``tgt_bias``, cross-attention to
+    ``memory`` with ``memory_bias``, both through K3."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 activation: str = "relu", dropout_rate: float = 0.0):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(d_model, nhead, use_fused_kernel=True)
+        self.multihead_attn = MultiHeadAttention(d_model, nhead, use_fused_kernel=True)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=FLAX_LN_EPS)
+        self.norm2 = nn.LayerNorm(d_model, eps=FLAX_LN_EPS)
+        self.norm3 = nn.LayerNorm(d_model, eps=FLAX_LN_EPS)
+        self.dropout = nn.Dropout(dropout_rate)
+        self.activation_name = activation
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                tgt_bias: Optional[torch.Tensor] = None,
+                memory_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.norm1(tgt + self.dropout(self.self_attn(tgt, tgt, tgt, tgt_bias)))
+        x = self.norm2(x + self.dropout(self.multihead_attn(x, memory, memory, memory_bias)))
+        h = self.dropout(activation(self.activation_name)(self.linear1(x)))
+        return self.norm3(x + self.dropout(self.linear2(h)))
+
+
+class TransformerDecoder(nn.Module):
+    """Stack of post-LN decoder layers (``torch.nn.TransformerDecoder``)."""
+
+    def __init__(self, num_layers: int, d_model: int, nhead: int,
+                 dim_feedforward: int, activation: str = "relu",
+                 dropout_rate: float = 0.0):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(d_model, nhead, dim_feedforward, activation, dropout_rate)
+            for _ in range(num_layers)
+        )
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                tgt_bias: Optional[torch.Tensor] = None,
+                memory_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for layer in self.layers:
+            tgt = layer(tgt, memory, tgt_bias, memory_bias)
+        return tgt

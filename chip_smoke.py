@@ -2,7 +2,8 @@
 """Chip check of the PyTorch / CUDA port (avi_talking_tpu_torch) on one card.
 
     python3 chip_smoke.py              # the check; needs one CUDA card and nvcc
-    python3 chip_smoke.py --profile    # also profiles one generate and one render
+    python3 chip_smoke.py --profile    # also profiles one generate, one render
+                                       # and one FaceFormer training step
 
 Run it from the root of a checkout: it builds the port's CUDA kernels from
 the checkout's sources into build/, then
@@ -11,8 +12,12 @@ the checkout's sources into build/, then
             together), reported in seconds with the compiler's register and
             spill report;
 2. kernels: K1 (key-bias attention) against its plain PyTorch version on the
-            card at the generate path's shapes, with its time, the plain
-            version's, one PyTorch library call's and the card's lower bound;
+            card at the generate path's shapes, and K3 (biased attention) at
+            the FaceFormer decoder's four shapes, each with its time, the
+            plain version's, one PyTorch library call's and the card's lower
+            bound; K1's and K3's gradients on the card against the same
+            formula on CPU copies, and the backward's time at the training
+            shapes;
 3. generate: full-width PipelineConfig() with seeded random weights and
             full-size synthetic FLAME assets on an 8 s clip: shapes,
             finiteness, same seed -> same output, kernel launches, time;
@@ -32,8 +37,15 @@ the checkout's sources into build/, then
 9. serve:   the fixture caption corpus (experiments/) through InferenceServer
             at max_batch 4, driven as `cli serve` drives it, each result held
             to generate_batch on the same padded micro-batch; p50 / p99;
-10. the kernels summary line and the card's name and power limit;
-11. the result line.
+10. faceformer: full-width FaceFormerConfig() (wav2vec2-base, decoder 128
+            wide) on 24 s of audio: the teacher-forced forward and the
+            KV-cached predict, with K1 / K3 launches, AR vs teacher-forced
+            consistency, the card against the CPU, repeatability and times;
+11. train_faceformer: `cli train-faceformer` at its defaults (B=16, T=25)
+            for 5 steps, launches per step, step time; one step on the card
+            against the same step on the CPU;
+12. the kernels summary line and the card's name and power limit;
+13. the result line.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without the result line. It imports nothing of JAX.
@@ -101,6 +113,25 @@ def keybias_bound(B, H, T, S, d, peaks):
     nbytes = 4 * B * H * (2 * T + 2 * S) * d + 4 * B * S
     t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def bias_attention_bound(B, H, T, S, d, bias_numel, peaks):
+    """K3's least time: 4*B*H*T*S*d fp32 operations; q, k, v and out read or
+    written once, and the bias as it is stored."""
+    flops = 4 * B * H * T * S * d
+    nbytes = 4 * B * H * (2 * T + 2 * S) * d + 4 * bias_numel
+    t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def attention_backward_bound(B, H, T, S, d, bias_numel, peaks):
+    """The recompute backward's least time: five (T, S, d) products (the
+    scores, dv, dw, dq, dk), 10*B*H*T*S*d fp32 operations; q, k, v, do and
+    the bias read once, dq, dk, dv written once."""
+    flops = 10 * B * H * T * S * d
+    nbytes = 4 * B * H * (3 * T + 3 * S) * d + 4 * bias_numel
+    t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def visibility_bound(tri, valid, px, py, peaks, chunk=64):
@@ -178,9 +209,10 @@ def phase_build():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    built = build.build(["keybias_attention", "rasterize_visibility"])
-    build.load("keybias_attention")
-    build.load("rasterize_visibility")
+    names = ["bias_attention", "rasterize_visibility"]
+    built = build.build(names)
+    for name in names:
+        build.load(name)
     emit({"phase": "build",
           "kernels": {name: {"seconds": b["seconds"],
                              "ptxas": [line.strip() for line in b["log"].splitlines()
@@ -229,6 +261,313 @@ def phase_kernels(peaks):
         rows.append(row)
         emit({"phase": "kernel_check", "kernel": "keybias_attention", **row})
     return rows
+
+
+def phase_bias_kernels(peaks):
+    """K3 against its plain version at the FaceFormer decoder's shapes: the
+    training step's self-attention, and predict-length (600-frame)
+    self-attention, cross-attention and the vertex model's head width."""
+    import torch
+    import torch.nn.functional as F
+
+    from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
+    from avi_talking_tpu_torch.ops.positional import enc_dec_alignment_bias, faceformer_bias
+
+    tol = 1e-5  # fp32 kernel vs fp32 plain version: only summation order differs
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cases = [
+        ("train_self_HTT", 16, 4, 25, 32, "HTT"),
+        ("forward_self_HTT", 1, 4, 600, 32, "HTT"),
+        ("forward_cross_TS", 1, 4, 600, 32, "TS"),
+        ("vert_self_HTT_d16", 1, 4, 600, 16, "HTT"),
+    ]
+    rows = []
+    for name, B, H, T, d, kind in cases:
+        S = T
+        q = torch.randn(B, H, T, d, device="cuda", generator=g) * d ** -0.5
+        k = torch.randn(B, H, S, d, device="cuda", generator=g)
+        v = torch.randn(B, H, S, d, device="cuda", generator=g)
+        bias = (faceformer_bias(H, T, 25, device="cuda") if kind == "HTT"
+                else enc_dec_alignment_bias(T, S, device="cuda"))
+        out = kba.fused_bias_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref = kba.fused_bias_attention_reference(q, k, v, bias)
+        err = float((out - ref).abs().max())
+        check(math.isfinite(err) and err < tol, f"fused_bias_attention {name}: max |d| {err} >= {tol}")
+        mask = bias[None] if bias.dim() == 3 else bias[None, None]  # a broadcast view, no copy
+        row = {
+            "case": name, "shape": [B, H, T, S, d], "bias_shape": list(bias.shape),
+            "max_abs_err": err, "tol": tol,
+            "ms": time_ms(lambda: kba.fused_bias_attention(q, k, v, bias)),
+            "plain_ms": time_ms(lambda: kba.fused_bias_attention_reference(q, k, v, bias)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=1.0)),
+        }
+        row["bound_ms"], row["bound_by"], row["flops"], row["bytes"] = bias_attention_bound(
+            B, H, T, S, d, bias.numel(), peaks)
+        rows.append(row)
+        emit({"phase": "kernel_check", "kernel": "fused_bias_attention", **row})
+    return rows
+
+
+def phase_attention_grads(peaks):
+    """K1's and K3's gradients at the training step's shapes (K1: wav2vec2
+    after the 50 -> 25 fps resample, B=16 H=12 T=S=25 d=64; K3: the decoder's
+    self-attention, B=16 H=4 T=S=25 d=32): the kernel forward with the
+    autograd backward on the card against the same wrappers on CPU copies,
+    and the backward's time beside its bound, the plain version's backward
+    (autograd through it) and scaled_dot_product_attention's backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
+    from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
+    from avi_talking_tpu_torch.ops.positional import faceformer_bias
+
+    tol = 1e-4
+    g = torch.Generator().manual_seed(5)
+    rows = []
+    for name, B, H, T, d in (("keybias_attention", 16, 12, 25, 64),
+                             ("fused_bias_attention", 16, 4, 25, 32)):
+        S = T
+        q = torch.randn(B, H, T, d, generator=g) * d ** -0.5
+        k, v = torch.randn(B, H, S, d, generator=g), torch.randn(B, H, S, d, generator=g)
+        cot = torch.randn(B, H, T, d, generator=g)
+        if name == "keybias_attention":
+            bias = torch.zeros(B, S)
+            fn, plain, bias4 = kb.keybias_attention, kb.keybias_attention_reference, bias[:, None, None]
+        else:
+            bias = faceformer_bias(H, T, 25)
+            fn, plain, bias4 = kba.fused_bias_attention, kba.fused_bias_attention_reference, bias[None]
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            ts = [t.to(dev, copy=True).requires_grad_(i < 3) for i, t in enumerate((q, k, v, bias))]
+            (fn(*ts) * cot.to(dev)).sum().backward()
+            grads[dev] = [t.grad.cpu() for t in ts[:3]]
+        errs = {n: float((a - b).abs().max()) for n, a, b in zip(("dq", "dk", "dv"), grads["cuda"],
+                                                                  grads["cpu"])}
+        for n, e in errs.items():
+            check(e < tol, f"{name} gradient {n} on the card vs the CPU: max |d| {e} >= {tol}")
+        qc, kc, vc = (t.cuda().requires_grad_() for t in (q, k, v))
+        bc, cc = bias.cuda(), cot.cuda()
+
+        def bwd_ms(out):
+            return time_ms(lambda: torch.autograd.grad(out, (qc, kc, vc), cc, retain_graph=True))
+
+        row = {"kernel": name, "shape": [B, H, T, S, d], "max_abs_err": errs, "tol": tol,
+               "backward_ms": bwd_ms(fn(qc, kc, vc, bc)),
+               "plain_backward_ms": bwd_ms(plain(qc, kc, vc, bc)),
+               "library_backward_ms": bwd_ms(F.scaled_dot_product_attention(
+                   qc, kc, vc, attn_mask=bias4.cuda(), scale=1.0))}
+        row["bound_ms"], row["bound_by"] = attention_backward_bound(B, H, T, S, d, bias.numel(),
+                                                                     peaks)
+        rows.append(row)
+        emit({"phase": "attention_grads", **row})
+    return rows
+
+
+def _faceformer_model(cfg, seed, device):
+    """Seeded full-width FaceFormerCoeff with its zero-init head filled
+    (seeded, LeCun scale), so the outputs carry weight; obj_embedding and
+    the vertice_map bias stay 0, which aligns the AR and teacher-forced
+    start tokens."""
+    import torch
+
+    from avi_talking_tpu_torch.models.faceformer import FaceFormerCoeff
+
+    model = FaceFormerCoeff.random_init(cfg, seed=seed, device=device)
+    g = torch.Generator().manual_seed(seed + 1)
+    w = model.vertice_map_r.weight
+    with torch.no_grad():
+        w.copy_(torch.randn(w.shape, generator=g) * w.shape[1] ** -0.5)
+    return model
+
+
+def _faceformer_inputs(cfg, B, T, seed, device):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    audio = np.stack([synthetic_wav(T / 25.0, seed + i) for i in range(B)])
+    arrays = [audio, rng.standard_normal((B, T, cfg.vertice_dim)) * 0.3,
+              rng.standard_normal((B, T, cfg.eye_dim)), rng.standard_normal((B, T, cfg.emo_dim)),
+              rng.standard_normal((B, 1, cfg.vertice_dim))]
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+
+
+def phase_faceformer(kb, kba):
+    """Full-width FaceFormerConfig() on 24 s of audio (B=1, T=600): the
+    teacher-forced forward and the KV-cached predict with their K1 / K3
+    launches, AR vs teacher-forced consistency, the forward on the card
+    against the same weights on the CPU, repeatability, wall medians."""
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.models.faceformer import FaceFormerConfig
+
+    cfg = FaceFormerConfig()
+    B, T = 1, 600
+    model = _faceformer_model(cfg, seed=0, device="cuda")
+    audio, coeffs, eye, emo, ref = _faceformer_inputs(cfg, B, T, seed=20, device="cuda")
+    with torch.no_grad():
+        kb.launches = kba.launches = 0
+        tf = model(audio, coeffs, eye, emo, ref)
+        torch.cuda.synchronize()
+        fwd_launches = {"keybias_attention": kb.launches, "fused_bias_attention": kba.launches}
+        kb.launches = kba.launches = 0
+        ar = model.predict(audio, T, eye, emo, ref)
+        torch.cuda.synchronize()
+        pred_launches = {"keybias_attention": kb.launches, "fused_bias_attention": kba.launches}
+        check(fwd_launches == {"keybias_attention": 12, "fused_bias_attention": 2},
+              f"the forward launched {fwd_launches}, not K1 12 and K3 2")
+        check(pred_launches == {"keybias_attention": 12, "fused_bias_attention": 0},
+              f"predict launched {pred_launches}, not K1 12 and K3 0")
+        check(tf.shape == coeffs.shape and ar.shape == coeffs.shape,
+              f"shapes {tuple(tf.shape)} / {tuple(ar.shape)}")
+        check(bool(torch.isfinite(tf).all() and torch.isfinite(ar).all()), "non-finite output")
+        tf_on_ar = model(audio, ar, eye, emo, ref)
+        ar_err = float((tf_on_ar - ar).abs().max())
+        check(torch.allclose(tf_on_ar, ar, rtol=2e-4, atol=2e-5),
+              f"AR vs teacher-forced on its own outputs: max |d| {ar_err}")
+        repeat = float((model(audio, coeffs, eye, emo, ref) - tf).abs().max())
+        same_seed = _faceformer_model(cfg, seed=0, device="cuda")
+        seed_diff = float((same_seed(audio, coeffs, eye, emo, ref) - tf).abs().max())
+        check(repeat <= 1e-6 and seed_diff <= 1e-6,
+              f"same input / same seed gave another output ({repeat}, {seed_diff})")
+        del same_seed
+        fwd_s, pred_s = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            model(audio, coeffs, eye, emo, ref)
+            torch.cuda.synchronize()
+            fwd_s.append(time.perf_counter() - t0)
+        for _ in range(3):
+            t0 = time.perf_counter()
+            model.predict(audio, T, eye, emo, ref)
+            torch.cuda.synchronize()
+            pred_s.append(time.perf_counter() - t0)
+        cpu = _faceformer_model(cfg, seed=0, device="cpu")
+        t0 = time.perf_counter()
+        c = cpu(*(t.cpu() for t in (audio, coeffs, eye, emo, ref)))
+        cpu_s = time.perf_counter() - t0
+        cpu_err = float((tf.cpu() - c).abs().max())
+    tol = 1e-3  # fp32 on both (TF32 off); 12 + 1 layers reorder their sums
+    check(cpu_err < tol, f"FaceFormer forward, card vs CPU: max |d| {cpu_err} >= {tol}")
+    emit({"phase": "faceformer", "config": "FaceFormerConfig()", "batch": B, "frames": T,
+          "audio_s": T / 25.0, "forward_launches": fwd_launches, "predict_launches": pred_launches,
+          "finite": True, "ar_vs_tf_max_abs_diff": ar_err, "ar_vs_tf_tol": {"rtol": 2e-4, "atol": 2e-5},
+          "gpu_vs_cpu_max_abs_err": cpu_err, "gpu_vs_cpu_tol": tol,
+          "max_abs_output": float(tf.abs().max()), "same_input_max_abs_diff": repeat,
+          "same_seed_max_abs_diff": seed_diff,
+          "forward_wall_s_median": statistics.median(fwd_s), "forward_wall_s_all": fwd_s,
+          "predict_wall_s_median": statistics.median(pred_s), "predict_wall_s_all": pred_s,
+          "predict_ms_per_frame": statistics.median(pred_s) / T * 1e3, "cpu_forward_wall_s": cpu_s})
+    return fwd_launches
+
+
+def phase_train_faceformer(kb, kba):
+    """`cli train-faceformer` at its defaults (B=16, T=25, lr 1e-4) for 5
+    steps on the card, with the K1 / K3 launches per step; then the same
+    training at B=16 stepped directly for its step time; then one step at
+    B=2 on the card against the same step on the CPU."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.cli import main as cli_main
+    from avi_talking_tpu_torch.cli.train import synthetic_batches
+    from avi_talking_tpu_torch.models.faceformer import FaceFormerConfig
+    from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer, adamw
+
+    steps = 5
+    buf = io.StringIO()
+    kb.launches = kba.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["train-faceformer", "--steps", str(steps)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = {"keybias_attention": kb.launches, "fused_bias_attention": kba.launches}
+    check(rc == 0, f"train-faceformer exited {rc}")
+    check(launches == {"keybias_attention": 12 * steps, "fused_bias_attention": 2 * steps},
+          f"{steps} training steps launched {launches}, not K1 12 and K3 2 per step")
+    final = [line for line in buf.getvalue().splitlines() if line.startswith("final:")]
+    check(len(final) == 1, f"train-faceformer printed {buf.getvalue()!r}")
+    final_loss = float(final[0].split("'loss': ")[1].rstrip("}"))
+    check(math.isfinite(final_loss), f"final loss {final_loss}")
+
+    cfg = FaceFormerConfig()
+    model = _faceformer_model(cfg, seed=0, device="cuda")
+    trainer = FaceFormerTrainer(model=model, optimizer=adamw(model.parameters(), 1e-4))
+    batches = synthetic_batches(cfg, 16, 25, seed=0, device="cuda")
+    losses, step_s = [], []
+    for _ in range(6):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    check(all(math.isfinite(x) for x in losses), f"training losses {losses}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    del trainer, model
+
+    # One step at B=2 on the card and on the CPU from the same weights and
+    # batch. AdamW's first step moves a weight by lr * g / (|g| + 1e-8): where
+    # |g| is below about 100 * eps (the wav2vec2 k_proj biases, whose exact
+    # gradient is 0 by the softmax's shift invariance, carry rounding noise of
+    # 1e-10) the update follows the gradient's last bits and two right
+    # implementations may differ by up to 2 * lr. So the weights are held to
+    # 1e-4 where |g| >= 1e-6 and the rest only to 2 * lr; each gradient
+    # tensor whose largest entry is >= 1e-6 to 1e-3 of that entry, and every
+    # gradient entry to 1e-5 of the largest gradient of the model.
+    pair = {}
+    batch = next(synthetic_batches(cfg, 2, 25, seed=1, device="cpu"))
+    for dev in ("cuda", "cpu"):
+        m = _faceformer_model(cfg, seed=2, device=dev)
+        tr = FaceFormerTrainer(model=m, optimizer=adamw(m.parameters(), 1e-4))
+        loss = float(tr.train_step({k: v.to(dev) for k, v in batch.items()})["loss"])
+        pair[dev] = (loss, {k: p.detach().cpu() for k, p in m.named_parameters()},
+                     {k: p.grad.cpu() for k, p in m.named_parameters() if p.grad is not None})
+    (loss_g, p_g, g_g), (loss_c, p_c, g_c) = pair["cuda"], pair["cpu"]
+    tol, lr = 1e-4, 1e-4
+    loss_err = abs(loss_g - loss_c)
+    param_err, noisy_err, noisy_n, grad_rel, worst = 0.0, 0.0, 0, 0.0, None
+    g_max = max(float(g.abs().max()) for g in g_c.values())
+    grad_abs = max(float((g_g[k] - g).abs().max()) for k, g in g_c.items()) / g_max
+    for k, pc in p_c.items():
+        d = (p_g[k] - pc).abs()
+        well = torch.ones_like(d, dtype=torch.bool) if k not in g_c else g_c[k].abs() >= 1e-6
+        if bool(well.any()) and float(d[well].max()) > param_err:
+            param_err = float(d[well].max())
+        if not bool(well.all()):
+            noisy_n += int((~well).sum())
+            noisy_err = max(noisy_err, float(d[~well].max()))
+        if k in g_c and float(g_c[k].abs().max()) >= 1e-6:
+            rel = float((g_g[k] - g_c[k]).abs().max() / g_c[k].abs().max())
+            if rel > grad_rel:
+                grad_rel, worst = rel, k
+    check(loss_err < tol and param_err < tol and noisy_err <= 2 * lr + 1e-6
+          and grad_rel < 1e-3 and grad_abs < 1e-5,
+          f"one training step, card vs CPU: loss |d| {loss_err}, weights max |d| {param_err} "
+          f"(|g| >= 1e-6) and {noisy_err} (the {noisy_n} others), gradients {grad_rel} of "
+          f"their tensor's largest ({worst}), {grad_abs} of the model's largest")
+    emit({"phase": "train_faceformer", "cli": f"train-faceformer --steps {steps}",
+          "batch": 16, "seq_length": 25, "cli_wall_s": cli_s, "final": final[0],
+          "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "direct_losses": losses, "step_s_all": step_s,
+          "step_s_median_after_first": statistics.median(step_s[1:]),
+          "peak_allocated_gib": peak_gib,
+          "gpu_vs_cpu_one_step_B2": {
+              "loss_abs_diff": loss_err, "tol": tol,
+              "param_max_abs_diff_where_grad_ge_1e-6": param_err,
+              "param_max_abs_diff_where_grad_lt_1e-6": noisy_err, "elements_grad_lt_1e-6": noisy_n,
+              "grad_max_rel_diff": grad_rel, "grad_worst_tensor": worst,
+              "grad_max_abs_diff_over_largest_grad": grad_abs, "largest_grad": g_max}})
+    return launches
 
 
 def phase_generate(pipe, kb):
@@ -543,7 +882,10 @@ def profile_call(fn) -> dict:
     kernels = []
     for evt in prof.key_averages():
         # device-side rows only (kernels, copies); CPU op rows repeat their time
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # and a user annotation's device span (the optimizer's step) covers
+        # kernels that have rows of their own
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
             kernels.append((evt.self_device_time_total, evt.key, evt.count))
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels) / 1e3
@@ -576,6 +918,25 @@ def phase_profile(pipe, verts, faces):
     viz.render_verts(verts)
     emit({"phase": "profile", "call": "render_verts", "frames": len(verts),
           **profile_call(lambda: viz.render_verts(verts))})
+    profile_train_step()
+
+
+def profile_train_step():
+    """One FaceFormer training step at the CLI's defaults (B=16, T=25,
+    full width) under torch.profiler, after two warm-up steps."""
+    from avi_talking_tpu_torch.cli.train import synthetic_batches
+    from avi_talking_tpu_torch.models.faceformer import FaceFormerConfig
+    from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer, adamw
+
+    cfg = FaceFormerConfig()
+    model = _faceformer_model(cfg, seed=0, device="cuda")
+    trainer = FaceFormerTrainer(model=model, optimizer=adamw(model.parameters(), 1e-4))
+    batches = synthetic_batches(cfg, 16, 25, seed=0, device="cuda")
+    for _ in range(2):
+        trainer.train_step(next(batches))
+    batch = next(batches)
+    emit({"phase": "profile", "call": "train_faceformer_step", "batch": 16, "seq_length": 25,
+          **profile_call(lambda: trainer.train_step(batch))})
 
 
 def main() -> int:
@@ -594,6 +955,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     from avi_talking_tpu_torch.core.assets import synthetic_assets
+    from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
     from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
     from avi_talking_tpu_torch.pipeline import AviTalkingPipeline, PipelineConfig
 
@@ -601,6 +963,8 @@ def main() -> int:
     variant, peaks = card_peaks(name)
     phase_build()
     rows = phase_kernels(peaks)
+    k3_rows = phase_bias_kernels(peaks)
+    grad_rows = phase_attention_grads(peaks)
 
     t0 = time.perf_counter()
     assets = synthetic_assets(num_vertices=5023, n_shape=300, n_exp=50, num_faces=9976)
@@ -614,16 +978,19 @@ def main() -> int:
     render_launches = phase_render(gen_out["vertices"], faces)
     phase_render_gpu_vs_cpu()
     phase_serve(pipe, kb)
+    ff_launches = phase_faceformer(kb, kba)
+    phase_train_faceformer(kb, kba)
     if "--profile" in sys.argv[1:]:
         phase_profile(pipe, gen_out["vertices"], faces)
 
     peaks_line = {"variant": variant, "fp32_flops": peaks[0], "bytes_per_s": peaks[1]}
     main_row = rows[0]  # the generate path's shape: B=1, H=12, T=S=200, d=64
     vis_row = vis_rows[0]  # the render path's launch: 16 frames x 64 tiles
+    k3_main = k3_rows[1]  # the forward's self-attention: B=1 H=4 T=S=600 d=32, (H, T, T) bias
     emit({"kernels": [{
         "name": "keybias_attention",
         "route": "cuda",
-        "source": "avi_talking_tpu_torch/csrc/keybias_attention.cu",
+        "source": "avi_talking_tpu_torch/csrc/bias_attention.cu",
         "replaces": "avi_talking_tpu/ops/pallas/attention.py:114",
         "launches": gen_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -648,7 +1015,24 @@ def main() -> int:
         "library_ms": None,  # no PyTorch call computes z-buffer visibility
         "shape": vis_row["shape"],
         "peaks": peaks_line,
-    }], "total_s": time.perf_counter() - t_start})
+    }, {
+        "name": "fused_bias_attention",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/bias_attention.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:185",
+        "launches": ff_launches["fused_bias_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
+        "ms": k3_main["ms"],
+        "plain_ms": k3_main["plain_ms"],
+        "bound_ms": k3_main["bound_ms"],
+        "bound_by": k3_main["bound_by"],
+        "library_ms": k3_main["library_ms"],
+        "shape": k3_main["shape"],
+        "bias_shape": k3_main["bias_shape"],
+        "backward": {k: v for k, v in grad_rows[1].items() if k != "kernel"},
+        "peaks": peaks_line,
+    }], "keybias_attention_backward": {k: v for k, v in grad_rows[0].items() if k != "kernel"},
+        "total_s": time.perf_counter() - t_start})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

@@ -1,0 +1,92 @@
+"""Port parity, the FaceFormer training step: three ``FaceFormerTrainer``
+steps (AdamW set to ``optax.adamw``'s defaults, gradients through K1 and
+K3's autograd backward) from carried weights on the same batches as the JAX
+trainer with ``optax.adamw(1e-4)``; and the ``train-faceformer`` command on
+the CPU."""
+
+import jax
+import numpy as np
+import optax
+import pytest
+import torch
+
+from avi_talking_tpu.models import faceformer as jff
+from avi_talking_tpu.train.faceformer_trainer import FaceFormerTrainer as JTrainer
+from avi_talking_tpu_torch.cli import main as cli_main
+from avi_talking_tpu_torch.cli.train import synthetic_batches
+from avi_talking_tpu_torch.infra.jax_params import faceformer_state_from_jax
+from avi_talking_tpu_torch.models import faceformer as tff
+from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer, adamw
+
+
+def test_three_adamw_steps_match_optax():
+    """Loss at each step and every parameter after three steps: < 1e-4."""
+    cfg = jff.FaceFormerConfig.tiny()
+    batches = synthetic_batches(tff.FaceFormerConfig.tiny(), 2, 8, seed=0, device="cpu")
+    batches = [next(batches) for _ in range(3)]
+    jb = [{k: v.numpy() for k, v in b.items()} for b in batches]
+
+    jm = jff.FaceFormerCoeff(cfg)
+    params = jm.init(jax.random.PRNGKey(0), jb[0]["audio"], jb[0]["coeff"], jb[0]["eye_embed"],
+                     jb[0]["emo_embed"], jb[0]["ref_coeff"])
+    rng = np.random.default_rng(1)  # perturb every leaf, so every gradient is non-zero
+    params = jax.tree.map(
+        lambda a: (np.asarray(a) + rng.standard_normal(a.shape) * 0.05).astype(np.float32), params)
+
+    tm = tff.FaceFormerCoeff.random_init(tff.FaceFormerConfig.tiny(), device="cpu")
+    tm.load_state_dict({k: torch.as_tensor(v)
+                        for k, v in faceformer_state_from_jax(params["params"]).items()})
+    trainer = FaceFormerTrainer(model=tm, optimizer=adamw(tm.parameters(), 1e-4))
+    start = {k: v.clone() for k, v in tm.state_dict().items()}
+
+    tx = optax.adamw(1e-4)
+    jt = JTrainer(model=jm, tx=tx)
+    step = jax.jit(jt.train_step)
+    opt = tx.init(params)
+    for i in range(3):
+        params, opt, jmetrics = step(params, opt, jb[i], jax.random.PRNGKey(i))
+        metrics = trainer.train_step(batches[i])
+        assert set(metrics) == set(jmetrics) == {"coeff", "loss"}
+        for k in metrics:
+            np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]), atol=1e-4, rtol=0,
+                                       err_msg=f"step {i} {k}")
+    ref = faceformer_state_from_jax(jax.tree.map(np.asarray, params["params"]))
+    got = tm.state_dict()
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        np.testing.assert_allclose(got[k].numpy(), v, atol=1e-4, rtol=0, err_msg=k)
+    moved = max(float((got[k] - start[k]).abs().max()) for k in start)
+    assert moved > 2e-4  # three steps of lr 1e-4 moved the weights
+
+
+def test_trainer_refuses_terms_not_ported():
+    tm = tff.FaceFormerCoeff.random_init(tff.FaceFormerConfig.tiny(), device="cpu")
+    opt = adamw(tm.parameters(), 1e-4)
+    for kw in ({"flame": object()}, {"render_loss_fn": lambda p, b: 0.0},
+               {"emo_loss_fn": lambda p, b: 0.0}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            FaceFormerTrainer(model=tm, optimizer=opt, **kw)
+
+
+def test_adamw_is_optax_default():
+    opt = adamw([torch.nn.Parameter(torch.zeros(2))], 3e-4)
+    (group,) = opt.param_groups
+    assert (group["lr"], group["betas"], group["eps"], group["weight_decay"]) == (
+        3e-4, (0.9, 0.999), 1e-8, 1e-4)
+
+
+def test_cli_train_faceformer_runs_on_cpu(capsys):
+    assert cli_main(["train-faceformer", "--tiny", "--device", "cpu", "--steps", "2",
+                     "--batch-size", "2", "--seq-length", "8"]) == 0
+    final = [line for line in capsys.readouterr().out.splitlines() if line.startswith("final:")]
+    assert len(final) == 1 and "'loss'" in final[0] and "'coeff'" in final[0]
+    assert np.isfinite(float(final[0].split("'loss': ")[1].rstrip("}")))
+
+
+@pytest.mark.parametrize("flag", [["--root", "/data"], ["--render-loss"], ["--emo-loss"],
+                                  ["--fan-checkpoint", "f.pt"], ["--emonet-checkpoint", "e.pt"],
+                                  ["--ckpt-dir", "ck"], ["--flame-npz", "flame.npz"],
+                                  ["--bf16"], ["--checkpoint", "ck"]])
+def test_cli_train_faceformer_refuses_what_is_not_ported(flag):
+    with pytest.raises(SystemExit, match="not ported"):
+        cli_main(["train-faceformer", "--tiny", "--device", "cpu", "--steps", "1", *flag])

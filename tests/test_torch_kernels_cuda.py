@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
 from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
 from avi_talking_tpu_torch.ops.kernels import rasterize as kras
 
@@ -49,11 +50,33 @@ def test_keybias_kernel_matches_plain_version(B, H, T, S, d, lens):
                                atol=1e-5, rtol=0)
 
 
+def _grads(fn, inputs, cot):
+    ts = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*ts)
+    (out * cot).sum().backward()
+    return out.detach(), [t.grad for t in ts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,S,d,lens", [CASES[0], CASES[1], (16, 12, 25, 25, 64, (25,) * 16)])
+def test_keybias_kernel_gradients_match_plain_version(B, H, T, S, d, lens):
+    """The kernel forward with the autograd backward vs autograd through the
+    plain version: output < 1e-5, dq, dk, dv and d(key_bias) < 1e-4."""
+    inputs = _cuda_inputs(B, H, T, S, d, lens)
+    cot = torch.randn(B, H, T, d, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    before = kb.launches
+    out, grads = _grads(kb.keybias_attention, inputs, cot)
+    torch.cuda.synchronize()
+    assert kb.launches == before + 1  # the backward launches no kernel
+    ref_out, ref_grads = _grads(kb.keybias_attention_reference, inputs, cot)
+    torch.testing.assert_close(out, ref_out, atol=1e-5, rtol=0)
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=0)
+
+
 @pytest.mark.cuda
 def test_keybias_kernel_refuses_what_it_does_not_take():
     q, k, v, bias = _cuda_inputs(1, 2, 16, 16, 16, (16,))
-    with pytest.raises(NotImplementedError, match="training"):
-        kb.keybias_attention(q.clone().requires_grad_(), k, v, bias)
     with pytest.raises(TypeError):
         kb.keybias_attention(q.half(), k.half(), v.half(), bias.half())
     with pytest.raises(ValueError):  # head_dim not a multiple of 8
@@ -61,6 +84,109 @@ def test_keybias_kernel_refuses_what_it_does_not_take():
                              v[..., :12].contiguous(), bias)
     with pytest.raises(ValueError):  # not contiguous
         kb.keybias_attention(q.transpose(2, 3), k, v, bias)
+
+
+BIAS_CASES = [
+    # B, H, T, S, d, bias shape
+    (16, 4, 25, 25, 32, (4, 25, 25)),  # the training step's self-attention
+    (1, 4, 600, 600, 32, (4, 600, 600)),  # predict-length self-attention
+    (1, 4, 600, 600, 32, (600, 600)),  # its cross-attention
+    (1, 4, 600, 600, 16, (4, 600, 600)),  # the vertex model's head width
+    (2, 3, 70, 130, 8, (2, 3, 70, 130)),  # full rank 4, T != S, ragged tiles
+    (3, 2, 33, 17, 128, (3, 1, 33, 17)),  # broadcast over heads, widest head
+]
+
+
+def _bias_inputs(B, H, T, S, d, bshape, seed=4):
+    """Random q, k, v and a bias with scattered -1e9 entries and one fully
+    masked row, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((B, H, T, d)) * d ** -0.5).astype(np.float32)
+    k = rng.standard_normal((B, H, S, d)).astype(np.float32)
+    v = rng.standard_normal((B, H, S, d)).astype(np.float32)
+    bias = rng.standard_normal(bshape).astype(np.float32)
+    bias = np.where(rng.random(bshape) < 0.2, np.float32(-1e9), bias)
+    bias[..., T // 2, :] = -1e9
+    return [torch.from_numpy(a).cuda() for a in (q, k, v, bias)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,S,d,bshape", BIAS_CASES)
+def test_bias_kernel_matches_plain_version(B, H, T, S, d, bshape):
+    """fp32 kernel vs plain version, the bias read through its strides:
+    < 1e-5; one launch counted; the fully masked row is uniform."""
+    q, k, v, bias = _bias_inputs(B, H, T, S, d, bshape)
+    before = kba.launches
+    got = kba.fused_bias_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert kba.launches == before + 1
+    torch.testing.assert_close(got, kba.fused_bias_attention_reference(q, k, v, bias),
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(got[..., T // 2, :], v.mean(2), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,S,d,bshape", [BIAS_CASES[0], BIAS_CASES[4], BIAS_CASES[5]])
+def test_bias_kernel_gradients_match_plain_version(B, H, T, S, d, bshape):
+    """The kernel forward with the autograd backward vs autograd through the
+    plain version: output < 1e-5; dq, dk, dv and the bias gradient < 1e-4."""
+    inputs = _bias_inputs(B, H, T, S, d, bshape)
+    cot = torch.randn(B, H, T, d, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+    before = kba.launches
+    out, grads = _grads(kba.fused_bias_attention, inputs, cot)
+    torch.cuda.synchronize()
+    assert kba.launches == before + 1
+    ref_out, ref_grads = _grads(kba.fused_bias_attention_reference, inputs, cot)
+    torch.testing.assert_close(out, ref_out, atol=1e-5, rtol=0)
+    for g, r in zip(grads, ref_grads):
+        assert g.shape == r.shape
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bias_kernel_refuses_what_it_does_not_take():
+    q, k, v, bias = _bias_inputs(1, 2, 16, 16, 16, (2, 16, 16))
+    with pytest.raises(TypeError):
+        kba.fused_bias_attention(q.half(), k.half(), v.half(), bias)
+    with pytest.raises(TypeError):  # a bias that is not float32
+        kba.fused_bias_attention(q, k, v, bias.double())
+    with pytest.raises(ValueError):  # not contiguous
+        kba.fused_bias_attention(q.transpose(2, 3), k, v, bias)
+    with pytest.raises(ValueError):  # a bias that is not contiguous in its own shape
+        kba.fused_bias_attention(q, k, v, bias.transpose(1, 2))
+    with pytest.raises(ValueError):  # head_dim not a multiple of 8
+        kba.fused_bias_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                                 v[..., :12].contiguous(), bias)
+    with pytest.raises(ValueError):  # a bias that does not broadcast
+        kba.fused_bias_attention(q, k, v, bias[:, :8].contiguous())
+
+
+@pytest.mark.cuda
+def test_decoder_layer_launches_k3_twice():
+    """A FaceFormer decoder layer on the card: self- and cross-attention
+    each launch K3 once; the output agrees with the same layer on the CPU."""
+    from avi_talking_tpu_torch.infra.init import random_module
+    from avi_talking_tpu_torch.ops.positional import enc_dec_alignment_bias, faceformer_bias
+    from avi_talking_tpu_torch.ops.transformer import TransformerDecoder
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    cpu = random_module(lambda: TransformerDecoder(1, 128, 4, 256), torch.device("cpu"),
+                        torch.Generator().manual_seed(0))
+    gpu = random_module(lambda: TransformerDecoder(1, 128, 4, 256), torch.device("cuda"),
+                        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    x, mem = (torch.from_numpy(rng.standard_normal((2, 60, 128)).astype(np.float32))
+              for _ in range(2))
+    tb, mb = faceformer_bias(4, 60, 25), enc_dec_alignment_bias(60, 60)
+    before = kba.launches
+    with torch.no_grad():
+        got = gpu(x.cuda(), mem.cuda(), tb.cuda(), mb.cuda())
+        torch.cuda.synchronize()
+        assert kba.launches == before + 2
+        torch.testing.assert_close(got.cpu(), cpu(x, mem, tb, mb), atol=1e-4, rtol=0)
 
 
 VIS_CASES = [
