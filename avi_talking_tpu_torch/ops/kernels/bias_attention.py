@@ -26,8 +26,12 @@ from typing import Tuple
 
 import torch
 
-from .build import load
-from .keybias_attention import HEAD_DIM_MAX, attention_backward
+from .build import function, launch
+from .keybias_attention import HEAD_DIM_MAX, aligned16, attention_backward
+
+# q, k, v, bias, out; B, H, T, S, d; the bias strides (b, h, t, s); the stream
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
+             + [ctypes.c_void_p])
 
 # Kernel launches since the count was last set to 0 (the chip check zeroes
 # it before driving a path and reads it after).
@@ -96,19 +100,20 @@ def _forward(q, k, v, bias) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"fused_bias_attention runs on cpu or cuda, not {q.device}")
     _check_cuda_inputs(q, k, v, bias)
+    B, H, T, _ = q.shape
+    return _launch(q, k, v, bias, bias_strides(bias, B, H, T, k.shape[2]))
+
+
+def _launch(q, k, v, bias, strides) -> torch.Tensor:
+    """Launch the kernel on checked CUDA inputs, reading ``bias`` at the
+    (b, h, t, s) element ``strides``."""
     B, H, T, d = q.shape
     S = k.shape[2]
-    sb, sh, st, ss = bias_strides(bias, B, H, T, S)
-    lib = load("bias_attention")
-    fn = lib.avi_bias_attention_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
-                   + [ctypes.c_void_p])
+    k, v = aligned16(k), aligned16(v)
+    fn = function("bias_attention", "avi_bias_attention_f32", _ARGTYPES)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), B, H, T, S, d, sb, sh, st, ss, stream)
+    err = launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                 out.data_ptr(), B, H, T, S, d, *strides)
     if err != 0:
         raise RuntimeError(f"fused_bias_attention kernel launch failed: cudaError {err}")
     _count_launch()

@@ -17,7 +17,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence, Tuple
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -28,7 +30,9 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-_load_lock = threading.Lock()  # first use may come from several server threads
+_functions: Dict[Tuple[str, str], Callable[..., int]] = {}
+# first use may come from several server threads; function() loads under it
+_load_lock = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -82,3 +86,29 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
+    """The C entry ``symbol`` of ``csrc/<name>.cu`` with its ctypes signature
+    (``argtypes``, an int result) set once, at first use, when the library
+    is built and loaded under the lock; later calls take no lock."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        with _load_lock:
+            fn = _functions.get((name, symbol))
+            if fn is None:
+                fn = getattr(load(name), symbol)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                _functions[(name, symbol)] = fn
+    return fn
+
+
+def launch(fn: Callable[..., int], device: torch.device, *args) -> int:
+    """Call a bound entry with ``args`` and then the current stream of
+    ``device``, entering the device's context only when it is not the
+    current device. Returns the entry's cudaError_t."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)

@@ -22,9 +22,11 @@ import threading
 
 import torch
 
-from .build import load
+from .build import function, launch
 
 HEAD_DIM_MAX = 128
+# q, k, v, key_bias, out; B, H, T, S, d; the stream
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 # Kernel launches since the count was last set to 0 (the chip check zeroes
 # it before driving the main path and reads it after).
@@ -86,6 +88,13 @@ def _check_cuda_inputs(q, k, v, key_bias) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data does not start on a 16-byte
+    boundary (a view with an odd storage offset): the kernel copies K and V
+    into shared memory 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _forward(q, k, v, key_bias) -> torch.Tensor:
     if q.device.type == "cpu":
         return keybias_attention_reference(q, k, v, key_bias)
@@ -94,15 +103,11 @@ def _forward(q, k, v, key_bias) -> torch.Tensor:
     _check_cuda_inputs(q, k, v, key_bias)
     B, H, T, d = q.shape
     S = k.shape[2]
-    lib = load("bias_attention")
-    fn = lib.avi_keybias_attention_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    k, v = aligned16(k), aligned16(v)
+    fn = function("bias_attention", "avi_keybias_attention_f32", _ARGTYPES)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-                 out.data_ptr(), B, H, T, S, d, stream)
+    err = launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+                 out.data_ptr(), B, H, T, S, d)
     if err != 0:
         raise RuntimeError(f"keybias_attention kernel launch failed: cudaError {err}")
     _count_launch()

@@ -19,9 +19,11 @@ from typing import Tuple
 
 import torch
 
-from .build import load
+from .build import function, launch
 
 BIG = 1e9
+# tri, valid, px, py, zbuf, slot; n, cap, px_n; the stream
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 # Kernel launches since the count was last set to 0 (the chip check zeroes
 # it before driving the render path and reads it after).
@@ -115,16 +117,11 @@ def rasterize_tiles_visibility(
     _check_cuda_inputs(tri, valid, px, py)
     n, cap, _ = tri.shape
     px_n = px.shape[1]
-    lib = load("rasterize_visibility")
-    fn = lib.avi_rasterize_visibility_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = function("rasterize_visibility", "avi_rasterize_visibility_f32", _ARGTYPES)
     zbuf = torch.empty((n, px_n), dtype=torch.float32, device=tri.device)
     slot = torch.empty((n, px_n), dtype=torch.int32, device=tri.device)
-    with torch.cuda.device(tri.device):
-        stream = torch.cuda.current_stream(tri.device).cuda_stream
-        err = fn(tri.data_ptr(), valid.data_ptr(), px.data_ptr(), py.data_ptr(),
-                 zbuf.data_ptr(), slot.data_ptr(), n, cap, px_n, stream)
+    err = launch(fn, tri.device, tri.data_ptr(), valid.data_ptr(), px.data_ptr(), py.data_ptr(),
+                 zbuf.data_ptr(), slot.data_ptr(), n, cap, px_n)
     if err != 0:
         raise RuntimeError(f"rasterize_tiles_visibility kernel launch failed: cudaError {err}")
     _count_launch()

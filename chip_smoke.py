@@ -10,11 +10,13 @@ the checkout's sources into build/, then
 
 1. build:   every kernel of the port (one nvcc per source, all started
             together), reported in seconds with the compiler's register and
-            spill report;
+            spill report; a spill fails the check;
 2. kernels: K1 (key-bias attention) against its plain PyTorch version on the
-            card at the generate path's shapes, and K3 (biased attention) at
-            the FaceFormer decoder's four shapes, each with its time, the
-            plain version's, one PyTorch library call's and the card's lower
+            card at the generate path's shapes and the FaceFormer encoder's,
+            and K3 (biased attention) at the FaceFormer decoder's four
+            shapes, each with its time (CUDA events around the wrapper, and
+            the kernel's own device time under torch.profiler), the plain
+            version's, one PyTorch library call's and the card's lower
             bound; K1's and K3's gradients on the card against the same
             formula on CPU copies, and the backward's time at the training
             shapes;
@@ -63,12 +65,13 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# fp32 vector (non tensor core) peak and memory rate by H100 variant
-# (NVIDIA data sheets); the SXM part is the default.
+# fp32 vector (non tensor core) peak, memory rate and dense TF32 tensor-core
+# peak by H100 variant (NVIDIA data sheets, rates without sparsity); the SXM
+# part is the default.
 PEAKS = {
-    "PCIe": (51e12, 2.0e12),
-    "NVL": (60e12, 3.9e12),
-    "SXM": (67e12, 3.35e12),
+    "PCIe": (51e12, 2.0e12, 378e12),
+    "NVL": (60e12, 3.9e12, 417.5e12),
+    "SXM": (67e12, 3.35e12, 495e12),
 }
 
 
@@ -108,20 +111,48 @@ def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def keybias_bound(B, H, T, S, d, peaks):
-    flops = 4 * B * H * T * S * d
-    nbytes = 4 * B * H * (2 * T + 2 * S) * d + 4 * B * S
-    t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+def device_ms(fn, kernel=None, iters: int = 20):
+    """Device time per call of ``fn`` under torch.profiler, over ``iters``
+    calls after a warm-up: for each kernel whose name holds ``kernel``
+    (every device kernel when None), its mean self device time times its
+    launches per call (its count over ``iters``, rounded, at least 1),
+    summed. A profiler session now and then loses device events: one that
+    saw fewer than ``iters`` launches of a kernel is taken again, three
+    times at most, and the means of the last are used. None if no session
+    saw such a kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = [(evt.self_device_time_total, evt.count) for evt in prof.key_averages()
+                if evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)
+                and (kernel is None or kernel in evt.key) and evt.count]
+        if not seen:
+            continue
+        best = sum(t / n * max(1, round(n / iters)) for t, n in seen) / 1e3
+        if min(n for _, n in seen) >= iters:
+            break
+    return best
 
 
-def bias_attention_bound(B, H, T, S, d, bias_numel, peaks):
-    """K3's least time: 4*B*H*T*S*d fp32 operations; q, k, v and out read or
-    written once, and the bias as it is stored."""
-    flops = 4 * B * H * T * S * d
+def attention_bound(B, H, T, S, d, bias_numel, peaks):
+    """K1's and K3's least time on this card for the kernel's exact fp32
+    arithmetic: 4*B*H*T*S*d operations (q.k^T and p.v), each formed from 3
+    TF32 tensor-core products, over the dense TF32 peak; or q, k, v and out
+    read or written once and the bias as it is stored (K1: (B, S)) over the
+    memory rate, whichever is larger."""
+    ops = 3 * 4 * B * H * T * S * d
     nbytes = 4 * B * H * (2 * T + 2 * S) * d + 4 * bias_numel
-    t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    t_ops, t_bytes = ops / peaks[2], nbytes / peaks[1]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
 
 
 def attention_backward_bound(B, H, T, S, d, bias_numel, peaks):
@@ -213,10 +244,14 @@ def phase_build():
     built = build.build(names)
     for name in names:
         build.load(name)
+    ptxas = {name: [line.strip() for line in b["log"].splitlines()
+                    if "Used" in line or "spill" in line] for name, b in built.items()}
+    for name, lines in ptxas.items():
+        spills = [line for line in lines if "spill" in line
+                  and not line.endswith("0 bytes spill stores, 0 bytes spill loads")]
+        check(not spills, f"csrc/{name}.cu spills registers: {spills}")
     emit({"phase": "build",
-          "kernels": {name: {"seconds": b["seconds"],
-                             "ptxas": [line.strip() for line in b["log"].splitlines()
-                                       if "Used" in line or "spill" in line]}
+          "kernels": {name: {"seconds": b["seconds"], "ptxas": ptxas[name]}
                       for name, b in built.items()},
           "total_s": time.perf_counter() - t0,
           "tf32": "off: torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -235,6 +270,7 @@ def phase_kernels(peaks):
         ("generate", 1, 12, 200, 200, 64, (200,)),
         ("batch_512", 2, 12, 512, 512, 64, (512, 300)),
         ("ragged_333", 1, 12, 333, 333, 64, (333,)),
+        ("faceformer_600", 1, 12, 600, 600, 64, (600,)),  # the FaceFormer encoder
     ]
     rows = []
     for name, B, H, T, S, d, lens in cases:
@@ -249,15 +285,23 @@ def phase_kernels(peaks):
         err = float((out - ref).abs().max())
         check(math.isfinite(err) and err < tol, f"keybias_attention {name}: max |d| {err} >= {tol}")
         mask = bias[:, None, None, :]
+
+        def kernel():
+            return kb.keybias_attention(q, k, v, bias)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+
         row = {
             "case": name, "shape": [B, H, T, S, d], "max_abs_err": err, "tol": tol,
-            "ms": time_ms(lambda: kb.keybias_attention(q, k, v, bias)),
+            "ms": time_ms(kernel),
+            "device_ms": device_ms(kernel, "bias_attention_kernel"),
             "plain_ms": time_ms(lambda: kb.keybias_attention_reference(q, k, v, bias)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, scale=1.0)),
+            "library_ms": time_ms(library),
+            "library_device_ms": device_ms(library),
         }
-        row["bound_ms"], row["bound_by"], row["flops"], row["bytes"] = keybias_bound(
-            B, H, T, S, d, peaks)
+        row["bound_ms"], row["bound_by"], row["tf32_ops"], row["bytes"] = attention_bound(
+            B, H, T, S, d, B * S, peaks)
         rows.append(row)
         emit({"phase": "kernel_check", "kernel": "keybias_attention", **row})
     return rows
@@ -295,15 +339,23 @@ def phase_bias_kernels(peaks):
         err = float((out - ref).abs().max())
         check(math.isfinite(err) and err < tol, f"fused_bias_attention {name}: max |d| {err} >= {tol}")
         mask = bias[None] if bias.dim() == 3 else bias[None, None]  # a broadcast view, no copy
+
+        def kernel():
+            return kba.fused_bias_attention(q, k, v, bias)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+
         row = {
             "case": name, "shape": [B, H, T, S, d], "bias_shape": list(bias.shape),
             "max_abs_err": err, "tol": tol,
-            "ms": time_ms(lambda: kba.fused_bias_attention(q, k, v, bias)),
+            "ms": time_ms(kernel),
+            "device_ms": device_ms(kernel, "bias_attention_kernel"),
             "plain_ms": time_ms(lambda: kba.fused_bias_attention_reference(q, k, v, bias)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, scale=1.0)),
+            "library_ms": time_ms(library),
+            "library_device_ms": device_ms(library),
         }
-        row["bound_ms"], row["bound_by"], row["flops"], row["bytes"] = bias_attention_bound(
+        row["bound_ms"], row["bound_by"], row["tf32_ops"], row["bytes"] = attention_bound(
             B, H, T, S, d, bias.numel(), peaks)
         rows.append(row)
         emit({"phase": "kernel_check", "kernel": "fused_bias_attention", **row})
@@ -983,7 +1035,8 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         phase_profile(pipe, gen_out["vertices"], faces)
 
-    peaks_line = {"variant": variant, "fp32_flops": peaks[0], "bytes_per_s": peaks[1]}
+    peaks_line = {"variant": variant, "fp32_flops": peaks[0], "bytes_per_s": peaks[1],
+                  "tf32_flops": peaks[2]}
     main_row = rows[0]  # the generate path's shape: B=1, H=12, T=S=200, d=64
     vis_row = vis_rows[0]  # the render path's launch: 16 frames x 64 tiles
     k3_main = k3_rows[1]  # the forward's self-attention: B=1 H=4 T=S=600 d=32, (H, T, T) bias
@@ -995,6 +1048,8 @@ def main() -> int:
         "launches": gen_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
+        "device_ms": main_row["device_ms"],
+        "library_device_ms": main_row["library_device_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
@@ -1023,6 +1078,8 @@ def main() -> int:
         "launches": ff_launches["fused_bias_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
         "ms": k3_main["ms"],
+        "device_ms": k3_main["device_ms"],
+        "library_device_ms": k3_main["library_device_ms"],
         "plain_ms": k3_main["plain_ms"],
         "bound_ms": k3_main["bound_ms"],
         "bound_by": k3_main["bound_by"],

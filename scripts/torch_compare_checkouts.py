@@ -1,0 +1,169 @@
+#!/usr/bin/env python3
+"""Compare two checkouts of the port on one card, in turns.
+
+    python scripts/torch_compare_checkouts.py OTHER_ROOT [--order ABBA]
+
+A is the checkout at OTHER_ROOT (say a parent commit unpacked with
+``git archive`` into a directory that .gitignore lists), B this one. Each
+letter of ``--order`` runs one side in a process of its own, which imports
+the port from that side's root and builds its kernels there, then measures:
+
+* K1 / K3 at chip_smoke.py's kernel-check shapes: CUDA-event ms around the
+  wrapper and the kernel's device ms under torch.profiler;
+* ``generate`` on the 8 s clip, full-width PipelineConfig() (median of 5);
+* the full-width FaceFormer forward (median of 5) and ``predict`` (median
+  of 3) at B=1, T=600;
+* the training step at train-faceformer's defaults, B=16, T=25 (median and
+  mean of 25 after 3 warm-up steps).
+
+Each side prints one JSON line; the last lines give every metric's values
+per side, in run order, and the card's name and power limit. The helpers
+(timers, inputs, seeded models) are this checkout's chip_smoke.py for both
+sides, so both are measured the same way.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+
+CASES = [  # chip_smoke.py's kernel_check shapes: name, B, H, T=S, d, bias
+    ("generate", 1, 12, 200, 64, "key"), ("batch_512", 2, 12, 512, 64, "key"),
+    ("ragged_333", 1, 12, 333, 64, "key"), ("faceformer_600", 1, 12, 600, 64, "key"),
+    ("train_self_HTT", 16, 4, 25, 32, "HTT"), ("forward_self_HTT", 1, 4, 600, 32, "HTT"),
+    ("forward_cross_TS", 1, 4, 600, 32, "TS"), ("vert_self_HTT_d16", 1, 4, 600, 16, "HTT"),
+]
+
+
+def side(root: str, label: str) -> dict:
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import torch
+
+    from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
+    from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
+    from avi_talking_tpu_torch.ops.positional import enc_dec_alignment_bias, faceformer_bias
+
+    if not kb.__file__.startswith(root):
+        raise SystemExit(f"imported the port from {kb.__file__}, not from {root}")
+    cs.phase_build()  # builds this side's kernels; TF32 off in matmuls and convolutions
+    result = {"side": label, "root": root, "kernels": {}}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for case, B, H, T, d, kind in CASES:
+        q = torch.randn(B, H, T, d, device="cuda", generator=g) * d ** -0.5
+        k = torch.randn(B, H, T, d, device="cuda", generator=g)
+        v = torch.randn(B, H, T, d, device="cuda", generator=g)
+        if kind == "key":
+            lens = torch.tensor([T] + [T * 3 // 5] * (B - 1), device="cuda")
+            bias = torch.where(torch.arange(T, device="cuda")[None] < lens[:, None], 0.0, -1e9)
+
+            def fn():
+                return kb.keybias_attention(q, k, v, bias)
+        else:
+            bias = (faceformer_bias(H, T, 25, device="cuda") if kind == "HTT"
+                    else enc_dec_alignment_bias(T, T, device="cuda"))
+
+            def fn():
+                return kba.fused_bias_attention(q, k, v, bias)
+        result["kernels"][case] = {"ms": cs.time_ms(fn),
+                                   "device_ms": cs.device_ms(fn, "bias_attention_kernel")}
+
+    from avi_talking_tpu_torch.cli.train import synthetic_batches
+    from avi_talking_tpu_torch.core.assets import synthetic_assets
+    from avi_talking_tpu_torch.models.faceformer import FaceFormerConfig
+    from avi_talking_tpu_torch.pipeline import AviTalkingPipeline, PipelineConfig
+    from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer, adamw
+
+    def walls(fn, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    assets = synthetic_assets(num_vertices=5023, n_shape=300, n_exp=50, num_faces=9976)
+    pipe = AviTalkingPipeline.random_init(PipelineConfig(), assets, seed=0)
+    wav = cs.synthetic_wav(8.0, seed=1)
+    instruction = "A fairly angry man speaks with brow fairly down"
+    pipe.generate(wav, instruction, seed=0)
+    result["generate_s"] = walls(lambda: pipe.generate(wav, instruction, seed=0), 5)
+    del pipe
+
+    cfg = FaceFormerConfig()
+    model = cs._faceformer_model(cfg, seed=0, device="cuda")
+    audio, coeffs, eye, emo, ref = cs._faceformer_inputs(cfg, 1, 600, seed=20, device="cuda")
+    with torch.no_grad():
+        model(audio, coeffs, eye, emo, ref)
+        result["forward_s"] = walls(lambda: model(audio, coeffs, eye, emo, ref), 5)
+        result["predict_s"] = walls(lambda: model.predict(audio, 600, eye, emo, ref), 3)
+    del model
+
+    model = cs._faceformer_model(cfg, seed=0, device="cuda")
+    trainer = FaceFormerTrainer(model=model, optimizer=adamw(model.parameters(), 1e-4))
+    batches = synthetic_batches(cfg, 16, 25, seed=0, device="cuda")
+    for _ in range(3):
+        trainer.train_step(next(batches))
+    todo = iter([next(batches) for _ in range(25)])  # made before the clock runs
+    result["train_step_s"] = walls(lambda: trainer.train_step(next(todo)), 25)
+    return result
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("other_root", nargs="?")
+    p.add_argument("--order", default="ABBA")
+    p.add_argument("--side", nargs=2, metavar=("ROOT", "LABEL"), help=argparse.SUPPRESS)
+    args = p.parse_args()
+    if args.side:
+        print("SIDE " + json.dumps(side(os.path.abspath(args.side[0]), args.side[1])), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_compare_checkouts: no CUDA device", file=sys.stderr)
+        return 2
+    roots = {"A": os.path.abspath(args.other_root), "B": ROOT}
+    runs = []
+    for label in args.order:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--side", roots[label], label],
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
+            return out.returncode
+        line = [x for x in out.stdout.splitlines() if x.startswith("SIDE ")][-1][5:]
+        print(line, flush=True)
+        runs.append(json.loads(line))
+    summary = {}
+    for r in runs:
+        for case, row in r["kernels"].items():
+            for key, val in row.items():
+                summary.setdefault(f"{case}.{key}", {}).setdefault(r["side"], []).append(val)
+        for key in ("generate_s", "forward_s", "predict_s", "train_step_s"):
+            med = summary.setdefault(f"{key}.median", {}).setdefault(r["side"], [])
+            med.append(statistics.median(r[key]))
+            if key == "train_step_s":
+                summary.setdefault(f"{key}.mean", {}).setdefault(r["side"], []).append(
+                    statistics.mean(r[key]))
+    print(json.dumps({"summary": summary, "order": args.order, "A": roots["A"], "B": roots["B"]}))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -190,6 +190,74 @@ def test_fused_mha_gradients_match_jax_plain_mha(kind):
                                    atol=1e-5, rtol=1e-5, err_msg=k)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits): to nearest on the low
+    13 of fp32's 23 mantissa bits, ties away from zero, as the kernel's
+    ``cvt.rna.tf32.f32`` does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernel forms it on tensor cores: each operand split
+    into big = tf32(x) and small = tf32(x - big), the product
+    small·big + big·small + big·big with fp32 accumulation (each TF32 x TF32
+    product is exact in fp32)."""
+    ab, bb = _tf32(a), _tf32(b)
+    asm, bsm = _tf32(a - ab), _tf32(b - bb)
+    return (asm @ bb + ab @ bsm) + ab @ bb
+
+
+def _matmul_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in one TF32 pass: both operands rounded to TF32."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _attention(q, k, v, bias, matmul=torch.matmul):
+    s = matmul(q, k.transpose(-1, -2)) + bias
+    return matmul(torch.softmax(s, dim=-1), v)
+
+
+PRECISION_CASES = [
+    # name, B, H, T, S, d, bias: valid key lengths (K1) or "HTT" / "TS" (K3);
+    # chip_smoke.py's kernel_check shapes
+    ("keybias_generate", 1, 12, 200, 200, 64, (200,)),
+    ("keybias_batch_512", 2, 12, 512, 512, 64, (512, 300)),
+    ("keybias_ragged_333", 1, 12, 333, 333, 64, (333,)),
+    ("keybias_faceformer_600", 1, 12, 600, 600, 64, (600,)),
+    ("bias_train_self_HTT", 16, 4, 25, 25, 32, "HTT"),
+    ("bias_forward_self_HTT", 1, 4, 600, 600, 32, "HTT"),
+    ("bias_forward_cross_TS", 1, 4, 600, 600, 32, "TS"),
+    ("bias_vert_self_HTT_d16", 1, 4, 600, 600, 16, "HTT"),
+]
+
+
+@pytest.mark.parametrize("name,B,H,T,S,d,bias_kind", PRECISION_CASES)
+def test_3xtf32_keeps_fp32_accuracy_and_one_pass_tf32_does_not(name, B, H, T, S, d, bias_kind):
+    """The kernel's precision choice, emulated in plain torch on the CPU:
+    attention from 3xTF32 products stays within 1e-5 of the fp64 result (the
+    kernel's gate against its plain version), attention from one-pass TF32
+    products does not."""
+    from avi_talking_tpu_torch.ops.positional import enc_dec_alignment_bias, faceformer_bias
+
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy((rng.standard_normal((B, H, T, d)) * d ** -0.5).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, H, S, d)).astype(np.float32))
+            for _ in range(2))
+    if bias_kind == "HTT":
+        bias = faceformer_bias(H, T, 25)
+    elif bias_kind == "TS":
+        bias = enc_dec_alignment_bias(T, S)
+    else:
+        lens = torch.tensor(bias_kind)
+        bias = torch.where(torch.arange(S)[None] < lens[:, None], 0.0, -1e9)[:, None, None, :]
+    ref = _attention(*(t.double() for t in (q, k, v, bias)))
+    err3 = float((_attention(q, k, v, bias, _matmul_3xtf32).double() - ref).abs().max())
+    err1 = float((_attention(q, k, v, bias, _matmul_tf32).double() - ref).abs().max())
+    assert err3 < 1e-5, f"{name}: 3xTF32 off the fp64 result by {err3}"
+    assert err1 >= 1e-5, f"{name}: one-pass TF32 within {err1} of the fp64 result"
+
+
 def test_fused_and_plain_mha_agree():
     """use_fused_kernel only changes the route: the same layer with the flag
     on and off agrees (< 1e-6) on self- and cross-attention."""

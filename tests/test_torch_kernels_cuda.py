@@ -23,6 +23,15 @@ CASES = [
     (1, 12, 200, 200, 64, (200,)),  # generate's shape
     (2, 12, 512, 512, 64, (512, 300)),  # largest length bucket
     (1, 2, 70, 130, 128, (97,)),  # widest head taken
+    # the edges of the 16-query x (4 warps x 16 keys) partition
+    (2, 3, 1, 40, 64, (40, 33)),  # T=1: one query row, 15 idle rows
+    (1, 4, 17, 50, 32, (50,)),  # T=17: a ragged last query tile of one row
+    (2, 2, 12, 1, 16, (1, 1)),  # S=1: three warps see no key
+    (2, 2, 9, 5, 64, (5, 3)),  # S=5: fewer keys than warps
+    (2, 2, 20, 20, 16, (20, 0)),  # batch 1: every key bias -1e9, uniform rows
+    (2, 3, 30, 45, 8, (45, 20)),  # d=8, the narrowest head
+    (1, 2, 40, 70, 128, (70,)),  # d=128 with T, S not multiples of 16
+    (1, 12, 600, 600, 64, (600,)),  # the FaceFormer encoder's shape
 ]
 
 
@@ -48,6 +57,24 @@ def test_keybias_kernel_matches_plain_version(B, H, T, S, d, lens):
     assert kb.launches == before + 1
     torch.testing.assert_close(got, kb.keybias_attention_reference(q, k, v, bias),
                                atol=1e-5, rtol=0)
+    for b, n in enumerate(lens):
+        if n == 0:  # a batch whose every key is masked averages v
+            torch.testing.assert_close(got[b], v[b].mean(1, keepdim=True).expand_as(got[b]),
+                                       atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_k_and_v_off_a_16_byte_boundary():
+    """K and V views that start 4 bytes into their storage (the kernel
+    copies them 16 bytes at a time): the wrappers copy them first."""
+    q, k, v, bias = _cuda_inputs(1, 2, 20, 24, 16, (24,))
+    ks, vs = (torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape) for t in (k, v))
+    assert ks.data_ptr() % 16 and vs.data_ptr() % 16 and ks.is_contiguous()
+    torch.testing.assert_close(kb.keybias_attention(q, ks, vs, bias),
+                               kb.keybias_attention_reference(q, k, v, bias), atol=1e-5, rtol=0)
+    b3 = torch.zeros(2, 20, 24, device="cuda")
+    torch.testing.assert_close(kba.fused_bias_attention(q, ks, vs, b3),
+                               kba.fused_bias_attention_reference(q, k, v, b3), atol=1e-5, rtol=0)
 
 
 def _grads(fn, inputs, cot):
@@ -87,13 +114,22 @@ def test_keybias_kernel_refuses_what_it_does_not_take():
 
 
 BIAS_CASES = [
-    # B, H, T, S, d, bias shape
-    (16, 4, 25, 25, 32, (4, 25, 25)),  # the training step's self-attention
-    (1, 4, 600, 600, 32, (4, 600, 600)),  # predict-length self-attention
-    (1, 4, 600, 600, 32, (600, 600)),  # its cross-attention
-    (1, 4, 600, 600, 16, (4, 600, 600)),  # the vertex model's head width
-    (2, 3, 70, 130, 8, (2, 3, 70, 130)),  # full rank 4, T != S, ragged tiles
-    (3, 2, 33, 17, 128, (3, 1, 33, 17)),  # broadcast over heads, widest head
+    # B, H, T, S, d, bias shape, bias layout ("keys last": as stored;
+    # "keys first": stored as (B, H, S, T) and read with key stride T)
+    (16, 4, 25, 25, 32, (4, 25, 25), "keys last"),  # the training step's self-attention
+    (1, 4, 600, 600, 32, (4, 600, 600), "keys last"),  # predict-length self-attention
+    (1, 4, 600, 600, 32, (600, 600), "keys last"),  # its cross-attention
+    (1, 4, 600, 600, 16, (4, 600, 600), "keys last"),  # the vertex model's head width
+    (2, 3, 70, 130, 8, (2, 3, 70, 130), "keys last"),  # full rank 4, T != S, ragged tiles
+    (3, 2, 33, 17, 128, (3, 1, 33, 17), "keys last"),  # broadcast over heads, widest head
+    # the edges of the 16-query x (4 warps x 16 keys) partition
+    (2, 2, 1, 30, 32, (2, 1, 30), "keys last"),  # T=1
+    (1, 3, 17, 40, 16, (3, 17, 40), "keys last"),  # T=17: a ragged last query tile
+    (2, 2, 6, 1, 32, (6, 1), "keys last"),  # S=1: three warps see no key
+    (1, 4, 12, 5, 64, (4, 12, 5), "keys last"),  # S=5
+    (2, 2, 24, 36, 8, (2, 2, 24, 36), "keys last"),  # d=8
+    (1, 2, 50, 90, 128, (2, 50, 90), "keys last"),  # d=128
+    (2, 3, 40, 70, 32, (2, 3, 40, 70), "keys first"),  # non-unit key stride
 ]
 
 
@@ -113,13 +149,21 @@ def _bias_inputs(B, H, T, S, d, bshape, seed=4):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,T,S,d,bshape", BIAS_CASES)
-def test_bias_kernel_matches_plain_version(B, H, T, S, d, bshape):
+@pytest.mark.parametrize("B,H,T,S,d,bshape,layout", BIAS_CASES)
+def test_bias_kernel_matches_plain_version(B, H, T, S, d, bshape, layout):
     """fp32 kernel vs plain version, the bias read through its strides:
-    < 1e-5; one launch counted; the fully masked row is uniform."""
+    < 1e-5; one launch counted; the fully masked row is uniform. A
+    "keys first" bias is stored (B, H, S, T) and launched with the strides
+    of its (B, H, T, S) transpose, key stride T."""
     q, k, v, bias = _bias_inputs(B, H, T, S, d, bshape)
     before = kba.launches
-    got = kba.fused_bias_attention(q, k, v, bias)
+    if layout == "keys first":
+        stored = bias.transpose(2, 3).contiguous()
+        view = stored.transpose(2, 3)
+        assert view.stride(3) == T
+        got = kba._launch(q, k, v, stored, view.stride())
+    else:
+        got = kba.fused_bias_attention(q, k, v, bias)
     torch.cuda.synchronize()
     assert kba.launches == before + 1
     torch.testing.assert_close(got, kba.fused_bias_attention_reference(q, k, v, bias),
@@ -128,7 +172,8 @@ def test_bias_kernel_matches_plain_version(B, H, T, S, d, bshape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,T,S,d,bshape", [BIAS_CASES[0], BIAS_CASES[4], BIAS_CASES[5]])
+@pytest.mark.parametrize("B,H,T,S,d,bshape",
+                         [c[:6] for c in (BIAS_CASES[0], BIAS_CASES[4], BIAS_CASES[5])])
 def test_bias_kernel_gradients_match_plain_version(B, H, T, S, d, bshape):
     """The kernel forward with the autograd backward vs autograd through the
     plain version: output < 1e-5; dq, dk, dv and the bias gradient < 1e-4."""

@@ -6,6 +6,8 @@ and ``keybias_attention`` on CPU tensors must take the plain version without
 launching anything. The kernel itself is held to the plain version on the
 card by test_torch_kernels_cuda.py."""
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +41,33 @@ def test_reference_matches_jax_pallas_interpret(B, H, T, S, d, lens):
     ref = np.asarray(fused_keybias_attention(*map(jnp.asarray, (q, k, v, bias)), interpret=True))
     got = kb.keybias_attention_reference(*map(torch.from_numpy, (q, k, v, bias))).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+def test_aligned16_copies_only_a_view_off_a_16_byte_boundary():
+    """The kernel copies K and V 16 bytes at a time: a view that starts off
+    a 16-byte boundary is copied, an aligned tensor passed as it is."""
+    base = torch.arange(65, dtype=torch.float32)
+    aligned = base[:64]
+    assert base.data_ptr() % 16 == 0 and kb.aligned16(aligned) is aligned
+    off = base[1:].view(4, 16)
+    got = kb.aligned16(off)
+    assert off.data_ptr() % 16 == 4 and got.data_ptr() % 16 == 0
+    assert got.is_contiguous() and torch.equal(got, off)
+
+
+def test_kernel_entry_is_bound_once(monkeypatch):
+    """build.function sets an entry's ctypes signature on first use and
+    hands back the same bound function after (libc's abs stands in for a
+    kernel library here)."""
+    from avi_talking_tpu_torch.ops.kernels import build
+
+    monkeypatch.setitem(build._loaded, "libc", ctypes.CDLL(None))
+    monkeypatch.setattr(build, "_functions", {})
+    fn = build.function("libc", "abs", [ctypes.c_int])
+    assert fn.argtypes == [ctypes.c_int] and fn.restype is ctypes.c_int
+    assert fn(-7) == 7
+    assert build.function("libc", "abs", [ctypes.c_int]) is fn
+    assert list(build._functions) == [("libc", "abs")]
 
 
 @pytest.mark.parametrize("B,H,T,S,d,lens", CASES)
