@@ -29,7 +29,10 @@ the checkout's sources into build/, then
 6. visibility: K2 (rasterizer visibility) held bit-equal to its plain
             version at three shapes (the render path's launch, a closed
             FLAME-density head mesh at 256^2 / tile 32 and at 224^2 /
-            tile 56), with times and bounds;
+            tile 56), with its times (CUDA events and device time), both
+            bounds (at the FMA peak, and at the fp32 issue rate its
+            rounded arithmetic is held to), the live slots per tile and
+            the launch's blocks;
 7. render:  the 200 frames of the 8 s clip through FlameVisualizer into a
             video under build/chip_smoke/: K2 launches, repeatability, wall
             time; the kernel route against the dense plain rasterizer on the
@@ -166,33 +169,113 @@ def attention_backward_bound(B, H, T, S, d, bias_numel, peaks):
 
 
 def visibility_bound(tri, valid, px, py, peaks, chunk=64):
-    """K2's least time for these inputs. Every (pixel, valid slot) pair
-    costs 15 fp32 operations (two offsets, two edge functions of 4, w2 of
-    2, three sign tests); a pair that passes the test 6 more (the depth, 5,
-    and its compare): the covered pairs of this data are counted here.
-    Bytes: tri, valid, px and py read once, zbuf and slot written once."""
+    """K2's least time for these inputs. A (pixel, live slot) pair needs
+    evaluating only where the pixel lies in the face's bounding box or the
+    face covers it (rounding can cover a pixel just outside the box); such a
+    pair costs 15 fp32 operations (two offsets, two edge functions of 4, w2
+    of 2, three sign tests), and a covered one 6 more (the depth, 5, and its
+    compare). Pairs outside the box cost nothing here, as if culled for
+    free. Both counts are this data's. The no-FMA bound takes the same
+    count at half the FMA peak: the kernel rounds every product and sum on
+    its own (__fmul_rn, __fadd_rn), as bit-equality with the plain version
+    needs, so none of them contracts into an FMA, and the fp32 issue rate,
+    one operation per lane and cycle, is its ceiling. Bytes: valid, px and
+    py read once, the corners of the valid slots alone (no other is
+    needed), zbuf and slot written once. ``walked_pairs`` are the pairs of
+    a walk over every live slot, as the kernel makes."""
     import torch
 
     n, cap, _ = tri.shape
     px_n = px.shape[1]
-    pairs = int(valid.sum()) * px_n
-    covered = 0
+    pairs = covered = walked = 0
     for c0 in range(0, cap, chunk):
         t = tri[:, c0:c0 + chunk]
         x0, y0, x1, y1, x2, y2 = (t[..., i:i + 1] for i in (0, 1, 3, 4, 6, 7))
         denom = (y1 - y2) * (x0 - x2) + (x2 - x1) * (y0 - y2)
         ok = (denom.abs() > 1e-12) & (valid[:, c0:c0 + chunk] > 0)
         inv = 1.0 / torch.where(ok, denom, torch.ones_like(denom))
-        dx, dy = px[:, None] - x2, py[:, None] - y2
+        qx, qy = px[:, None], py[:, None]
+        dx, dy = qx - x2, qy - y2
         w0 = ((y1 - y2) * dx + (x2 - x1) * dy) * inv
         w1 = ((y2 - y0) * dx + (x0 - x2) * dy) * inv
-        covered += int(((w0 >= 0) & (w1 >= 0) & (1.0 - w0 - w1 >= 0) & ok).sum())
+        hit = (w0 >= 0) & (w1 >= 0) & (1.0 - w0 - w1 >= 0) & ok
+        xs, ys = t[..., 0::3], t[..., 1::3]
+        in_box = ((qx >= xs.amin(-1, keepdim=True)) & (qx <= xs.amax(-1, keepdim=True))
+                  & (qy >= ys.amin(-1, keepdim=True)) & (qy <= ys.amax(-1, keepdim=True)))
+        covered += int(hit.sum())
+        pairs += int(((in_box & ok) | hit).sum())
+        walked += int(ok.sum()) * px_n
     flops = 15 * pairs + 6 * covered
-    nbytes = 4 * n * cap * 10 + 4 * n * px_n * 4
+    nbytes = 4 * n * cap + 4 * 9 * int((valid > 0).sum()) + 4 * n * px_n * 4
     t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
+    t_issue = flops / (peaks[0] / 2)
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes, "pairs": pairs, "covered_pairs": covered}
+            "bound_ms_no_fma": max(t_issue, t_bytes) * 1e3,
+            "bound_no_fma_by": "operations" if t_issue >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes, "pairs": pairs, "covered_pairs": covered,
+            "walked_pairs": walked}
+
+
+def live_slot_stats(valid):
+    """Live (valid) slots per tile of K2's input valid (n, cap, 1): mean,
+    median, max, the tiles with none and at cap, and all tiles."""
+    live = valid.reshape(valid.shape[0], -1).gt(0).sum(1)
+    cap = valid.shape[1]
+    return {"mean": float(live.float().mean()), "median": float(live.float().median()),
+            "max": int(live.max()), "empty_tiles": int((live == 0).sum()),
+            "tiles_at_cap": int((live == cap).sum()), "tiles": int(live.numel())}
+
+
+def visibility_launch(n, px_n, ptxas):
+    """K2's launch for n tiles of px_n pixels: the blocks, threads and
+    pixels a block that its source's constants give (a block per pixel
+    block and tile, at most 65535 tiles a grid row), and from the ptxas
+    lines of its build the registers, the static shared memory and the
+    blocks resident per SM on Hopper (65536 registers allotted to a warp in
+    units of 256, 64 warps, 32 blocks and 233472 bytes of shared memory an
+    SM, 1024 of them reserved per block), where this run built it."""
+    import re
+
+    from avi_talking_tpu_torch.ops.kernels import build
+
+    with open(os.path.join(build.CSRC_DIR, "rasterize_visibility.cu")) as f:
+        src = f.read()
+    threads = int(re.search(r"constexpr int THREADS = (\d+);", src)[1])
+    block_px = threads * int(re.search(r"constexpr int PPT = (\d+);", src)[1])
+    launch = {"blocks": -(-px_n // block_px) * min(n, 65535), "threads": threads,
+              "pixels_per_block": block_px}
+    info = " ".join(ptxas)
+    if m := re.search(r"Used (\d+) registers", info):
+        regs, warps = int(m[1]), threads // 32
+        smem = int(m[1]) if (m := re.search(r"(\d+) bytes smem", info)) else 0
+        launch.update(registers=regs, smem_bytes=smem, blocks_per_sm=min(
+            65536 // (math.ceil(regs * 32 / 256) * 256) // warps, 64 // warps, 32,
+            233472 // (smem + 1024)))
+    return launch
+
+
+def visibility_cases(verts, faces):
+    """K2's inputs at chip_smoke's three shapes: the render path's launch
+    (16 frames of ``verts``, 256^2, tile 32, cap 1024), and the head mesh
+    (16 frames) at 256^2 / tile 32 and 224^2 / tile 56. -> [(name, tri,
+    valid, px, py, frames, faces)]."""
+    import torch
+
+    from avi_talking_tpu_torch.viz import FlameVisualizer
+    from avi_talking_tpu_torch.viz.rasterizer import _visibility_inputs
+
+    hv, hf = head_mesh()
+    head = torch.from_numpy(head_frames(hv, 16)).cuda()
+    hf = torch.from_numpy(hf).cuda()
+    render_ndc = FlameVisualizer(faces, 256).project(torch.as_tensor(verts[:16]).cuda())
+    cases = []
+    for name, v, f, size, tile in (("render_256_tile32", render_ndc, faces, 256, 32),
+                                   ("head_256_tile32", head, hf, 256, 32),
+                                   ("head_224_tile56", head, hf, 224, 56)):
+        _, tri, valid, px, py, *_ = _visibility_inputs(v, f.long(), size, size, tile, 1024)
+        cases.append((name, tri, valid, px, py, v.shape[0], f.shape[0]))
+    return cases
 
 
 def head_mesh(n_lat: int = 72, n_lon: int = 72):
@@ -256,6 +339,7 @@ def phase_build():
           "total_s": time.perf_counter() - t0,
           "tf32": "off: torch.backends.cuda.matmul.allow_tf32 = False, "
                   "torch.backends.cudnn.allow_tf32 = False"})
+    return ptxas
 
 
 def phase_kernels(peaks):
@@ -406,8 +490,12 @@ def phase_attention_grads(peaks):
         def bwd_ms(out):
             return time_ms(lambda: torch.autograd.grad(out, (qc, kc, vc), cc, retain_graph=True))
 
+        out = fn(qc, kc, vc, bc)
         row = {"kernel": name, "shape": [B, H, T, S, d], "max_abs_err": errs, "tol": tol,
-               "backward_ms": bwd_ms(fn(qc, kc, vc, bc)),
+               "backward_ms": bwd_ms(out),
+               # every device kernel of the backward, summed
+               "backward_device_ms": device_ms(
+                   lambda: torch.autograd.grad(out, (qc, kc, vc), cc, retain_graph=True)),
                "plain_backward_ms": bwd_ms(plain(qc, kc, vc, bc)),
                "library_backward_ms": bwd_ms(F.scaled_dot_product_attention(
                    qc, kc, vc, attn_mask=bias4.cuda(), scale=1.0))}
@@ -714,28 +802,17 @@ def phase_gpu_vs_cpu(pipe):
         check(e < tol, f"GPU vs CPU {k}: max |d| {e} >= {tol}")
 
 
-def phase_visibility(verts, faces, peaks):
-    """K2 against its plain version, bit for bit, at three shapes: the
-    render path's launch (16 frames of the generate output, 256^2, tile 32,
-    cap 1024), and the head mesh (16 frames) at 256^2 / tile 32 and at
-    224^2 / tile 56."""
+def phase_visibility(verts, faces, peaks, ptxas):
+    """K2 against its plain version, bit for bit, at visibility_cases'
+    three shapes, with its time (CUDA events around the wrapper, and the
+    kernel's own device time under torch.profiler), both bounds, the live
+    slots per tile and the launch's blocks."""
     import torch
 
     from avi_talking_tpu_torch.ops.kernels import rasterize as kras
-    from avi_talking_tpu_torch.viz import FlameVisualizer
-    from avi_talking_tpu_torch.viz.rasterizer import _visibility_inputs
 
-    hv, hf = head_mesh()
-    head = torch.from_numpy(head_frames(hv, 16)).cuda()
-    render_ndc = FlameVisualizer(faces, 256).project(torch.from_numpy(verts[:16]).cuda())
-    cases = [
-        ("render_256_tile32", render_ndc, faces, 256, 32),
-        ("head_256_tile32", head, torch.from_numpy(hf).cuda(), 256, 32),
-        ("head_224_tile56", head, torch.from_numpy(hf).cuda(), 224, 56),
-    ]
     rows = []
-    for name, v, f, size, tile in cases:
-        _, tri, valid, px, py, *_ = _visibility_inputs(v, f.long(), size, size, tile, 1024)
+    for name, tri, valid, px, py, frames, n_faces in visibility_cases(verts, faces):
         z, s = kras.rasterize_tiles_visibility(tri, valid, px, py)
         torch.cuda.synchronize()
         rz, rs = kras.rasterize_tiles_visibility_reference(tri, valid, px, py)
@@ -743,12 +820,18 @@ def phase_visibility(verts, faces, peaks):
         check(torch.equal(s, rs) and torch.equal(z, rz),
               f"K2 {name}: not bit-equal to the plain version ({int((s != rs).sum())} slots "
               f"differ, max |dz| {err})")
+
+        def kernel():
+            return kras.rasterize_tiles_visibility(tri, valid, px, py)
+
         row = {"case": name, "shape": list(tri.shape[:2]) + [px.shape[1]],
-               "frames": v.shape[0], "faces": f.shape[0], "valid_slots": int(valid.sum()),
-               "slots": valid.numel(), "covered_pixels": int((s >= 0).sum()),
+               "frames": frames, "faces": n_faces, "valid_slots": int(valid.sum()),
+               "slots": valid.numel(), "live_slots_per_tile": live_slot_stats(valid),
+               "launch": visibility_launch(tri.shape[0], px.shape[1], ptxas),
+               "covered_pixels": int((s >= 0).sum()),
                "max_abs_err": err, "slot_mismatches": int((s != rs).sum()),
-               "ms": time_ms(lambda: kras.rasterize_tiles_visibility(tri, valid, px, py),
-                             iters=10, reps=5),
+               "ms": time_ms(kernel, iters=10, reps=5),
+               "device_ms": device_ms(kernel, "rasterize_visibility"),
                "plain_ms": time_ms(lambda: kras.rasterize_tiles_visibility_reference(
                    tri, valid, px, py), iters=2, reps=3)}
         row.update(visibility_bound(tri, valid, px, py, peaks))
@@ -760,8 +843,8 @@ def phase_visibility(verts, faces, peaks):
 def phase_render(verts, faces):
     """The 8 s clip's 200 frames through FlameVisualizer.visualize_verts
     (13 chunks of 16 frames, so 13 K2 launches), repeatability, the wall
-    time (median of 3); then the kernel route against the dense plain
-    rasterizer on the head mesh."""
+    time (median of 3), K2's device time in one render_verts; then the
+    kernel route against the dense plain rasterizer on the head mesh."""
     import numpy as np
     import torch
 
@@ -794,6 +877,7 @@ def phase_render(verts, faces):
         t0 = time.perf_counter()
         viz.render_verts(verts)
         render_s.append(time.perf_counter() - t0)
+    k2_ms = device_ms(lambda: viz.render_verts(verts), "rasterize_visibility", iters=3)
     for _ in range(2):
         t0 = time.perf_counter()
         viz.visualize_verts(verts, os.path.join(out_dir, "render.mp4"))
@@ -818,6 +902,7 @@ def phase_render(verts, faces):
           "path": os.path.relpath(path, HERE),
           "visualize_wall_s_median": statistics.median(walls), "visualize_wall_s_all": walls,
           "render_verts_s_median": statistics.median(render_s), "render_verts_s_all": render_s,
+          "k2_device_ms_per_render": k2_ms,
           "head_mesh": {"faces": int(hf.shape[0]), "k2_launches": head_launches,
                         "mask_equal_dense": True, "max_abs_err_vs_dense": head_err,
                         "covered_pixels": int(m_k.sum())}})
@@ -1013,7 +1098,7 @@ def main() -> int:
 
     name = torch.cuda.get_device_name(0)
     variant, peaks = card_peaks(name)
-    phase_build()
+    ptxas = phase_build()
     rows = phase_kernels(peaks)
     k3_rows = phase_bias_kernels(peaks)
     grad_rows = phase_attention_grads(peaks)
@@ -1026,7 +1111,8 @@ def main() -> int:
     phase_generate_batch(pipe, kb)
     phase_gpu_vs_cpu(pipe)
     faces = assets.faces.cuda()
-    vis_rows = phase_visibility(gen_out["vertices"], faces, peaks)
+    vis_rows = phase_visibility(gen_out["vertices"], faces, peaks,
+                                ptxas.get("rasterize_visibility", []))
     render_launches = phase_render(gen_out["vertices"], faces)
     phase_render_gpu_vs_cpu()
     phase_serve(pipe, kb)
@@ -1064,9 +1150,11 @@ def main() -> int:
         "launches": render_launches,
         "max_abs_err": max(r["max_abs_err"] for r in vis_rows),
         "ms": vis_row["ms"],
+        "device_ms": vis_row["device_ms"],
         "plain_ms": vis_row["plain_ms"],
         "bound_ms": vis_row["bound_ms"],
         "bound_by": vis_row["bound_by"],
+        "bound_ms_no_fma": vis_row["bound_ms_no_fma"],
         "library_ms": None,  # no PyTorch call computes z-buffer visibility
         "shape": vis_row["shape"],
         "peaks": peaks_line,

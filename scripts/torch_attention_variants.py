@@ -15,20 +15,17 @@ splitting, the operands passed as they are), ``no_pv`` (no p . v product),
 into shared memory). Every variant is built with nvcc into build/variants/
 and timed at chip_smoke.py's K1 and K3 shapes, in turns, by its device time
 under torch.profiler; one JSON line per shape gives, per variant, the
-device ms and the max |d| against the plain version.
+device ms and the max |d| against the plain version (the build and timing
+machinery is scripts/kernel_variants.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import importlib.util
 import json
-import os
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-ROOT = os.path.dirname(HERE)
+import kernel_variants
 
 VARIANTS = {
     "kernel": [],
@@ -64,56 +61,19 @@ CASES = [  # chip_smoke.py's kernel_check shapes: name, B, H, T=S, d, bias
 ]
 
 
-def build_variants(names):
-    from avi_talking_tpu_torch.ops.kernels import build
-
-    source = open(os.path.join(build.CSRC_DIR, "bias_attention.cu")).read()
-    out_dir = os.path.join(ROOT, "build", "variants")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name in names:
-        text = source
-        for old, new in VARIANTS[name]:
-            if old not in text:
-                raise SystemExit(f"variant {name}: the edit no longer applies: {old!r}")
-            text = text.replace(old, new)
-        src = os.path.join(out_dir, f"{name}.cu")
-        with open(src, "w") as f:
-            f.write(text)
-        procs[name] = subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", os.path.join(out_dir, f"lib{name}.so"), src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    fns = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0].decode()
-        if proc.returncode != 0:
-            raise SystemExit(f"variant {name} does not build:\n{log}")
-        print(json.dumps({"variant": name, "ptxas": [
-            line.strip() for line in log.splitlines() if "Used" in line or "spill" in line]}))
-        fn = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so")).avi_bias_attention_f32
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
-
-
 def main() -> int:
     import torch
 
-    if not torch.cuda.is_available():
-        print("torch_attention_variants: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = kernel_variants.chip_smoke("torch_attention_variants")
     from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
     from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
     from avi_talking_tpu_torch.ops.positional import enc_dec_alignment_bias, faceformer_bias
 
     names = sys.argv[1].split(",") if len(sys.argv) > 1 else list(VARIANTS)
-    fns = build_variants(names)
+    fns = kernel_variants.build_variants(
+        "bias_attention", "avi_bias_attention_f32",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p],
+        VARIANTS, names)
     g = torch.Generator(device="cuda").manual_seed(0)
     for case, B, H, T, d, kind in CASES:
         S = T
@@ -130,27 +90,25 @@ def main() -> int:
                     else enc_dec_alignment_bias(T, S, device="cuda"))
             strides = kba.bias_strides(bias, B, H, T, S)
             ref = kba.fused_bias_attention_reference(q, k, v, bias)
-        row = {"case": case, "shape": [B, H, T, S, d]}
-        for _ in range(2):  # two rounds, the variants in turns
-            for name, fn in fns.items():
-                out = torch.empty_like(q)
 
-                def call():
-                    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                             out.data_ptr(), B, H, T, S, d, *strides,
-                             torch.cuda.current_stream().cuda_stream)
-                    assert err == 0, err
+        def measure(fn):
+            out = torch.empty_like(q)
 
-                call()
-                torch.cuda.synchronize()
-                err = float((out - ref).abs().max())
-                row.setdefault(name, []).append(
-                    {"device_ms": cs.device_ms(call, "bias_attention_kernel", iters=50),
-                     "max_abs_err": err})
-        print(json.dumps(row), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+            def call():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                         out.data_ptr(), B, H, T, S, d, *strides,
+                         torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+
+            call()
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            return {"device_ms": cs.device_ms(call, "bias_attention_kernel", iters=50),
+                    "max_abs_err": err}
+
+        print(json.dumps({"case": case, "shape": [B, H, T, S, d],
+                          **kernel_variants.in_turns(fns, measure)}), flush=True)
+    kernel_variants.print_card()
     return 0
 
 

@@ -8,16 +8,22 @@ A is the checkout at OTHER_ROOT (say a parent commit unpacked with
 letter of ``--order`` runs one side in a process of its own, which imports
 the port from that side's root and builds its kernels there, then measures:
 
-* K1 / K3 at chip_smoke.py's kernel-check shapes: CUDA-event ms around the
-  wrapper and the kernel's device ms under torch.profiler;
+* K1 / K3 at chip_smoke.py's kernel-check shapes, and K2 at its three
+  visibility shapes (chip_smoke.visibility_cases: the render path's launch
+  on the 8 s clip's frames, the head mesh at 256^2 / tile 32 and 224^2 /
+  tile 56): CUDA-event ms around the wrapper and the kernel's device ms
+  under torch.profiler; and K2's device ms summed over one ``render_verts``
+  of the 8 s clip's 200 frames (13 launches);
 * ``generate`` on the 8 s clip, full-width PipelineConfig() (median of 5);
+* ``render_verts`` of that clip's 200 frames at 256^2 (median of 3);
 * the full-width FaceFormer forward (median of 5) and ``predict`` (median
   of 3) at B=1, T=600;
 * the training step at train-faceformer's defaults, B=16, T=25 (median and
   mean of 25 after 3 warm-up steps).
 
-Each side prints one JSON line; the last lines give every metric's values
-per side, in run order, and the card's name and power limit. The helpers
+With ``--kernels`` a side times the kernels only. Each side prints one
+JSON line; the last lines give every metric's values per side, in run
+order, and the card's name and power limit. The helpers
 (timers, inputs, seeded models) are this checkout's chip_smoke.py for both
 sides, so both are measured the same way.
 """
@@ -44,7 +50,7 @@ CASES = [  # chip_smoke.py's kernel_check shapes: name, B, H, T=S, d, bias
 ]
 
 
-def side(root: str, label: str) -> dict:
+def side(root: str, label: str, kernels_only: bool) -> dict:
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
@@ -53,7 +59,11 @@ def side(root: str, label: str) -> dict:
 
     from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
     from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
+    from avi_talking_tpu_torch.ops.kernels import rasterize as kras
     from avi_talking_tpu_torch.ops.positional import enc_dec_alignment_bias, faceformer_bias
+    from avi_talking_tpu_torch.core.assets import synthetic_assets
+    from avi_talking_tpu_torch.pipeline import AviTalkingPipeline, PipelineConfig
+    from avi_talking_tpu_torch.viz import FlameVisualizer
 
     if not kb.__file__.startswith(root):
         raise SystemExit(f"imported the port from {kb.__file__}, not from {root}")
@@ -79,10 +89,27 @@ def side(root: str, label: str) -> dict:
         result["kernels"][case] = {"ms": cs.time_ms(fn),
                                    "device_ms": cs.device_ms(fn, "bias_attention_kernel")}
 
+    assets = synthetic_assets(num_vertices=5023, n_shape=300, n_exp=50, num_faces=9976)
+    pipe = AviTalkingPipeline.random_init(PipelineConfig(), assets, seed=0)
+    wav = cs.synthetic_wav(8.0, seed=1)
+    instruction = "A fairly angry man speaks with brow fairly down"
+    verts = pipe.generate(wav, instruction, seed=0)["vertices"]
+    faces = assets.faces.cuda()
+    for case, tri, valid, px, py, *_ in cs.visibility_cases(verts, faces):
+
+        def fn():
+            return kras.rasterize_tiles_visibility(tri, valid, px, py)
+
+        result["kernels"][case] = {"ms": cs.time_ms(fn, iters=10, reps=5),
+                                   "device_ms": cs.device_ms(fn, "rasterize_visibility")}
+    viz = FlameVisualizer(faces, 256)
+    result["kernels"]["render_verts"] = {"k2_device_ms": cs.device_ms(
+        lambda: viz.render_verts(verts), "rasterize_visibility", iters=3)}
+    if kernels_only:
+        return result
+
     from avi_talking_tpu_torch.cli.train import synthetic_batches
-    from avi_talking_tpu_torch.core.assets import synthetic_assets
     from avi_talking_tpu_torch.models.faceformer import FaceFormerConfig
-    from avi_talking_tpu_torch.pipeline import AviTalkingPipeline, PipelineConfig
     from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer, adamw
 
     def walls(fn, n):
@@ -95,13 +122,9 @@ def side(root: str, label: str) -> dict:
             out.append(time.perf_counter() - t0)
         return out
 
-    assets = synthetic_assets(num_vertices=5023, n_shape=300, n_exp=50, num_faces=9976)
-    pipe = AviTalkingPipeline.random_init(PipelineConfig(), assets, seed=0)
-    wav = cs.synthetic_wav(8.0, seed=1)
-    instruction = "A fairly angry man speaks with brow fairly down"
-    pipe.generate(wav, instruction, seed=0)
     result["generate_s"] = walls(lambda: pipe.generate(wav, instruction, seed=0), 5)
     del pipe
+    result["render_s"] = walls(lambda: viz.render_verts(verts), 3)
 
     cfg = FaceFormerConfig()
     model = cs._faceformer_model(cfg, seed=0, device="cuda")
@@ -126,10 +149,12 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("other_root", nargs="?")
     p.add_argument("--order", default="ABBA")
+    p.add_argument("--kernels", action="store_true", help="time the kernels only")
     p.add_argument("--side", nargs=2, metavar=("ROOT", "LABEL"), help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.side:
-        print("SIDE " + json.dumps(side(os.path.abspath(args.side[0]), args.side[1])), flush=True)
+        print("SIDE " + json.dumps(side(os.path.abspath(args.side[0]), args.side[1],
+                                        args.kernels)), flush=True)
         return 0
     import torch
 
@@ -139,8 +164,8 @@ def main() -> int:
     roots = {"A": os.path.abspath(args.other_root), "B": ROOT}
     runs = []
     for label in args.order:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--side", roots[label], label],
-                             capture_output=True, text=True)
+        cmd = [sys.executable, os.path.abspath(__file__), "--side", roots[label], label]
+        out = subprocess.run(cmd + ["--kernels"] * args.kernels, capture_output=True, text=True)
         if out.returncode != 0:
             print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
             return out.returncode
@@ -148,11 +173,13 @@ def main() -> int:
         print(line, flush=True)
         runs.append(json.loads(line))
     summary = {}
+    walls = () if args.kernels else ("generate_s", "render_s", "forward_s", "predict_s",
+                                     "train_step_s")
     for r in runs:
         for case, row in r["kernels"].items():
             for key, val in row.items():
                 summary.setdefault(f"{case}.{key}", {}).setdefault(r["side"], []).append(val)
-        for key in ("generate_s", "forward_s", "predict_s", "train_step_s"):
+        for key in walls:
             med = summary.setdefault(f"{key}.median", {}).setdefault(r["side"], [])
             med.append(statistics.median(r[key]))
             if key == "train_step_s":

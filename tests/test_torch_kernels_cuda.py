@@ -290,3 +290,74 @@ def test_visibility_kernel_refuses_what_it_does_not_take():
         kras.rasterize_tiles_visibility(tri, valid, px.t().contiguous().t(), py)
     with pytest.raises(ValueError):  # shape mismatch
         kras.rasterize_tiles_visibility(tri, valid[:, :32], px, py)
+
+
+def _hard_visibility_case(case, seed=11):
+    """Inputs that probe the kernel's compaction of live slots, its pixel
+    blocks and its grid: numpy tri (n, cap, 9), valid (n, cap, 1), px, py."""
+    n, cap, px_n, share, size = {
+        "head_imbalance": (256, 1024, 1024, 0.3, 0.15),
+        "tail_live": (6, 700, 600, 1.0, 0.5),
+        "nan_inf_invalid": (6, 600, 1024, 0.5, 0.5),
+        "px_n_1": (5, 300, 1, 0.6, 1.0),
+        "px_n_7": (5, 300, 7, 0.6, 1.0),
+        "px_n_1000": (4, 300, 1000, 0.6, 0.5),
+        "px_n_3136": (4, 300, 3136, 0.6, 0.5),
+        "cap_1": (9, 1, 200, 1.0, 1.0),
+        "cap_257": (5, 257, 700, 0.7, 0.5),
+        "tie_255_256": (3, 400, 1024, 0.5, 0.3),
+        "tiles_past_grid_y": (65535 + 70, 3, 5, 0.7, 1.0),
+    }[case]
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform(-1.0, 1.0, (n, cap, 1, 3))
+    tri = (centre + size * rng.uniform(-1.0, 1.0, (n, cap, 3, 3))).reshape(n, cap, 9)
+    tri = tri.astype(np.float32)
+    tri[:, ::7, 3:6] = tri[:, ::7, 0:3]  # degenerate
+    tri[:, 1::5] = tri[:, 0:-1:5]  # exact duplicates: z ties
+    valid = (rng.random((n, cap, 1)) < share).astype(np.float32)
+    if case == "head_imbalance":  # most tiles empty, a few at cap
+        kind = rng.random(n)
+        valid[kind < 0.8] = 0.0
+        valid[kind > 0.95] = 1.0
+    elif case == "tail_live":  # live slots only at the tail: not a prefix
+        valid[:, :cap - 150] = 0.0
+    elif case == "nan_inf_invalid":  # poison in the corners of invalid slots
+        poison = np.array([np.nan, np.inf, -np.inf], np.float32)[np.arange(n) % 3]
+        tri = np.where(valid > 0, tri, poison[:, None, None]).astype(np.float32)
+    elif case == "tie_255_256":  # one face over every pixel, twice, across a staging step
+        tri[..., 2::3] = np.maximum(tri[..., 2::3], 0.5)  # every other face behind it
+        tri[:, 255] = tri[:, 256] = np.float32([-3, -3, 0.25, 3, -3, 0.25, 0, 3, 0.25])
+        valid[:, 255] = valid[:, 256] = 1.0
+    elif case == "cap_1":  # the one slot covers every pixel in even tiles, is degenerate in odd
+        tri[::2, 0] = np.float32([-3, -3, 0.5, 3, -3, 0.5, 0, 3, 0.5])
+    px = rng.uniform(-1.0, 1.0, (n, px_n)).astype(np.float32)
+    py = rng.uniform(-1.0, 1.0, (n, px_n)).astype(np.float32)
+    return tri, valid, px, py
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["head_imbalance", "tail_live", "nan_inf_invalid", "px_n_1",
+                                  "px_n_7", "px_n_1000", "px_n_3136", "cap_1", "cap_257",
+                                  "tie_255_256", "tiles_past_grid_y"])
+def test_visibility_kernel_bit_equal_on_hard_inputs(case):
+    """zbuf and slot bit-equal to the plain version where the kernel
+    compacts live slots (most tiles empty and a few at cap, live slots only
+    at the tail, NaN and inf in invalid slots), where its pixel blocks are
+    ragged (px_n 1, 7, 1000, 3136), at cap 1 and 257, at an exact z tie
+    between slots 255 and 256, and with more tiles than one grid row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    tri, valid, px, py = (torch.from_numpy(a).cuda() for a in _hard_visibility_case(case))
+    before = kras.launches
+    z, s = kras.rasterize_tiles_visibility(tri, valid, px, py)
+    torch.cuda.synchronize()
+    assert kras.launches == before + 1
+    rz, rs = kras.rasterize_tiles_visibility_reference(tri, valid, px, py)
+    assert torch.equal(s, rs) and torch.equal(z, rz)
+    assert (s >= 0).any()
+    if case == "tie_255_256":
+        assert (s == 255).all()
+    if case == "tail_live":
+        assert (s[s >= 0] >= tri.shape[1] - 150).all()
+    if case == "cap_1":
+        assert (s[::2] == 0).all() and (s[1::2] == -1).all()
