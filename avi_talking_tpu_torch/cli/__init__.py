@@ -9,6 +9,14 @@ Subcommands:
              (batch coalescing, warmup, p50 / p99)
   train-faceformer
              stage-1 FaceFormer training (AdamW) on synthetic batches
+  train-emote
+             staged EMOTE training (geometric, then condition exchange at
+             lr / 2) on synthetic batches, with validation, best / last
+             checkpoints and early stopping
+  train-prior
+             diffusion-prior training (clipped AdamW, one-cycle schedule)
+             on the structured synthetic stream, with validation, best /
+             last checkpoints and --resume
 
 Everything runs on the CUDA card unless ``--device cpu`` is given; without
 a card and without ``--device`` the commands raise. Weights are seeded
@@ -24,13 +32,14 @@ import argparse
 
 
 def main(argv=None) -> int:
-    from . import run, train
+    from . import run, train, train_emote, train_prior
     from ._common import common_args
 
     p = argparse.ArgumentParser(prog="avi-talking-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
     run.register(sub, common_args)
-    train.register(sub, common_args)
+    for mod in (train, train_emote, train_prior):
+        mod.register(sub, common_args)
     args = p.parse_args(argv)
     return args.fn(args)

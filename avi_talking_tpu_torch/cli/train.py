@@ -6,14 +6,14 @@ from __future__ import annotations
 import time
 
 REFUSED = {
-    "root": "--root (MEAD / EMOCA data) waits for the data-backed batches (ROADMAP Queue 1, item 15)",
-    "render_loss": "--render-loss needs PIRender (ROADMAP Queue 1, items 12 and 13)",
-    "emo_loss": "--emo-loss needs EmoNet (ROADMAP Queue 1, items 10 and 12)",
-    "fan_checkpoint": "--fan-checkpoint needs the FanEncoder (ROADMAP Queue 1, item 13)",
-    "emonet_checkpoint": "--emonet-checkpoint needs EmoNet (ROADMAP Queue 1, item 10)",
-    "ckpt_dir": "--ckpt-dir needs checkpoint saving (ROADMAP Queue 1, item 15)",
+    "root": "--root (MEAD / EMOCA data) waits for the data-backed batches (ROADMAP Queue 1, item 7)",
+    "render_loss": "--render-loss needs PIRender (ROADMAP Queue 1, item 5)",
+    "emo_loss": "--emo-loss needs EmoNet (ROADMAP Queue 1, items 2 and 3)",
+    "fan_checkpoint": "--fan-checkpoint needs the FanEncoder (ROADMAP Queue 1, item 2)",
+    "emonet_checkpoint": "--emonet-checkpoint needs EmoNet (ROADMAP Queue 1, item 3)",
+    "ckpt_dir": "--ckpt-dir waits for the rest of the FaceFormer family (ROADMAP Queue 1, item 2)",
     "flame_npz": "--flame-npz feeds the landmark terms, which need FLAME landmarks "
-                 "(ROADMAP Queue 1, item 12)",
+                 "(ROADMAP Queue 1, item 2)",
     "bf16": "--bf16: the port computes in float32",
     "checkpoint": "--checkpoint: the port trains from seeded random weights",
 }
@@ -43,7 +43,8 @@ def synthetic_batches(cfg, batch_size: int, seq_length: int, seed: int, device):
 def cmd_train_faceformer(args) -> int:
     from ..infra.device import resolve_device
     from ..models.faceformer import FaceFormerCoeff, FaceFormerConfig
-    from ..train.faceformer_trainer import FaceFormerTrainer, adamw
+    from ..train.faceformer_trainer import FaceFormerTrainer
+    from ..train.optim import adamw
 
     for name, why in REFUSED.items():
         if getattr(args, name, None):

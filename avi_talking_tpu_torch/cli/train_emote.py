@@ -1,0 +1,98 @@
+"""train-emote: the staged EMOTE training loop on synthetic batches (the
+JAX command without ``--root`` and ``--neural``): a geometric stage at
+``--lr``, then a condition-exchange stage at ``--lr / 2``."""
+
+from __future__ import annotations
+
+import itertools
+
+REFUSED = {
+    "root": "--root (MEAD / EMOCA data) waits for the data-backed batches "
+            "(ROADMAP Queue 1, item 7)",
+    "neural": "--neural needs the render-based losses and their towers "
+              "(ROADMAP Queue 1, item 3)",
+    "bf16": "--bf16 needs K1 / K3 on bf16 inputs (ROADMAP Queue 1, item 4)",
+}
+
+
+def synthetic_batches(rng, batch_size: int, frames: int, n_exp: int, n_shape: int, device):
+    """Endless batches drawn from the numpy Generator ``rng`` in the JAX
+    command's order: audio frames, one-hot expression (9) / intensity (3) /
+    identity (32), zero shape, gt exp and jaw."""
+    import numpy as np
+    import torch
+
+    B, T = batch_size, frames
+    while True:
+        out = {
+            "raw_audio": rng.standard_normal((B, T, 640)).astype(np.float32),
+            "expression": np.eye(9, dtype=np.float32)[rng.integers(0, 9, B)],
+            "intensity": np.eye(3, dtype=np.float32)[rng.integers(0, 3, B)],
+            "identity": np.eye(32, dtype=np.float32)[rng.integers(0, 32, B)],
+            "shape": np.zeros((B, n_shape), np.float32),
+            "gt_exp": rng.standard_normal((B, T, n_exp)).astype(np.float32) * 0.1,
+            "gt_jaw": rng.standard_normal((B, T, 3)).astype(np.float32) * 0.05,
+        }
+        yield {k: torch.from_numpy(a).to(device) for k, a in out.items()}
+
+
+def build_head(tiny: bool, seed: int, device):
+    """The head ``train-emote`` trains: ``EmoteConfig()`` (or ``.tiny()``)
+    with seeded random weights and a style encoder over the batches' 9 + 3
+    + 32 + n_shape condition."""
+    import torch
+
+    from ..infra.init import random_module
+    from ..models.emote import EmoteConfig, EmoteTalkingHead
+
+    cfg = EmoteConfig.tiny() if tiny else EmoteConfig()
+    return random_module(lambda: EmoteTalkingHead(cfg, condition_dim=9 + 3 + 32 + cfg.n_shape),
+                         device, torch.Generator().manual_seed(seed))
+
+
+def cmd_train_emote(args) -> int:
+    import numpy as np
+
+    from ..infra.device import resolve_device
+    from ..train.emote_driver import EmoteStage, train_emote
+
+    for name, why in REFUSED.items():
+        if getattr(args, name, None):
+            raise SystemExit(f"train-emote: not ported to avi_talking_tpu_torch yet: {why}")
+    device = resolve_device(args.device)
+    head = build_head(args.tiny, seed=0, device=device)  # JAX: PRNGKey(0)
+    cfg = head.cfg
+    T = args.frames - args.frames % cfg.flint.latent_frame_size
+    draw = (args.batch_size, T, cfg.flint.n_exp, cfg.n_shape, device)
+    rng = np.random.default_rng(0)
+    batches = lambda: synthetic_batches(rng, *draw)  # noqa: E731  (one stream, continued)
+    # a disjoint validation stream: early stopping and "best" must not read training data
+    val_cached = list(itertools.islice(synthetic_batches(np.random.default_rng(99_991), *draw), 2))
+    stages = [
+        EmoteStage(name="geometric", steps=args.steps, lr=args.lr),
+        EmoteStage(name="disentangled", steps=args.steps, lr=args.lr / 2,
+                   disentangle="condition_exchange"),
+    ]
+    res = train_emote(head, batches, stages=stages, val_batches=lambda: iter(val_cached),
+                      val_every=args.val_every, early_stop_patience=args.early_stop_patience,
+                      run_dir=args.run_dir)
+    print(f"done: {res['total_steps']} steps, best val {res['best_val']:.4f}")
+    return 0
+
+
+def register(sub, common):
+    te = sub.add_parser("train-emote", help="staged EMOTE training loop (synthetic batches)")
+    te.add_argument("--steps", type=int, default=200, help="steps per stage")
+    te.add_argument("--batch-size", type=int, default=8)
+    te.add_argument("--frames", type=int, default=64)
+    te.add_argument("--lr", type=float, default=1e-4)
+    te.add_argument("--val-every", type=int, default=50)
+    te.add_argument("--early-stop-patience", type=int, default=0)
+    te.add_argument("--run-dir", default=None)
+    te.add_argument("--tiny", action="store_true")
+    te.add_argument("--root", default=None, help="(not ported yet)")
+    te.add_argument("--neural", action="store_true", help="(not ported yet)")
+    te.add_argument("--bf16", action="store_true", help="(not ported yet)")
+    te.add_argument("--device", default=None,
+                    help="torch device; the default is the CUDA card, and no card is an error")
+    te.set_defaults(fn=cmd_train_emote)

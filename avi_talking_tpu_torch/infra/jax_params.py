@@ -267,6 +267,16 @@ def prior_state_from_jax(params: Tree) -> State:
     return out
 
 
+def prior_trainer_state_from_jax(variables: Tree) -> Dict[str, State]:
+    """The JAX prior trainer's params ({"brain", "prior"}, each a flax
+    variables dict) -> {"brain", "prior"} states of the port's
+    ``PriorTrainState`` (``BrainNetwork`` and the ``DiffusionPrior``'s
+    network). Leaves need only be array-like: a tree of booleans (an optax
+    mask) maps leaf by leaf."""
+    return {"brain": brain_state_from_jax(variables["brain"]["params"]),
+            "prior": prior_state_from_jax(variables["prior"]["params"])}
+
+
 def pipeline_state_from_jax(variables: Tree) -> Dict[str, State]:
     """The JAX pipeline's ``params`` ({"clip", "brain", "prior", "head"},
     each a flax variables dict) -> ``AviTalkingPipeline.load_state_dict``

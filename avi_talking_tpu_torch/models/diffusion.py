@@ -1,7 +1,9 @@
-"""DDPM noise schedule and diffusion-prior sampling (port of the sampling
-half of ``avi_talking_tpu/models/diffusion.py``): cosine beta schedule in
-float64 numpy, x0 prediction, image_embed_scale = sqrt(dim).
+"""DDPM noise schedule, diffusion-prior training loss and sampling (port of
+``avi_talking_tpu/models/diffusion.py``): cosine beta schedule in float64
+numpy, x0 prediction, image_embed_scale = sqrt(dim).
 
+The training loss (``loss`` / ``p_losses``) takes its times, noise and
+condition keep masks explicitly or draws them from a ``torch.Generator``.
 Both samplers take their noise explicitly (``noise_init`` (B, n, D) and, for
 DDPM, ``noise_steps`` (steps, B, n, D)), or draw it from the given
 ``torch.Generator`` on the text embedding's device: jax.random streams cannot
@@ -13,12 +15,13 @@ version gathers them from fp32 tables.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .prior_transformer import PriorTransformerNetwork
+from .prior_transformer import PriorTransformerNetwork, l2norm
 
 
 def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
@@ -71,6 +74,25 @@ class NoiseScheduler:
     def num_timesteps(self) -> int:
         return len(self.betas)
 
+    @functools.cached_property
+    def _q_tables(self) -> Dict[torch.device, torch.Tensor]:
+        """fp32 (sqrt_alphas_cumprod, sqrt_one_minus_alphas_cumprod) rows
+        by device, each copied there once: a copy from host memory waits
+        for the card, and the training step samples every step."""
+        return {}
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor
+                 ) -> torch.Tensor:
+        """x_t at the per-row timesteps ``t`` (B,), coefficients gathered
+        from fp32 tables as in JAX."""
+        tables = self._q_tables.get(x_start.device)
+        if tables is None:
+            rows = np.stack([self.sqrt_alphas_cumprod, self.sqrt_one_minus_alphas_cumprod])
+            tables = torch.as_tensor(rows.astype(np.float32), device=x_start.device)
+            self._q_tables[x_start.device] = tables
+        coef = tables[:, t.long()].reshape((2,) + t.shape + (1,) * (x_start.dim() - 1))
+        return coef[0] * x_start + coef[1] * noise
+
     def q_posterior(self, x_start: torch.Tensor, x_t: torch.Tensor, t: int
                     ) -> Tuple[torch.Tensor, float]:
         """Posterior mean and log variance at the scalar timestep ``t``."""
@@ -86,12 +108,48 @@ class DiffusionPrior:
 
     net: PriorTransformerNetwork
     scheduler: NoiseScheduler
+    text_cond_drop_prob: float = 0.2
+    image_cond_drop_prob: float = 0.2
+    training_clamp_l2norm: bool = False
 
     @property
     def embed_scale(self) -> float:
         """image_embed_scale = sqrt(dim): dalle2's p_sample_loop un-scales
         the sample by it (training targets were scaled by it)."""
         return self.net.dim ** 0.5
+
+    def p_losses(self, image_embed: torch.Tensor, times: torch.Tensor, text_embed: torch.Tensor,
+                 noise: Optional[torch.Tensor] = None, brain_keep: Optional[torch.Tensor] = None,
+                 image_keep: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """MSE of the x0 prediction from x_t (``image_embed`` (B, n, D),
+        already scaled) against ``image_embed``; -> (loss, prediction)."""
+        if noise is None:
+            noise = torch.randn(image_embed.shape, generator=generator, device=generator.device)
+        noisy = self.scheduler.q_sample(image_embed, times, noise.to(image_embed.device))
+        pred = self.net(noisy, times, text_embed,
+                        brain_cond_drop_prob=self.text_cond_drop_prob,
+                        image_cond_drop_prob=self.image_cond_drop_prob,
+                        brain_keep=brain_keep, image_keep=image_keep, generator=generator)
+        if self.training_clamp_l2norm:
+            pred = l2norm(pred) * self.embed_scale
+        return ((pred - image_embed) ** 2).mean(), pred  # the target is x_start
+
+    def loss(self, text_embed: torch.Tensor, image_embed: torch.Tensor,
+             times: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+             brain_keep: Optional[torch.Tensor] = None, image_keep: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training loss at uniform random timesteps (``times`` (B,)
+        when given) on the unscaled target ``image_embed`` (B, D) or
+        (B, n, D)."""
+        B = image_embed.shape[0]
+        image_embed = image_embed.reshape(B, -1, self.net.dim)
+        if times is None:
+            times = torch.randint(0, self.scheduler.num_timesteps, (B,), generator=generator,
+                                  device=generator.device)
+        return self.p_losses(image_embed * self.embed_scale, times.to(image_embed.device),
+                             text_embed, noise, brain_keep, image_keep, generator)
 
     def _predict_x_start(self, x, t: int, text_embed, cond_scale: float) -> torch.Tensor:
         tb = torch.full((x.shape[0],), t, dtype=torch.int32, device=x.device)

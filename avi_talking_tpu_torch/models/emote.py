@@ -20,14 +20,14 @@ from torch import nn
 from ..audio.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from ..core.flame import FlameAssets, FlameModel
 from ..ops.transformer import TransformerEncoder
-from .conditioning import EmotionStyleEncoder, StyleCondition
-from .flint import FlintConfig, FlintDecoder
+from .conditioning import DEFAULT_CONDITION_DIM, EmotionStyleEncoder, StyleCondition
+from .flint import FlintConfig, FlintDecoder, RunningStatsBatchNorm1d
 
 
 class ConvSquasher(nn.Module):
     """(B, T, F) -> (B, T/2^q, out). Stage 0: replicate-padded Conv1d(k5, s2)
     + LeakyReLU(0.2) + BatchNorm1d; stages 1..q-1 the same with stride 1 and
-    a MaxPool1d(2). BatchNorm in eval mode."""
+    a MaxPool1d(2). BatchNorm by its running statistics."""
 
     def __init__(self, in_dim: int, out_dim: int, quant_factor: int):
         super().__init__()
@@ -37,7 +37,7 @@ class ConvSquasher(nn.Module):
                 nn.Conv1d(in_dim if i == 0 else out_dim, out_dim, 5,
                           stride=2 if i == 0 else 1, padding=2, padding_mode="replicate"),
                 nn.LeakyReLU(0.2),
-                nn.BatchNorm1d(out_dim, eps=1e-5),
+                RunningStatsBatchNorm1d(out_dim, eps=1e-5),
             ]
             if i > 0:
                 layers.append(nn.MaxPool1d(2))
@@ -82,15 +82,24 @@ class EmoteConfig:
 
 class EmoteTalkingHead(nn.Module):
     """Audio + style -> FLAME coefficient sequences (+ vertices when FLAME
-    assets are given; they must lie on the head's device)."""
+    assets are given; they must lie on the head's device).
 
-    def __init__(self, cfg: EmoteConfig, flame_assets: Optional[FlameAssets] = None):
+    ``condition_dim`` is the width of ``StyleCondition.concat()`` that the
+    style encoder takes (flax infers it at init): 343 for 8 expressions and
+    300 shape codes, 9 + 3 + 32 + n_shape for ``train-emote``'s batches.
+    BatchNorm reads its running statistics in every mode; the decoder's
+    dropout (0.25) acts in ``train()`` mode only, so callers that want JAX's
+    ``deterministic=True`` (inference and JAX's training step alike) keep the
+    head in ``eval()`` mode, as ``random_module`` leaves it."""
+
+    def __init__(self, cfg: EmoteConfig, flame_assets: Optional[FlameAssets] = None,
+                 condition_dim: int = DEFAULT_CONDITION_DIM):
         super().__init__()
         c = self.cfg = cfg
         self.flame_assets = flame_assets
         self.audio_encoder = Wav2Vec2Model(c.wav2vec2)
         self.sequence_encoder = nn.Linear(c.wav2vec2.hidden_size, c.feature_dim)
-        self.style_encoder = EmotionStyleEncoder(output_dim=c.feature_dim)
+        self.style_encoder = EmotionStyleEncoder(condition_dim, c.feature_dim)
         d = c.feature_dim * (2 if c.style_op == "cat" else 1)
         self.bert_decoder = (
             TransformerEncoder(c.num_layers, d, c.nhead, d, c.activation, c.dropout)
@@ -135,6 +144,8 @@ class EmoteTalkingHead(nn.Module):
                 f"size {lfs}; pad the audio (audio.frontend.frame_audio pad_to_multiple)")
         flat = raw_audio.reshape(B, -1).float()
         feats = self.audio_encoder(flat, output_len=T, valid_len=valid_len)
+        if not c.audio_trainable:  # JAX: stop_gradient at the features
+            feats = feats.detach()
         hidden = self.sequence_encoder(feats)
 
         if style_emb is None:

@@ -3,8 +3,8 @@
 Latent frames at T / 2^q are upsampled to the frame rate by one
 ``ConvTranspose1d(k5, s2, p2, output_padding=1)`` and (q-1) x [replicate-
 padded ``Conv1d(k5)``, then ``repeat_interleave(2)``], each stage
-LeakyReLU(0.2) + BatchNorm1d (eval mode, running stats from the JAX
-``batch_stats``); then a linear embedding, an optional positional
+LeakyReLU(0.2) + BatchNorm normalised by its running statistics (the JAX
+``batch_stats``, ``RunningStatsBatchNorm1d``); then a linear embedding, an optional positional
 encoding, a post-LN transformer encoder and a ``Conv1d(k5, p2)`` smoothing
 layer to exp (n_exp) + jaw (3). Parameter names follow the reference's
 ``L2lDecoder`` (``expander.{i}.0`` conv, ``expander.{i}.2`` BatchNorm).
@@ -43,6 +43,23 @@ class FlintConfig:
         return 2 ** self.quant_factor
 
 
+class RunningStatsBatchNorm1d(nn.BatchNorm1d):
+    """BatchNorm1d that always normalises with its running statistics, as
+    the JAX modules do (``use_running_average=True``), in flax's formula
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``. It is written out,
+    not ``F.batch_norm``, so that autograd reaches the statistics when they
+    require grad: the JAX training steps hand the whole variables tree,
+    ``batch_stats`` included, to optax, and the statistics then train like
+    weights (``train.talking_head.emote_trainables``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, C, T)
+        def col(t):
+            return t[None, :, None]
+
+        mul = torch.rsqrt(col(self.running_var) + self.eps) * col(self.weight)
+        return (x - col(self.running_mean)) * mul + col(self.bias)
+
+
 class FlintDecoder(nn.Module):
     def __init__(self, cfg: FlintConfig):
         super().__init__()
@@ -51,13 +68,13 @@ class FlintDecoder(nn.Module):
         stages = [nn.Sequential(
             nn.ConvTranspose1d(c.bottleneck_dim, f, 5, stride=2, padding=2, output_padding=1),
             nn.LeakyReLU(0.2),
-            nn.BatchNorm1d(f, eps=1e-5),
+            RunningStatsBatchNorm1d(f, eps=1e-5),
         )]
         for _ in range(1, c.quant_factor):
             stages.append(nn.Sequential(
                 nn.Conv1d(f, f, 5, padding=2, padding_mode="replicate"),
                 nn.LeakyReLU(0.2),
-                nn.BatchNorm1d(f, eps=1e-5),
+                RunningStatsBatchNorm1d(f, eps=1e-5),
             ))
         self.expander = nn.ModuleList(stages)
         self.decoder_linear_embedding = nn.Linear(f, f)

@@ -195,7 +195,10 @@ class PriorTransformerNetwork(nn.Module):
     """VersatileDiffusionPriorNetwork (learned_query_mode='pos_emb'):
     ``forward(image_embed (B, n, D), t (B,), text_embed (B, D))`` -> x0-hat
     (B, n, D). A drop probability of 1 swaps in the learned null embedding
-    (the unconditional pass of classifier-free guidance)."""
+    (the unconditional pass of classifier-free guidance); one strictly
+    between 0 and 1 (training) swaps it in where the keep mask (B, 1, 1) is
+    False: ``brain_keep`` / ``image_keep`` when given, else drawn from
+    ``generator`` as ``uniform >= p``, the brain's first."""
 
     def __init__(self, dim: int = 128, num_tokens: int = 1, depth: int = 6, heads: int = 8,
                  dim_head: int = 64):
@@ -210,19 +213,28 @@ class PriorTransformerNetwork(nn.Module):
 
     def forward(self, image_embed: torch.Tensor, diffusion_timesteps: torch.Tensor,
                 text_embed: torch.Tensor, brain_cond_drop_prob: float = 0.0,
-                image_cond_drop_prob: float = 0.0) -> torch.Tensor:
-        for p in (brain_cond_drop_prob, image_cond_drop_prob):
-            if 0.0 < p < 1.0:
-                raise NotImplementedError(
-                    "random condition dropout is a training feature; the port "
-                    "samples with probability 0 or 1 only")
+                image_cond_drop_prob: float = 0.0, brain_keep: Optional[torch.Tensor] = None,
+                image_keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, n = image_embed.shape[0], self.num_tokens
         image_embed = image_embed.reshape(B, -1, self.dim)
         brain_embed = text_embed.reshape(B, -1, self.dim)
-        if brain_cond_drop_prob >= 1.0:
-            brain_embed = self.null_brain_embeds[None].expand_as(brain_embed)
-        if image_cond_drop_prob >= 1.0:
-            image_embed = self.null_image_embed[None].expand_as(image_embed)
+
+        def cond_drop(embed, null, p, keep):
+            if p >= 1.0:
+                return null[None].expand_as(embed)
+            if p <= 0.0:
+                return embed
+            if keep is None:
+                if generator is None:
+                    raise ValueError("condition dropout needs keep masks or a generator")
+                keep = torch.rand((B, 1, 1), generator=generator, device=generator.device) >= p
+            return torch.where(keep.to(embed.device), embed, null[None])
+
+        brain_embed = cond_drop(brain_embed, self.null_brain_embeds, brain_cond_drop_prob,
+                                brain_keep)
+        image_embed = cond_drop(image_embed, self.null_image_embed, image_cond_drop_prob,
+                                image_keep)
         time_embed = self.to_time_embeds(diffusion_timesteps)[:, None]
         image_embed = image_embed + self.learned_query[None]
         tokens = torch.cat([brain_embed, time_embed, image_embed], dim=1)

@@ -6,27 +6,22 @@ weighted by ``lip_coeff_weight``. The JAX trainer's other terms need modules
 the port does not have yet, and asking for them raises
 ``NotImplementedError``: the landmark terms (``flame=``) need FLAME
 ``vertices2landmarks`` and ``train/landmark_losses.py``, the render term
-PIRender and the emotion term EmoNet (ROADMAP Queue 1, items 4, 10, 12, 13).
+PIRender and the emotion term EmoNet (ROADMAP Queue 1, items 2, 3 and 5).
 
 The gradient runs through wav2vec2's K1 and the decoder's K3 (their
 autograd backward is the plain recompute of JAX's ``_keybias_bwd``); the
-optimizer is ``adamw``, torch's AdamW set to ``optax.adamw``'s defaults.
+optimizer is ``train.optim.adamw``, torch's AdamW set to ``optax.adamw``'s
+defaults.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..models.faceformer import FaceFormerCoeff
-
-
-def adamw(params: Iterable[torch.nn.Parameter], lr: float) -> torch.optim.AdamW:
-    """``optax.adamw(lr)``: b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on
-    every parameter (torch's own default decay is 1e-2), one group."""
-    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
 
 
 @dataclasses.dataclass
@@ -42,15 +37,15 @@ class FaceFormerTrainer:
         if self.flame is not None:
             raise NotImplementedError(
                 "the landmark terms (flame=) are not ported yet: they need FLAME "
-                "vertices2landmarks and train/landmark_losses.py (ROADMAP Queue 1, item 12)")
+                "vertices2landmarks and train/landmark_losses.py (ROADMAP Queue 1, item 2)")
         if self.render_loss_fn is not None:
             raise NotImplementedError(
                 "render_loss_fn is not ported yet: it needs PIRender and "
-                "train/render_loss.py (ROADMAP Queue 1, items 12 and 13)")
+                "train/render_loss.py (ROADMAP Queue 1, item 5)")
         if self.emo_loss_fn is not None:
             raise NotImplementedError(
                 "emo_loss_fn is not ported yet: it needs EmoNet and train/emo_cls.py "
-                "(ROADMAP Queue 1, items 10 and 12)")
+                "(ROADMAP Queue 1, items 2 and 3)")
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         pred = self.model(batch["audio"], batch["coeff"], batch.get("eye_embed"),

@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py              # the check; needs one CUDA card and nvcc
     python3 chip_smoke.py --profile    # also profiles one generate, one render
-                                       # and one FaceFormer training step
+                                       # and one FaceFormer, EMOTE and prior
+                                       # training step each
+    python3 chip_smoke.py --phases train [--profile]
+                                       # the build, K1's rows, the gradient
+                                       # rows and phases 12-13 alone; its
+                                       # result line says "phases": "train"
 
 Run it from the root of a checkout: it builds the port's CUDA kernels from
 the checkout's sources into build/, then
@@ -12,7 +17,8 @@ the checkout's sources into build/, then
             together), reported in seconds with the compiler's register and
             spill report; a spill fails the check;
 2. kernels: K1 (key-bias attention) against its plain PyTorch version on the
-            card at the generate path's shapes and the FaceFormer encoder's,
+            card at the generate path's shapes, the FaceFormer encoder's and
+            the EMOTE training step's,
             and K3 (biased attention) at the FaceFormer decoder's four
             shapes, each with its time (CUDA events around the wrapper, and
             the kernel's own device time under torch.profiler), the plain
@@ -49,8 +55,15 @@ the checkout's sources into build/, then
 11. train_faceformer: `cli train-faceformer` at its defaults (B=16, T=25)
             for 5 steps, launches per step, step time; one step on the card
             against the same step on the CPU;
-12. the kernels summary line and the card's name and power limit;
-13. the result line.
+12. train_emote: the EMOTE head at full width and `train-emote`'s defaults
+            (B=8, 64 frames): the shape K1 sees, K1 launches per step, step
+            time; one step card vs CPU; the `train-emote` command for two
+            stages of 3 steps with a run directory, and `last` restored;
+13. train_prior: the prior trainer at full width (B=256): step time; one
+            step card vs CPU with the same draws; `train-prior` for 4 steps
+            with validation and checkpoints, then --resume from step 4;
+14. the kernels summary line and the card's name and power limit;
+15. the result line.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without the result line. It imports nothing of JAX.
@@ -58,6 +71,7 @@ non-zero without the result line. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -355,6 +369,7 @@ def phase_kernels(peaks):
         ("batch_512", 2, 12, 512, 512, 64, (512, 300)),
         ("ragged_333", 1, 12, 333, 333, 64, (333,)),
         ("faceformer_600", 1, 12, 600, 600, 64, (600,)),  # the FaceFormer encoder
+        ("emote_train", 8, 12, 64, 64, 64, (64,) * 8),  # train-emote's step, after the resample
     ]
     rows = []
     for name, B, H, T, S, d, lens in cases:
@@ -447,8 +462,9 @@ def phase_bias_kernels(peaks):
 
 
 def phase_attention_grads(peaks):
-    """K1's and K3's gradients at the training step's shapes (K1: wav2vec2
-    after the 50 -> 25 fps resample, B=16 H=12 T=S=25 d=64; K3: the decoder's
+    """K1's and K3's gradients at the training steps' shapes (K1: wav2vec2
+    after the 50 -> 25 fps resample, B=16 H=12 T=S=25 d=64 in the FaceFormer
+    step and B=8 H=12 T=S=64 d=64 in the EMOTE step; K3: the decoder's
     self-attention, B=16 H=4 T=S=25 d=32): the kernel forward with the
     autograd backward on the card against the same wrappers on CPU copies,
     and the backward's time beside its bound, the plain version's backward
@@ -464,7 +480,8 @@ def phase_attention_grads(peaks):
     g = torch.Generator().manual_seed(5)
     rows = []
     for name, B, H, T, d in (("keybias_attention", 16, 12, 25, 64),
-                             ("fused_bias_attention", 16, 4, 25, 32)):
+                             ("fused_bias_attention", 16, 4, 25, 32),
+                             ("keybias_attention", 8, 12, 64, 64)):
         S = T
         q = torch.randn(B, H, T, d, generator=g) * d ** -0.5
         k, v = torch.randn(B, H, S, d, generator=g), torch.randn(B, H, S, d, generator=g)
@@ -605,6 +622,54 @@ def phase_faceformer(kb, kba):
     return fwd_launches
 
 
+def one_step_card_vs_cpu(pair, lr: float, loss_tol: float) -> dict:
+    """Holds one optimizer step on the card to the same step on the CPU,
+    from the same weights and batch. ``pair[dev]`` is (loss, {name: tensor
+    the step trained}). AdamW's first step moves a weight by lr * g / (|g| +
+    1e-8): where |g| is below about 100 * eps (the wav2vec2 k_proj biases,
+    whose exact gradient is 0 by the softmax's shift invariance, carry
+    rounding noise of 1e-10) the update follows the gradient's last bits
+    and two right implementations may differ by up to 2 * lr. So the
+    weights are held to 1e-4 where |g| >= 1e-6 and the rest only to 2 * lr;
+    each gradient tensor whose largest entry is >= 1e-6 to 1e-3 of that
+    entry, every gradient entry to 1e-5 of the largest gradient of the
+    model, and the loss to ``loss_tol``."""
+    import torch
+
+    (loss_g, t_g), (loss_c, t_c) = pair["cuda"], pair["cpu"]
+    p_g = {k: t.detach().cpu() for k, t in t_g.items()}
+    g_g = {k: t.grad.cpu() for k, t in t_g.items() if t.grad is not None}
+    p_c = {k: t.detach() for k, t in t_c.items()}
+    g_c = {k: t.grad for k, t in t_c.items() if t.grad is not None}
+    tol = 1e-4
+    loss_err = abs(loss_g - loss_c)
+    param_err, noisy_err, noisy_n, grad_rel, worst = 0.0, 0.0, 0, 0.0, None
+    g_max = max(float(g.abs().max()) for g in g_c.values())
+    grad_abs = max(float((g_g[k] - g).abs().max()) for k, g in g_c.items()) / g_max
+    for k, pc in p_c.items():
+        d = (p_g[k] - pc).abs()
+        well = torch.ones_like(d, dtype=torch.bool) if k not in g_c else g_c[k].abs() >= 1e-6
+        if bool(well.any()) and float(d[well].max()) > param_err:
+            param_err = float(d[well].max())
+        if not bool(well.all()):
+            noisy_n += int((~well).sum())
+            noisy_err = max(noisy_err, float(d[~well].max()))
+        if k in g_c and float(g_c[k].abs().max()) >= 1e-6:
+            rel = float((g_g[k] - g_c[k]).abs().max() / g_c[k].abs().max())
+            if rel > grad_rel:
+                grad_rel, worst = rel, k
+    check(loss_err < loss_tol and param_err < tol and noisy_err <= 2 * lr + 1e-6
+          and grad_rel < 1e-3 and grad_abs < 1e-5,
+          f"one training step, card vs CPU: loss |d| {loss_err} (tol {loss_tol}), weights max "
+          f"|d| {param_err} (|g| >= 1e-6) and {noisy_err} (the {noisy_n} others), gradients "
+          f"{grad_rel} of their tensor's largest ({worst}), {grad_abs} of the model's largest")
+    return {"loss": loss_c, "loss_abs_diff": loss_err, "loss_tol": loss_tol, "tol": tol,
+            "param_max_abs_diff_where_grad_ge_1e-6": param_err,
+            "param_max_abs_diff_where_grad_lt_1e-6": noisy_err, "elements_grad_lt_1e-6": noisy_n,
+            "grad_max_rel_diff": grad_rel, "grad_worst_tensor": worst,
+            "grad_max_abs_diff_over_largest_grad": grad_abs, "largest_grad": g_max}
+
+
 def phase_train_faceformer(kb, kba):
     """`cli train-faceformer` at its defaults (B=16, T=25, lr 1e-4) for 5
     steps on the card, with the K1 / K3 launches per step; then the same
@@ -613,13 +678,13 @@ def phase_train_faceformer(kb, kba):
     import contextlib
     import io
 
-    import numpy as np
     import torch
 
     from avi_talking_tpu_torch.cli import main as cli_main
     from avi_talking_tpu_torch.cli.train import synthetic_batches
     from avi_talking_tpu_torch.models.faceformer import FaceFormerConfig
-    from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer, adamw
+    from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer
+    from avi_talking_tpu_torch.train.optim import adamw
 
     steps = 5
     buf = io.StringIO()
@@ -655,59 +720,303 @@ def phase_train_faceformer(kb, kba):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     del trainer, model
 
-    # One step at B=2 on the card and on the CPU from the same weights and
-    # batch. AdamW's first step moves a weight by lr * g / (|g| + 1e-8): where
-    # |g| is below about 100 * eps (the wav2vec2 k_proj biases, whose exact
-    # gradient is 0 by the softmax's shift invariance, carry rounding noise of
-    # 1e-10) the update follows the gradient's last bits and two right
-    # implementations may differ by up to 2 * lr. So the weights are held to
-    # 1e-4 where |g| >= 1e-6 and the rest only to 2 * lr; each gradient
-    # tensor whose largest entry is >= 1e-6 to 1e-3 of that entry, and every
-    # gradient entry to 1e-5 of the largest gradient of the model.
     pair = {}
     batch = next(synthetic_batches(cfg, 2, 25, seed=1, device="cpu"))
     for dev in ("cuda", "cpu"):
         m = _faceformer_model(cfg, seed=2, device=dev)
         tr = FaceFormerTrainer(model=m, optimizer=adamw(m.parameters(), 1e-4))
         loss = float(tr.train_step({k: v.to(dev) for k, v in batch.items()})["loss"])
-        pair[dev] = (loss, {k: p.detach().cpu() for k, p in m.named_parameters()},
-                     {k: p.grad.cpu() for k, p in m.named_parameters() if p.grad is not None})
-    (loss_g, p_g, g_g), (loss_c, p_c, g_c) = pair["cuda"], pair["cpu"]
-    tol, lr = 1e-4, 1e-4
-    loss_err = abs(loss_g - loss_c)
-    param_err, noisy_err, noisy_n, grad_rel, worst = 0.0, 0.0, 0, 0.0, None
-    g_max = max(float(g.abs().max()) for g in g_c.values())
-    grad_abs = max(float((g_g[k] - g).abs().max()) for k, g in g_c.items()) / g_max
-    for k, pc in p_c.items():
-        d = (p_g[k] - pc).abs()
-        well = torch.ones_like(d, dtype=torch.bool) if k not in g_c else g_c[k].abs() >= 1e-6
-        if bool(well.any()) and float(d[well].max()) > param_err:
-            param_err = float(d[well].max())
-        if not bool(well.all()):
-            noisy_n += int((~well).sum())
-            noisy_err = max(noisy_err, float(d[~well].max()))
-        if k in g_c and float(g_c[k].abs().max()) >= 1e-6:
-            rel = float((g_g[k] - g_c[k]).abs().max() / g_c[k].abs().max())
-            if rel > grad_rel:
-                grad_rel, worst = rel, k
-    check(loss_err < tol and param_err < tol and noisy_err <= 2 * lr + 1e-6
-          and grad_rel < 1e-3 and grad_abs < 1e-5,
-          f"one training step, card vs CPU: loss |d| {loss_err}, weights max |d| {param_err} "
-          f"(|g| >= 1e-6) and {noisy_err} (the {noisy_n} others), gradients {grad_rel} of "
-          f"their tensor's largest ({worst}), {grad_abs} of the model's largest")
+        pair[dev] = (loss, dict(m.named_parameters()))
+    one_step = one_step_card_vs_cpu(pair, lr=1e-4, loss_tol=1e-4)
     emit({"phase": "train_faceformer", "cli": f"train-faceformer --steps {steps}",
           "batch": 16, "seq_length": 25, "cli_wall_s": cli_s, "final": final[0],
           "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
           "direct_losses": losses, "step_s_all": step_s,
           "step_s_median_after_first": statistics.median(step_s[1:]),
           "peak_allocated_gib": peak_gib,
-          "gpu_vs_cpu_one_step_B2": {
-              "loss_abs_diff": loss_err, "tol": tol,
-              "param_max_abs_diff_where_grad_ge_1e-6": param_err,
-              "param_max_abs_diff_where_grad_lt_1e-6": noisy_err, "elements_grad_lt_1e-6": noisy_n,
-              "grad_max_rel_diff": grad_rel, "grad_worst_tensor": worst,
-              "grad_max_abs_diff_over_largest_grad": grad_abs, "largest_grad": g_max}})
+          "gpu_vs_cpu_one_step_B2": one_step})
     return launches
+
+
+def _emote_trainer(head, lr, disentangle=None):
+    from avi_talking_tpu_torch.train.optim import adamw
+    from avi_talking_tpu_torch.train.talking_head import TalkingHeadTrainer, emote_trainables
+
+    return TalkingHeadTrainer(head=head, optimizer=adamw(emote_trainables(head), lr),
+                              disentangle=disentangle)
+
+
+def _trained(module) -> dict:
+    """The tensors of ``module`` that an optimizer step trained, by name."""
+    import itertools
+
+    return {k: t for k, t in itertools.chain(module.named_parameters(), module.named_buffers())
+            if t.requires_grad}
+
+
+def phase_train_emote(kb):
+    """`train-emote`'s training at full width (EmoteConfig(): wav2vec2-base,
+    decoder 128, FLINT q=3) and its defaults (B=8, 64 frames, lr 1e-4): the
+    shape K1 sees, K1's launches per step, the median step seconds of 5
+    after a warm-up; one step at B=2 on the card against the CPU from the
+    same weights; then the `train-emote` command for two stages of 3 steps
+    with validation every 3 and a run directory: its files, its K1
+    launches, and `last` restored into a fresh head giving the logged
+    final validation loss again."""
+    import contextlib
+    import io
+    import itertools
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.cli import main as cli_main
+    from avi_talking_tpu_torch.cli.train_emote import build_head, synthetic_batches
+    from avi_talking_tpu_torch.infra.checkpoint import restore_checkpoint
+    from avi_talking_tpu_torch.train.emote_driver import validate
+
+    B, T, lr = 8, 64, 1e-4
+    head = build_head(tiny=False, seed=0, device=torch.device("cuda"))
+    cfg = head.cfg
+    batches = synthetic_batches(np.random.default_rng(0), B, T, cfg.flint.n_exp, cfg.n_shape,
+                                "cuda")
+    trainer = _emote_trainer(head, lr)
+    seen = {}
+
+    def conv_frames(module, args, out):  # a hook that returns None changes nothing
+        seen["conv_frames"] = out.shape[1]
+
+    def encoder_input(module, args):
+        seen["encoder_input"] = list(args[0].shape)
+
+    hooks = [head.audio_encoder.feature_extractor.register_forward_hook(conv_frames),
+             head.audio_encoder.encoder.layers[0].register_forward_pre_hook(encoder_input)]
+    losses, step_s, per_step = [], [], []
+    for _ in range(6):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        kb.launches = 0
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(kb.launches)
+        losses.append(float(metrics["loss"]))
+    for h in hooks:
+        h.remove()
+    k1_shape = [B, cfg.wav2vec2.num_attention_heads, seen["encoder_input"][1],
+                seen["encoder_input"][1], cfg.wav2vec2.hidden_size // cfg.wav2vec2.num_attention_heads]
+    check(seen["encoder_input"] == [B, T, cfg.wav2vec2.hidden_size],
+          f"the encoder saw {seen['encoder_input']}, not [{B}, {T}, 768]")
+    check(per_step == [12] * 6, f"EMOTE training steps launched K1 {per_step} times, not 12 each")
+    check(all(math.isfinite(x) for x in losses), f"EMOTE training losses {losses}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    del trainer, head
+
+    pair = {}
+    batch = next(synthetic_batches(np.random.default_rng(1), 2, T, cfg.flint.n_exp, cfg.n_shape,
+                                   "cpu"))
+    for dev in ("cuda", "cpu"):
+        m = build_head(tiny=False, seed=2, device=torch.device(dev))
+        tr = _emote_trainer(m, lr)
+        loss = float(tr.train_step({k: v.to(dev) for k, v in batch.items()})["loss"])
+        pair[dev] = (loss, _trained(m))
+    one_step = one_step_card_vs_cpu(pair, lr=lr, loss_tol=1e-4 * abs(pair["cpu"][0]))
+    del pair
+
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        run = os.path.join(tmp, "run")
+        buf = io.StringIO()
+        kb.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["train-emote", "--steps", "3", "--val-every", "3", "--run-dir", run])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = kb.launches
+        check(rc == 0, f"train-emote exited {rc}")
+        # 2 stages x (3 steps + 1 validation of 2 batches), 12 launches each
+        check(cli_launches == 12 * 2 * (3 + 2),
+              f"train-emote launched K1 {cli_launches} times, not {12 * 2 * (3 + 2)}")
+        for path in ("cfg.json", "checkpoints/best/state.pt", "checkpoints/last/state.pt",
+                     "logs/scalars.jsonl"):
+            check(os.path.exists(os.path.join(run, path)), f"train-emote wrote no {path}")
+        logged = [json.loads(line) for line in open(os.path.join(run, "logs", "scalars.jsonl"))]
+        val_loss = [e["emote_val/disentangled/loss"] for e in logged
+                    if "emote_val/disentangled/loss" in e]
+        check(len(val_loss) == 1, f"logged final validation losses {val_loss}")
+        last = restore_checkpoint(os.path.join(run, "checkpoints", "last"), map_location="cuda")
+        check(last["step"] == 6, f"last holds step {last['step']}")
+        head = build_head(tiny=False, seed=5, device=torch.device("cuda"))
+        head.load_state_dict(last["params"])
+        val_batches = list(itertools.islice(synthetic_batches(
+            np.random.default_rng(99_991), B, T, cfg.flint.n_exp, cfg.n_shape, "cuda"), 2))
+        again = validate(_emote_trainer(head, lr, "condition_exchange"), lambda: iter(val_batches),
+                          seed=0, device=torch.device("cuda"))["loss"]
+        restore_err = abs(again - val_loss[0]) / abs(val_loss[0])
+        check(restore_err < 1e-6, f"last restored: validation loss {again} against the logged "
+              f"{val_loss[0]} (relative {restore_err})")
+        del head
+    emit({"phase": "train_emote", "config": "EmoteConfig()", "batch": B, "frames": T, "lr": lr,
+          "conv_extractor_frames": seen["conv_frames"], "encoder_input": seen["encoder_input"],
+          "k1_shape": k1_shape, "k1_launches_per_step": per_step, "losses": losses,
+          "step_s_all": step_s, "step_s_median_after_first": statistics.median(step_s[1:]),
+          "peak_allocated_gib": peak_gib, "gpu_vs_cpu_one_step_B2": one_step,
+          "cli": "train-emote --steps 3 --val-every 3 --run-dir <tmp>", "cli_wall_s": cli_s,
+          "cli_k1_launches": cli_launches, "final_val_loss": val_loss[0],
+          "restored_last_val_loss": again, "restored_rel_diff": restore_err})
+    return {"launches": cli_launches, "k1_shape": k1_shape}
+
+
+def _prior_draws(state, B, seed):
+    """Explicit draws of one prior step (dropout masks, times, noise, keep
+    masks) from a CPU generator, on the CPU."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    prior = state.prior
+    return {"dropout": state.brain.dropout_masks(B, g),
+            "times": torch.randint(0, prior.scheduler.num_timesteps, (B,), generator=g),
+            "noise": torch.randn((B, 1, prior.net.dim), generator=g),
+            "brain_keep": torch.rand((B, 1, 1), generator=g) >= prior.text_cond_drop_prob,
+            "image_keep": torch.rand((B, 1, 1), generator=g) >= prior.image_cond_drop_prob}
+
+
+def prior_update_card_vs_cpu(before, pair, lr: float) -> dict:
+    """Holds the prior step's update (clip, then AdamW with decay on one of
+    its two groups) on the card to the CPU's, weight by weight: where the
+    CPU's clipped |g| >= 1e-4, Adam's first step is lr * g / (|g| + 1e-8)
+    whatever the gradient's rounding, so the two updates agree to 1e-3 * lr
+    plus the rounding of the weight itself (4 fp32 ulps of |w|); a skipped
+    update or a decay on the wrong group (lr * 1e-2 * |w|, 1e-6 on a norm
+    scale of 1) exceeds that. Also holds the clipped gradients' global norm
+    (1.0 where the clip acted) to 1e-5 relative."""
+    import torch
+
+    ulp = torch.finfo(torch.float32).eps
+    worst, worst_k, n = -math.inf, None, 0
+    norms = {}
+    for d in ("cuda", "cpu"):
+        grads = [t.grad.detach().double().cpu() for t in pair[d][1].values() if t.grad is not None]
+        norms[d] = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads])))
+    for k, tc in pair["cpu"][1].items():
+        well = tc.grad.abs() >= 1e-4
+        if not bool(well.any()):
+            continue
+        u = {d: pair[d][1][k].detach().cpu().double() - before[d][k].double() for d in before}
+        excess = ((u["cuda"] - u["cpu"]).abs()
+                  - (1e-3 * lr + 4 * ulp * before["cpu"][k].double().abs()))[well]
+        n += int(well.sum())
+        if float(excess.max()) > worst:
+            worst, worst_k = float(excess.max()), k
+    norm_rel = abs(norms["cuda"] - norms["cpu"]) / norms["cpu"]
+    check(worst <= 0.0 and n > 0 and norm_rel < 1e-5,
+          f"the prior step's update, card vs CPU: worst excess over the tolerance {worst} "
+          f"({worst_k}, {n} weights with |g| >= 1e-4); clipped gradient norms {norms}")
+    return {"weights_with_grad_ge_1e-4": n, "worst_excess_over_tol": worst, "worst_tensor": worst_k,
+            "tol": "1e-3 * lr + 4 ulp(|w|)", "clipped_grad_norm": norms,
+            "clipped_grad_norm_rel_diff": norm_rel}
+
+
+def phase_train_prior():
+    """`train-prior`'s training at full width (PriorTrainingConfig(): B=256,
+    in 768, depth 6, 8 heads of 64, brain hidden 4096, 100 timesteps): the
+    median step seconds of 5 after a warm-up; one step at B=16 on the card
+    against the CPU with the same explicit draws; then the `train-prior`
+    command for 4 steps with validation every 2 and a checkpoint
+    directory, and again with --resume, which continues from step 4."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from avi_talking_tpu_torch.cli import main as cli_main
+    from avi_talking_tpu_torch.train.driver import (
+        PriorTrainingConfig, build_state, step_generator, synthetic_batches)
+    from avi_talking_tpu_torch.train.prior import PriorTrainer
+
+    cfg = PriorTrainingConfig()
+    dev = torch.device("cuda")
+    state = build_state(cfg, seed=0, device=dev)
+    trainer = PriorTrainer()
+    losses, step_s = [], []
+    for i, b in enumerate(synthetic_batches(cfg.batch_size, 6, cfg.in_dim, cfg.clip_size)):
+        voxel, style = (torch.from_numpy(b[k]).to(dev) for k in ("voxel", "style_target"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(state, voxel, style, 0.006,
+                                     generator=step_generator(dev, 0, i))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    check(all(math.isfinite(x) for x in losses), f"prior training losses {losses}")
+    del state
+
+    B = 16
+    b = next(synthetic_batches(B, 1, cfg.in_dim, cfg.clip_size, seed=3))
+    # max_lr / div_factor: the schedule's rate at count 0 is 1e-4, the
+    # learning rate of the other training steps' card-vs-CPU checks
+    check_cfg = dataclasses.replace(cfg, max_lr=2.5e-3)
+    pair, metrics, before, lrs, draws = {}, {}, {}, {}, None
+    for d in ("cuda", "cpu"):
+        st = build_state(check_cfg, seed=1, device=torch.device(d))
+        if draws is None:
+            draws = _prior_draws(st, B, seed=4)
+        moved = {k: ([m.to(d) for m in v] if k == "dropout" else v.to(d)) for k, v in draws.items()}
+        named = {**{"brain." + k: t for k, t in st.brain.named_parameters()},
+                 **{"prior." + k: t for k, t in st.prior.net.named_parameters()}}
+        before[d] = {k: t.detach().cpu().clone() for k, t in named.items()}
+        check(all(torch.equal(t, before["cuda"][k]) for k, t in before[d].items()),
+              "the card's and the CPU's prior start from different weights")
+        m = trainer.train_step(st, torch.from_numpy(b["voxel"]).to(d),
+                               torch.from_numpy(b["style_target"]).to(d), 0.006, draws=moved)
+        metrics[d] = {k: float(v) for k, v in m.items()}
+        lrs[d] = [g["lr"] for g in st.optimizer.adamw.param_groups]
+        pair[d] = (metrics[d]["loss"], named)
+    rel = {k: abs(metrics["cuda"][k] - metrics["cpu"][k]) / max(abs(metrics["cpu"][k]), 1e-12)
+           for k in ("loss", "loss_nce", "loss_prior")}
+    check(all(v < 1e-4 for v in rel.values()),
+          f"one prior step, card vs CPU: relative differences {rel}")
+    lr = lrs["cpu"][0]
+    check(lrs["cuda"] == lrs["cpu"] and all(abs(x - 1e-4) < 1e-12 for x in lrs["cpu"]),
+          f"the prior step's learning rates {lrs}, not the schedule's 1e-4 at count 0")
+    # the helper holds the clipped gradients (the clip scales .grad in place),
+    # the weights after the step and the loss
+    one_step = one_step_card_vs_cpu(pair, lr=lr, loss_tol=1e-4 * abs(metrics["cpu"]["loss"]))
+    update = prior_update_card_vs_cpu(before, pair, lr)
+    del pair, before
+
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        args = ["train-prior", "--steps", "4", "--val-every", "2", "--ckpt-dir",
+                os.path.join(tmp, "ck")]
+        outs = []
+        t0 = time.perf_counter()
+        for extra in ([], ["--resume"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(args + extra)
+            check(rc == 0, f"train-prior {' '.join(extra)} exited {rc}")
+            outs.append(buf.getvalue())
+        cli_s = time.perf_counter() - t0
+        check("val@2" in outs[0] and "val@4" in outs[0], f"train-prior printed {outs[0]!r}")
+        check("at step 4" in outs[1] and "val@6" in outs[1] and "val@8" in outs[1],
+              f"train-prior --resume printed {outs[1]!r}")
+        for path in ("best/state.pt", "last/state.pt"):
+            check(os.path.exists(os.path.join(tmp, "ck", path)), f"train-prior wrote no {path}")
+    final = [line for line in outs[1].splitlines() if line.startswith("final:")]
+    emit({"phase": "train_prior", "config": "PriorTrainingConfig()", "batch": cfg.batch_size,
+          "losses": losses, "step_s_all": step_s,
+          "step_s_median_after_first": statistics.median(step_s[1:]),
+          "gpu_vs_cpu_one_step_B16": {"metrics": metrics, "rel_diff": rel, "rtol": 1e-4,
+                                      "lr": lr, **one_step, "update": update},
+          "cli": "train-prior --steps 4 --val-every 2 --ckpt-dir <tmp>, then --resume",
+          "cli_wall_s": cli_s, "resumed_final": final[0] if final else None})
 
 
 def phase_generate(pipe, kb):
@@ -1056,6 +1365,42 @@ def phase_profile(pipe, verts, faces):
     emit({"phase": "profile", "call": "render_verts", "frames": len(verts),
           **profile_call(lambda: viz.render_verts(verts))})
     profile_train_step()
+    profile_emote_and_prior_steps()
+
+
+def profile_emote_and_prior_steps():
+    """One EMOTE training step at train-emote's defaults (B=8, 64 frames)
+    and one prior step at PriorTrainingConfig() (B=256), full width, under
+    torch.profiler after two warm-up steps each."""
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.cli.train_emote import build_head, synthetic_batches
+    from avi_talking_tpu_torch.train.driver import (
+        PriorTrainingConfig, build_state, step_generator, synthetic_batches as prior_batches)
+    from avi_talking_tpu_torch.train.prior import PriorTrainer
+
+    head = build_head(tiny=False, seed=0, device=torch.device("cuda"))
+    trainer = _emote_trainer(head, 1e-4)
+    batches = synthetic_batches(np.random.default_rng(0), 8, 64, head.cfg.flint.n_exp,
+                                head.cfg.n_shape, "cuda")
+    for _ in range(2):
+        trainer.train_step(next(batches))
+    batch = next(batches)
+    emit({"phase": "profile", "call": "train_emote_step", "batch": 8, "frames": 64,
+          **profile_call(lambda: trainer.train_step(batch))})
+    del trainer, head
+
+    cfg = PriorTrainingConfig()
+    state = build_state(cfg, seed=0, device=torch.device("cuda"))
+    ptrainer = PriorTrainer()
+    b = next(prior_batches(cfg.batch_size, 1, cfg.in_dim, cfg.clip_size))
+    voxel, style = (torch.from_numpy(b[k]).cuda() for k in ("voxel", "style_target"))
+    for i in range(2):
+        ptrainer.train_step(state, voxel, style, 0.006, generator=step_generator("cuda", 0, i))
+    emit({"phase": "profile", "call": "train_prior_step", "batch": cfg.batch_size,
+          **profile_call(lambda: ptrainer.train_step(state, voxel, style, 0.006,
+                                                     generator=step_generator("cuda", 0, 2)))})
 
 
 def profile_train_step():
@@ -1063,7 +1408,8 @@ def profile_train_step():
     full width) under torch.profiler, after two warm-up steps."""
     from avi_talking_tpu_torch.cli.train import synthetic_batches
     from avi_talking_tpu_torch.models.faceformer import FaceFormerConfig
-    from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer, adamw
+    from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer
+    from avi_talking_tpu_torch.train.optim import adamw
 
     cfg = FaceFormerConfig()
     model = _faceformer_model(cfg, seed=0, device="cuda")
@@ -1076,7 +1422,37 @@ def profile_train_step():
           **profile_call(lambda: trainer.train_step(batch))})
 
 
+def check_emote_row(rows, emote) -> dict:
+    """K1's row at the EMOTE step's shape, checked against the shape the
+    train_emote phase saw."""
+    row = next(r for r in rows if r["case"] == "emote_train")
+    check(row["shape"] == emote["k1_shape"],
+          f"K1 measured at {row['shape']}, the EMOTE step runs {emote['k1_shape']}")
+    return row
+
+
+def finish(name: str, **extra) -> int:
+    """The card's name and power limit, then the result line."""
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    emit({"ok": True, **extra, "device": {"platform": "gpu", "kind": name,
+                                          "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip check of the PyTorch / CUDA port.")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one generate, one render and each training step")
+    ap.add_argument("--phases", choices=("all", "train"), default="all",
+                    help="train: only the build, K1's rows, the K1 / K3 gradient rows and the "
+                         "EMOTE and prior training phases (about a minute on an H100)")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -1100,6 +1476,15 @@ def main() -> int:
     variant, peaks = card_peaks(name)
     ptxas = phase_build()
     rows = phase_kernels(peaks)
+    if args.phases == "train":
+        phase_attention_grads(peaks)
+        emote = phase_train_emote(kb)
+        check_emote_row(rows, emote)
+        phase_train_prior()
+        if args.profile:
+            profile_emote_and_prior_steps()
+        emit({"phases": "train", "total_s": time.perf_counter() - t_start})
+        return finish(name, phases="train")
     k3_rows = phase_bias_kernels(peaks)
     grad_rows = phase_attention_grads(peaks)
 
@@ -1118,7 +1503,9 @@ def main() -> int:
     phase_serve(pipe, kb)
     ff_launches = phase_faceformer(kb, kba)
     phase_train_faceformer(kb, kba)
-    if "--profile" in sys.argv[1:]:
+    emote = phase_train_emote(kb)
+    phase_train_prior()
+    if args.profile:
         phase_profile(pipe, gen_out["vertices"], faces)
 
     peaks_line = {"variant": variant, "fp32_flops": peaks[0], "bytes_per_s": peaks[1],
@@ -1126,6 +1513,7 @@ def main() -> int:
     main_row = rows[0]  # the generate path's shape: B=1, H=12, T=S=200, d=64
     vis_row = vis_rows[0]  # the render path's launch: 16 frames x 64 tiles
     k3_main = k3_rows[1]  # the forward's self-attention: B=1 H=4 T=S=600 d=32, (H, T, T) bias
+    emote_row = check_emote_row(rows, emote)
     emit({"kernels": [{
         "name": "keybias_attention",
         "route": "cuda",
@@ -1176,14 +1564,26 @@ def main() -> int:
         "bias_shape": k3_main["bias_shape"],
         "backward": {k: v for k, v in grad_rows[1].items() if k != "kernel"},
         "peaks": peaks_line,
+    }, {
+        "name": "keybias_attention",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/bias_attention.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:114",
+        "launches": emote["launches"],  # the train-emote command's run
+        "max_abs_err": emote_row["max_abs_err"],
+        "ms": emote_row["ms"],
+        "device_ms": emote_row["device_ms"],
+        "library_device_ms": emote_row["library_device_ms"],
+        "plain_ms": emote_row["plain_ms"],
+        "bound_ms": emote_row["bound_ms"],
+        "bound_by": emote_row["bound_by"],
+        "library_ms": emote_row["library_ms"],
+        "shape": emote_row["shape"],
+        "backward": {k: v for k, v in grad_rows[2].items() if k != "kernel"},
+        "peaks": peaks_line,
     }], "keybias_attention_backward": {k: v for k, v in grad_rows[0].items() if k != "kernel"},
         "total_s": time.perf_counter() - t_start})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    return finish(name)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The port's command line (``python -m avi_talking_tpu_torch.cli``) on the
 CPU at the tiny config: ``generate --save-video``, ``instruct`` and
 ``serve`` over the fixture corpus in experiments/, each output held to the
-port's direct API on the same seeded weights."""
+port's direct API on the same seeded weights; ``train-emote`` and
+``train-prior`` for a few steps, and the flags they refuse."""
 
 import os
 import wave
@@ -102,3 +103,48 @@ def test_unported_flags_exit_with_a_message(tmp_path, flag):
     with pytest.raises(SystemExit, match="not ported"):
         main(["generate", "--wav", "x.wav", "--text", "x", "--tiny", "--device", "cpu",
               "--out", str(tmp_path), *flag])
+
+
+def test_train_emote_runs_on_cpu(tmp_path, capsys):
+    """Two stages of two steps at the tiny config, validation and
+    checkpoints in the run directory."""
+    run = tmp_path / "run"
+    assert main(["train-emote", "--tiny", "--device", "cpu", "--steps", "2", "--batch-size", "2",
+                 "--frames", "16", "--val-every", "2", "--run-dir", str(run)]) == 0
+    done = [line for line in capsys.readouterr().out.splitlines() if line.startswith("done:")]
+    assert len(done) == 1 and done[0].startswith("done: 4 steps, best val ")
+    assert np.isfinite(float(done[0].rsplit(" ", 1)[1]))
+    for path in ("cfg.json", "checkpoints/best/state.pt", "checkpoints/last/state.pt",
+                 "logs/scalars.jsonl"):
+        assert (run / path).exists(), path
+
+
+def test_train_prior_runs_on_cpu(tmp_path, capsys):
+    """Four steps with validation every 2, then --resume continues at 4."""
+    args = ["train-prior", "--tiny", "--device", "cpu", "--steps", "4", "--batch-size", "8",
+            "--val-every", "2", "--ckpt-dir", str(tmp_path / "ck")]
+    assert main(args) == 0
+    out = capsys.readouterr().out
+    final = [line for line in out.splitlines() if line.startswith("final:")]
+    assert len(final) == 1 and "'loss_prior'" in final[0] and "best val loss" in out
+    assert main(args + ["--resume"]) == 0
+    assert "at step 4" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("cmd,flag", [
+    ("train-emote", ["--root", "/data"]), ("train-emote", ["--neural"]),
+    ("train-emote", ["--bf16"]),
+    ("train-prior", ["--json-dir", "experiments/json_dir"]), ("train-prior", ["--root", "/d"]),
+    ("train-prior", ["--captions", "c.json"]), ("train-prior", ["--pipeline-checkpoint", "p"]),
+    ("train-prior", ["--emote-checkpoint", "e"]), ("train-prior", ["--dp"]),
+])
+def test_training_commands_refuse_what_is_not_ported(cmd, flag):
+    with pytest.raises(SystemExit, match=r"not ported.*ROADMAP Queue 1, item \d"):
+        main([cmd, "--tiny", "--device", "cpu", "--steps", "1", *flag])
+
+
+@pytest.mark.parametrize("cmd", ["train-emote", "train-prior"])
+def test_training_commands_run_on_the_card_unless_told_otherwise(cmd, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([cmd, "--tiny", "--steps", "1"])

@@ -16,7 +16,8 @@ from avi_talking_tpu_torch.cli import main as cli_main
 from avi_talking_tpu_torch.cli.train import synthetic_batches
 from avi_talking_tpu_torch.infra.jax_params import faceformer_state_from_jax
 from avi_talking_tpu_torch.models import faceformer as tff
-from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer, adamw
+from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer
+from avi_talking_tpu_torch.train.optim import adamw
 
 
 def test_three_adamw_steps_match_optax():

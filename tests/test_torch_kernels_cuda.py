@@ -32,6 +32,7 @@ CASES = [
     (2, 3, 30, 45, 8, (45, 20)),  # d=8, the narrowest head
     (1, 2, 40, 70, 128, (70,)),  # d=128 with T, S not multiples of 16
     (1, 12, 600, 600, 64, (600,)),  # the FaceFormer encoder's shape
+    (8, 12, 64, 64, 64, (64,) * 8),  # train-emote's step (B=8, 64 frames after the resample)
 ]
 
 
@@ -85,7 +86,8 @@ def _grads(fn, inputs, cot):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,T,S,d,lens", [CASES[0], CASES[1], (16, 12, 25, 25, 64, (25,) * 16)])
+@pytest.mark.parametrize("B,H,T,S,d,lens", [CASES[0], CASES[1], (16, 12, 25, 25, 64, (25,) * 16),
+                                            (8, 12, 64, 64, 64, (64,) * 8)])
 def test_keybias_kernel_gradients_match_plain_version(B, H, T, S, d, lens):
     """The kernel forward with the autograd backward vs autograd through the
     plain version: output < 1e-5, dq, dk, dv and d(key_bias) < 1e-4."""
