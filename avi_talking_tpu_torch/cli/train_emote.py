@@ -1,16 +1,17 @@
 """train-emote: the staged EMOTE training loop on synthetic batches (the
-JAX command without ``--root`` and ``--neural``): a geometric stage at
-``--lr``, then a condition-exchange stage at ``--lr / 2``."""
+JAX command without ``--root``): a geometric stage at ``--lr``, then a
+condition-exchange stage at ``--lr / 2``, which with ``--neural`` adds the
+perceptual terms (lip reading, EmoNet, video emotion over renders of the
+head's FLAME vertices, with towers at seeded random init)."""
 
 from __future__ import annotations
 
 import itertools
+import sys
 
 REFUSED = {
     "root": "--root (MEAD / EMOCA data) waits for the data-backed batches "
             "(ROADMAP Queue 1, item 7)",
-    "neural": "--neural needs the render-based losses and their towers "
-              "(ROADMAP Queue 1, item 3)",
     "bf16": "--bf16 needs K1 / K3 on bf16 inputs (ROADMAP Queue 1, item 4)",
 }
 
@@ -36,18 +37,68 @@ def synthetic_batches(rng, batch_size: int, frames: int, n_exp: int, n_shape: in
         yield {k: torch.from_numpy(a).to(device) for k, a in out.items()}
 
 
-def build_head(tiny: bool, seed: int, device):
+def build_head(tiny: bool, seed: int, device, flame_assets=None):
     """The head ``train-emote`` trains: ``EmoteConfig()`` (or ``.tiny()``)
     with seeded random weights and a style encoder over the batches' 9 + 3
-    + 32 + n_shape condition."""
+    + 32 + n_shape condition; with ``flame_assets`` it also decodes FLAME
+    vertices."""
     import torch
 
     from ..infra.init import random_module
     from ..models.emote import EmoteConfig, EmoteTalkingHead
 
     cfg = EmoteConfig.tiny() if tiny else EmoteConfig()
-    return random_module(lambda: EmoteTalkingHead(cfg, condition_dim=9 + 3 + 32 + cfg.n_shape),
-                         device, torch.Generator().manual_seed(seed))
+    assets = None if flame_assets is None else flame_assets.to(device)
+    return random_module(
+        lambda: EmoteTalkingHead(cfg, flame_assets=assets,
+                                 condition_dim=9 + 3 + 32 + cfg.n_shape),
+        device, torch.Generator().manual_seed(seed))
+
+
+def neural_assets(tiny: bool):
+    """The FLAME model the neural stage renders: the tiny config's synthetic
+    one, else a converted FLAME file where one is found, else synthetic at
+    FLAME's size (5023 vertices, 9976 faces)."""
+    from ..core.assets import default_assets_path, load_flame_assets, synthetic_assets
+    from ..models.emote import EmoteConfig
+
+    cfg = EmoteConfig.tiny() if tiny else EmoteConfig()
+    if tiny:
+        return synthetic_assets(n_shape=cfg.n_shape, n_exp=cfg.flint.n_exp)
+    npz = default_assets_path()
+    if npz:
+        return load_flame_assets(npz, cfg.n_shape, cfg.n_exp)
+    return synthetic_assets(num_vertices=5023, n_shape=cfg.n_shape, n_exp=cfg.n_exp,
+                            num_faces=9976)
+
+
+def build_neural(tiny: bool, faces, device, seed: int = 7):
+    """The JAX command's perceptual suite: renders at 224^2 (24^2 tiny), the
+    lip-reading net (its crop is ``mouth_transform``'s 88^2, or a smaller
+    frame's whole mouth box), EmoNet with 8 expressions, a one-layer
+    video-emotion classifier (feature_dim 128 / 8 heads, tiny 32 / 4);
+    weights 1, 1, 0.1. The towers are drawn, in that order, from one CPU
+    generator seeded ``seed``."""
+    import torch
+
+    from ..infra.init import random_module
+    from ..models.emoca import EmoNetLoss, EmotionRecognitionModule
+    from ..models.lipread import LipReadingLoss, LipReadingNet
+    from ..models.video_emotion import VideoEmotionClassifier, VideoEmotionLoss
+    from ..train.talking_head import NeuralLosses
+    from ..viz.visualizer import FixedViewRenderer
+
+    g = torch.Generator().manual_seed(seed)
+    lip = random_module(LipReadingNet, device, g)
+    emo = random_module(lambda: EmotionRecognitionModule(n_expression=8), device, g)
+    vemo = random_module(lambda: VideoEmotionClassifier(
+        n_classes=8, feature_dim=32 if tiny else 128, num_layers=1, nhead=4 if tiny else 8,
+        input_dim=2048), device, g)
+    return NeuralLosses(
+        renderer=FixedViewRenderer(faces, image_size=24 if tiny else 224, device=device),
+        lipread=LipReadingLoss(lip), lipread_weight=1.0,
+        emonet=EmoNetLoss(emo), emotion_weight=1.0,
+        video_emotion=VideoEmotionLoss(vemo), video_emotion_weight=0.1)
 
 
 def cmd_train_emote(args) -> int:
@@ -60,7 +111,13 @@ def cmd_train_emote(args) -> int:
         if getattr(args, name, None):
             raise SystemExit(f"train-emote: not ported to avi_talking_tpu_torch yet: {why}")
     device = resolve_device(args.device)
-    head = build_head(args.tiny, seed=0, device=device)  # JAX: PRNGKey(0)
+    neural = assets = None
+    if args.neural:
+        assets = neural_assets(args.tiny)
+        neural = build_neural(args.tiny, assets.faces, device)
+        print("train-emote --neural: perception towers are RANDOM-init "
+              "(import real lipread/EmoNet checkpoints for product runs)", file=sys.stderr)
+    head = build_head(args.tiny, seed=0, device=device, flame_assets=assets)  # JAX: PRNGKey(0)
     cfg = head.cfg
     T = args.frames - args.frames % cfg.flint.latent_frame_size
     draw = (args.batch_size, T, cfg.flint.n_exp, cfg.n_shape, device)
@@ -71,9 +128,10 @@ def cmd_train_emote(args) -> int:
     stages = [
         EmoteStage(name="geometric", steps=args.steps, lr=args.lr),
         EmoteStage(name="disentangled", steps=args.steps, lr=args.lr / 2,
-                   disentangle="condition_exchange"),
+                   disentangle="condition_exchange", use_neural=neural is not None),
     ]
-    res = train_emote(head, batches, stages=stages, val_batches=lambda: iter(val_cached),
+    res = train_emote(head, batches, stages=stages, neural=neural,
+                      val_batches=lambda: iter(val_cached),
                       val_every=args.val_every, early_stop_patience=args.early_stop_patience,
                       run_dir=args.run_dir)
     print(f"done: {res['total_steps']} steps, best val {res['best_val']:.4f}")
@@ -91,7 +149,10 @@ def register(sub, common):
     te.add_argument("--run-dir", default=None)
     te.add_argument("--tiny", action="store_true")
     te.add_argument("--root", default=None, help="(not ported yet)")
-    te.add_argument("--neural", action="store_true", help="(not ported yet)")
+    te.add_argument("--neural", action="store_true",
+                    help="add the perceptual terms (renders + lip-reading / EmoNet / "
+                         "video-emotion towers) to the second stage; gt meshes are decoded "
+                         "in the loss from the coefficients")
     te.add_argument("--bf16", action="store_true", help="(not ported yet)")
     te.add_argument("--device", default=None,
                     help="torch device; the default is the CUDA card, and no card is an error")

@@ -16,8 +16,8 @@ from torch import nn
 
 M = TypeVar("M", bound=nn.Module)
 
-_NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d)
-_PROJECTIONS = (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)
+_NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d)
+_PROJECTIONS = (nn.Linear, nn.Conv1d, nn.ConvTranspose1d, nn.Conv2d, nn.Conv3d)
 
 
 def _fill(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
@@ -41,7 +41,7 @@ def init_module_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 elif name.endswith("bias"):
                     p.zero_()
                 elif isinstance(mod, _PROJECTIONS) or name == "in_proj_weight":
-                    fan_in = p.shape[1] * (p.shape[2] if p.dim() == 3 else 1)
+                    fan_in = math.prod(p.shape[1:])
                     _fill(p, 1.0 / math.sqrt(fan_in), generator)
                 elif isinstance(mod, nn.Embedding):
                     _fill(p, 0.02, generator)

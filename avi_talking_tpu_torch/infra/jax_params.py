@@ -5,7 +5,8 @@ Takes flax parameter trees as nested dicts of numpy arrays (for example
 the port's modules as numpy arrays. Layout maps:
 
 * Dense kernel (in, out) -> Linear weight (out, in);
-* Conv kernel (k, in, out) -> Conv1d weight (out, in, k);
+* Conv kernel (k, in, out) -> Conv1d weight (out, in, k); 2-D (kh, kw,
+  in, out) -> Conv2d (out, in, kh, kw); 3-D DHWIO -> Conv3d OIDHW;
 * ConvTranspose kernel (k, out, in) (``transpose_kernel=True``) ->
   ConvTranspose1d weight (in, out, k);
 * LayerNorm / GroupNorm ``scale`` -> ``weight``;
@@ -199,6 +200,73 @@ def emote_head_state_from_jax(variables: Tree) -> State:
             _put(out, pre + "2.", _batchnorm(sq[f"stage{i}_bn"], stats["squasher"][f"stage{i}_bn"]))
             i += 1
     _put(out, "motion_prior.", flint_state_from_jax(params["motion_prior"], stats["motion_prior"]))
+    return out
+
+
+def _conv_nd(p: Tree) -> State:
+    """A bias-free 2-D or 3-D flax conv kernel (..., in, out) -> (out, in, ...)."""
+    k = np.asarray(p["kernel"])
+    return {"weight": _a(k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2)))}
+
+
+def resnet50_state_from_jax(params: Tree, batch_stats: Tree) -> State:
+    """``models.resnet.ResNet50`` params + batch_stats -> port state, under
+    torchvision's names (``layer{l}.{b}.conv1``, ``downsample.0`` / ``.1``)."""
+    out: State = {}
+    _put(out, "conv1.", _conv_nd(params["conv1"]))
+    _put(out, "bn1.", _batchnorm(params["bn1"]["bn"], batch_stats["bn1"]["bn"]))
+    li = 1
+    while f"layer{li}_0" in params:
+        bi = 0
+        while f"layer{li}_{bi}" in params:
+            name, pre = f"layer{li}_{bi}", f"layer{li}.{bi}."
+            p, s = params[name], batch_stats[name]
+            for ci in (1, 2, 3):
+                _put(out, f"{pre}conv{ci}.", _conv_nd(p[f"conv{ci}"]))
+                _put(out, f"{pre}bn{ci}.", _batchnorm(p[f"bn{ci}"]["bn"], s[f"bn{ci}"]["bn"]))
+            if "down_conv" in p:
+                _put(out, pre + "downsample.0.", _conv_nd(p["down_conv"]))
+                _put(out, pre + "downsample.1.", _batchnorm(p["down_bn"]["bn"], s["down_bn"]["bn"]))
+            bi += 1
+        li += 1
+    return out
+
+
+def emotion_module_state_from_jax(variables: Tree) -> State:
+    """``models.emoca.EmotionRecognitionModule`` variables -> port state."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: State = {}
+    _put(out, "backbone.", resnet50_state_from_jax(params["backbone"], stats["backbone"]))
+    _put(out, "linear.", _dense(params["linear"]))
+    return out
+
+
+def lipread_state_from_jax(variables: Tree) -> State:
+    """``models.lipread.LipReadingNet`` variables -> port state, under the
+    reference's names (``frontend3D.0`` / ``.1``, ``trunk.layer{l}.{b}``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: State = {}
+    _put(out, "frontend3D.0.", _conv_nd(params["frontend3d_conv"]))
+    _put(out, "frontend3D.1.", _batchnorm(params["frontend3d_bn"], stats["frontend3d_bn"]))
+    for li in range(1, 5):
+        for bi in range(2):
+            name, pre = f"layer{li}_{bi}", f"trunk.layer{li}.{bi}."
+            p, s = params[name], stats[name]
+            for c in ("1", "2"):
+                _put(out, f"{pre}conv{c}.", _conv_nd(p[f"conv{c}"]))
+                _put(out, f"{pre}bn{c}.", _batchnorm(p[f"bn{c}"], s[f"bn{c}"]))
+            if "downsample_conv" in p:
+                _put(out, pre + "downsample.0.", _conv_nd(p["downsample_conv"]))
+                _put(out, pre + "downsample.1.", _batchnorm(p["downsample_bn"], s["downsample_bn"]))
+    return out
+
+
+def video_emotion_state_from_jax(params: Tree) -> State:
+    """``models.video_emotion.VideoEmotionClassifier`` params -> port state."""
+    out: State = {}
+    _put(out, "in_proj.", _dense(params["in_proj"]))
+    _put(out, "encoder.", transformer_encoder_state_from_jax(params["encoder"]))
+    _put(out, "classifier.", _dense(params["classifier"]))
     return out
 
 

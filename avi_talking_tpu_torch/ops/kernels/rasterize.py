@@ -81,8 +81,8 @@ def _check_cuda_inputs(tri, valid, px, py) -> None:
     if any(t.requires_grad for t in (tri, valid, px, py)):
         raise NotImplementedError(
             "rasterize_tiles_visibility is a stop-gradient decision; on CUDA it "
-            "takes no inputs that require grad (the differentiable "
-            "interpolation comes with the training slice)")
+            "takes no inputs that require grad (gradients flow through the "
+            "interpolation in viz.rasterizer.rasterize_binned_kernel)")
     if tri.dim() != 3 or tri.shape[2] != 9 or valid.dim() != 3 or px.dim() != 2:
         raise ValueError("expected tri (n, cap, 9), valid (n, cap, 1), px / py (n, px_n)")
     n, cap, _ = tri.shape

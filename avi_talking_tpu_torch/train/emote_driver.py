@@ -7,8 +7,8 @@ on across stages. Every ``val_every`` steps the mean validation metrics
 are logged, ``checkpoints/last`` is written and ``checkpoints/best`` when
 the validation loss improved; ``EarlyStopping`` ends a stage early. The
 head is trained in place (JAX copies its params at entry; here the
-caller's module is the one that learns). Stages with ``use_neural`` wait
-for the render-based losses (ROADMAP Queue 1, item 3).
+caller's module is the one that learns). Stages with ``use_neural`` add
+the ``neural`` perceptual terms to their loss.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from ..infra.meters import ScalarWriter, write_metrics
 from ..infra.run_dir import EarlyStopping, snapshot_config
 from ..models.emote import EmoteTalkingHead
 from .optim import adamw
-from .talking_head import NEURAL_NOT_PORTED, TalkingHeadTrainer, emote_trainables
+from .talking_head import NeuralLosses, TalkingHeadTrainer, emote_trainables
 
 Batches = Callable[[], Iterator[Dict[str, torch.Tensor]]]
 
@@ -71,6 +71,7 @@ def train_emote(
     head: EmoteTalkingHead,
     batches: Batches,
     stages: Sequence[EmoteStage] = DEFAULT_STAGES,
+    neural: Optional[NeuralLosses] = None,
     val_batches: Optional[Batches] = None,
     val_every: int = 0,
     early_stop_patience: int = 0,
@@ -80,8 +81,6 @@ def train_emote(
 ) -> Dict[str, Any]:
     """Run the staged loop on ``head`` (in place); returns the per-stage
     validation histories, the best validation loss and the step count."""
-    if any(s.use_neural for s in stages):
-        raise NotImplementedError(NEURAL_NOT_PORTED)
     device = next(head.parameters()).device
     writer = None
     if run_dir is not None:
@@ -98,7 +97,7 @@ def train_emote(
                 head=head, optimizer=adamw(emote_trainables(head), stage.lr),
                 exp_weight=stage.exp_weight, jaw_weight=stage.jaw_weight,
                 vertex_weight=stage.vertex_weight, velocity_weight=stage.velocity_weight,
-                disentangle=stage.disentangle)
+                neural=neural if stage.use_neural else None, disentangle=stage.disentangle)
             stopper = EarlyStopping(patience=early_stop_patience) if early_stop_patience else None
             hist: List[Dict[str, float]] = []
             it = batches()

@@ -16,8 +16,8 @@ Three routes, picked by ``rasterize_auto``:
 - ``kernel``: the same binning, with visibility from the hand-written
   kernel K2 (``ops/kernels/rasterize.py``) and the winner's attributes
   interpolated afterwards from one packed gather; the CUDA route for big
-  meshes. Its backward (the JAX ``_interp_bwd``) comes with the training
-  slice, so on CUDA it refuses inputs that require grad.
+  meshes. Visibility is a stop-gradient decision, as in JAX; gradients
+  reach the vertices and attributes through the interpolation alone.
 """
 
 from __future__ import annotations
@@ -35,9 +35,17 @@ _BINNED_STEP_ELEMS = 1 << 24
 
 def _pixel_grid(h: int, w: int, dtype=torch.float32,
                 device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(px, py), each (h, w): pixel-centre x and y, y up."""
-    ys = 1.0 - (2.0 * torch.arange(h, dtype=dtype, device=device) + 1.0) / h
-    xs = -1.0 + (2.0 * torch.arange(w, dtype=dtype, device=device) + 1.0) / w
+    """(px, py), each (h, w): pixel-centre x and y, y up. The divisor is a
+    tensor on the device: CUDA divides a tensor by a Python number as a
+    product with its reciprocal, which is not correctly rounded, and would
+    put the card's pixel centres an ulp off the CPU's (and JAX's)."""
+
+    def centres(n):
+        return ((2.0 * torch.arange(n, dtype=dtype, device=device) + 1.0)
+                / torch.full((), n, dtype=dtype, device=device))
+
+    ys = 1.0 - centres(h)
+    xs = -1.0 + centres(w)
     py, px = torch.meshgrid(ys, xs, indexing="ij")
     return px, py
 
@@ -347,19 +355,19 @@ def rasterize_binned_kernel(
     chunk: int = 256,
     per_corner: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Binned rasterizer with visibility from K2, the forward of the JAX
+    """Binned rasterizer with visibility from K2, the JAX
     ``rasterize_binned_pallas``, for a whole batch of frames in one K2
     launch (n = frames x tiles): (B, H, W, C) image, (B, H, W) mask.
 
     K2 resolves (depth, winning slot) per pixel under ``no_grad``; the
     winner's attributes come from ONE gather of a channel-leading
     (6 + 3C, F+1) table of corner xy and corner attributes, interpolated
-    with true-divide barycentrics. On CUDA, inputs that require grad raise
-    (the hand-composed backward is training work)."""
-    if vertices.device.type == "cuda" and (vertices.requires_grad or attributes.requires_grad):
-        raise NotImplementedError(
-            "rasterize_binned_kernel has no backward on CUDA yet; it comes with "
-            "the neural-loss training slice (the JAX backward is _interp_bwd)")
+    with true-divide barycentrics. Autograd through that gather is the
+    shape of JAX's hand-composed ``_interp_bwd``: one packed scatter-add of
+    the (6 + 3C)-channel pixel gradients into (B, 6 + 3C, F+1), then the
+    face-to-vertex scatters; no (tiles, cap, pixels) temporary is kept for
+    the backward. Gradients reach ``vertices`` (x, y) and ``attributes``,
+    per-vertex or ``per_corner``."""
     faces = faces.long()
     B, F, C = vertices.shape[0], faces.shape[0], attributes.shape[-1]
     face_ids, tri, valid, px, py, pxg, pyg, (ty, tx) = _visibility_inputs(

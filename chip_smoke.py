@@ -7,7 +7,7 @@
                                        # training step each
     python3 chip_smoke.py --phases train [--profile]
                                        # the build, K1's rows, the gradient
-                                       # rows and phases 12-13 alone; its
+                                       # rows and phases 12-14 alone; its
                                        # result line says "phases": "train"
 
 Run it from the root of a checkout: it builds the port's CUDA kernels from
@@ -59,11 +59,19 @@ the checkout's sources into build/, then
             (B=8, 64 frames): the shape K1 sees, K1 launches per step, step
             time; one step card vs CPU; the `train-emote` command for two
             stages of 3 steps with a run directory, and `last` restored;
-13. train_prior: the prior trainer at full width (B=256): step time; one
+13. train_emote_neural: EMOTE's neural-loss stage at full width (renders
+            at 224^2, the three towers at seeded random init): `train-emote
+            --neural` at B=2, 32 frames; one neural step card vs CPU and
+            the render and towers on identical vertices; the step's time,
+            frames per second, K2 launches and device ms, peak memory; K2
+            at the predicted video's launch (2048 tiles) against its plain
+            version;
+14. train_prior: the prior trainer at full width (B=256): step time; one
             step card vs CPU with the same draws; `train-prior` for 4 steps
             with validation and checkpoints, then --resume from step 4;
-14. the kernels summary line and the card's name and power limit;
-15. the result line.
+15. the kernels summary line (K2 twice: the render path's launch and the
+            neural step's) and the card's name and power limit;
+16. the result line.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without the result line. It imports nothing of JAX.
@@ -79,6 +87,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -622,33 +631,27 @@ def phase_faceformer(kb, kba):
     return fwd_launches
 
 
-def one_step_card_vs_cpu(pair, lr: float, loss_tol: float) -> dict:
-    """Holds one optimizer step on the card to the same step on the CPU,
-    from the same weights and batch. ``pair[dev]`` is (loss, {name: tensor
-    the step trained}). AdamW's first step moves a weight by lr * g / (|g| +
-    1e-8): where |g| is below about 100 * eps (the wav2vec2 k_proj biases,
-    whose exact gradient is 0 by the softmax's shift invariance, carry
-    rounding noise of 1e-10) the update follows the gradient's last bits
-    and two right implementations may differ by up to 2 * lr. So the
-    weights are held to 1e-4 where |g| >= 1e-6 and the rest only to 2 * lr;
-    each gradient tensor whose largest entry is >= 1e-6 to 1e-3 of that
-    entry, every gradient entry to 1e-5 of the largest gradient of the
-    model, and the loss to ``loss_tol``."""
+def step_diffs(pair, rel_floor: float = 0.0) -> dict:
+    """How far one optimizer step on the card lies from the same step on the
+    CPU: ``pair[dev]`` is (loss, {name: tensor the step trained}). The loss;
+    the weights where the CPU's |g| >= the floor (1e-6, or ``rel_floor`` of
+    the model's largest gradient where that is larger) and the others; each
+    gradient tensor whose largest entry is >= 1e-6, against that entry (the
+    worst tensor named); every gradient entry against the model's largest."""
     import torch
 
     (loss_g, t_g), (loss_c, t_c) = pair["cuda"], pair["cpu"]
     p_g = {k: t.detach().cpu() for k, t in t_g.items()}
     g_g = {k: t.grad.cpu() for k, t in t_g.items() if t.grad is not None}
-    p_c = {k: t.detach() for k, t in t_c.items()}
-    g_c = {k: t.grad for k, t in t_c.items() if t.grad is not None}
-    tol = 1e-4
-    loss_err = abs(loss_g - loss_c)
+    p_c = {k: t.detach().cpu() for k, t in t_c.items()}
+    g_c = {k: t.grad.cpu() for k, t in t_c.items() if t.grad is not None}
     param_err, noisy_err, noisy_n, grad_rel, worst = 0.0, 0.0, 0, 0.0, None
     g_max = max(float(g.abs().max()) for g in g_c.values())
+    floor = max(1e-6, rel_floor * g_max)
     grad_abs = max(float((g_g[k] - g).abs().max()) for k, g in g_c.items()) / g_max
     for k, pc in p_c.items():
         d = (p_g[k] - pc).abs()
-        well = torch.ones_like(d, dtype=torch.bool) if k not in g_c else g_c[k].abs() >= 1e-6
+        well = torch.ones_like(d, dtype=torch.bool) if k not in g_c else g_c[k].abs() >= floor
         if bool(well.any()) and float(d[well].max()) > param_err:
             param_err = float(d[well].max())
         if not bool(well.all()):
@@ -658,16 +661,36 @@ def one_step_card_vs_cpu(pair, lr: float, loss_tol: float) -> dict:
             rel = float((g_g[k] - g_c[k]).abs().max() / g_c[k].abs().max())
             if rel > grad_rel:
                 grad_rel, worst = rel, k
-    check(loss_err < loss_tol and param_err < tol and noisy_err <= 2 * lr + 1e-6
-          and grad_rel < 1e-3 and grad_abs < 1e-5,
-          f"one training step, card vs CPU: loss |d| {loss_err} (tol {loss_tol}), weights max "
-          f"|d| {param_err} (|g| >= 1e-6) and {noisy_err} (the {noisy_n} others), gradients "
-          f"{grad_rel} of their tensor's largest ({worst}), {grad_abs} of the model's largest")
-    return {"loss": loss_c, "loss_abs_diff": loss_err, "loss_tol": loss_tol, "tol": tol,
-            "param_max_abs_diff_where_grad_ge_1e-6": param_err,
-            "param_max_abs_diff_where_grad_lt_1e-6": noisy_err, "elements_grad_lt_1e-6": noisy_n,
+    return {"loss": loss_c, "loss_abs_diff": abs(loss_g - loss_c), "grad_floor": floor,
+            "param_max_abs_diff_where_grad_ge_floor": param_err,
+            "param_max_abs_diff_where_grad_lt_floor": noisy_err, "elements_grad_lt_floor": noisy_n,
             "grad_max_rel_diff": grad_rel, "grad_worst_tensor": worst,
             "grad_max_abs_diff_over_largest_grad": grad_abs, "largest_grad": g_max}
+
+
+def one_step_card_vs_cpu(pair, lr: float, loss_tol: float) -> dict:
+    """Holds one optimizer step on the card to the same step on the CPU,
+    from the same weights and batch (``step_diffs``). AdamW's first step
+    moves a weight by lr * g / (|g| + 1e-8): where |g| is below about 100 *
+    eps (the wav2vec2 k_proj biases, whose exact gradient is 0 by the
+    softmax's shift invariance, carry rounding noise of 1e-10) the update
+    follows the gradient's last bits and two right implementations may
+    differ by up to 2 * lr. So the weights are held to 1e-4 where |g| >=
+    1e-6 and the rest only to 2 * lr; each gradient tensor whose largest
+    entry is >= 1e-6 to 1e-3 of that entry, every gradient entry to 1e-5 of
+    the largest gradient of the model, and the loss to ``loss_tol``."""
+    d = step_diffs(pair)
+    tol = 1e-4
+    check(d["loss_abs_diff"] < loss_tol and d["param_max_abs_diff_where_grad_ge_floor"] < tol
+          and d["param_max_abs_diff_where_grad_lt_floor"] <= 2 * lr + 1e-6
+          and d["grad_max_rel_diff"] < 1e-3 and d["grad_max_abs_diff_over_largest_grad"] < 1e-5,
+          f"one training step, card vs CPU: loss |d| {d['loss_abs_diff']} (tol {loss_tol}), "
+          f"weights max |d| {d['param_max_abs_diff_where_grad_ge_floor']} (|g| >= 1e-6) and "
+          f"{d['param_max_abs_diff_where_grad_lt_floor']} (the {d['elements_grad_lt_floor']} "
+          f"others), gradients {d['grad_max_rel_diff']} of their tensor's largest "
+          f"({d['grad_worst_tensor']}), {d['grad_max_abs_diff_over_largest_grad']} of the "
+          "model's largest")
+    return {**d, "loss_tol": loss_tol, "tol": tol}
 
 
 def phase_train_faceformer(kb, kba):
@@ -869,6 +892,427 @@ def phase_train_emote(kb):
           "cli_k1_launches": cli_launches, "final_val_loss": val_loss[0],
           "restored_last_val_loss": again, "restored_rel_diff": restore_err})
     return {"launches": cli_launches, "k1_shape": k1_shape}
+
+
+NEURAL_TERMS = ("loss_lipread", "loss_emotion", "loss_video_emotion",
+                "loss_lipread_disentangled", "loss_emotion_disentangled",
+                "loss_video_emotion_disentangled")
+
+
+def _winners(renderer, verts):
+    """The face that wins each pixel of the front view's render of verts
+    (N, V, 3), -1 where none does, through the binning and visibility of
+    the kernel route on verts' device (K2 on the card, its plain version on
+    the CPU) -> (N, H, W) on the CPU."""
+    import torch
+
+    from avi_talking_tpu_torch.ops.kernels.rasterize import rasterize_tiles_visibility
+    from avi_talking_tpu_torch.viz.rasterizer import _auto_tile, _untile, _visibility_inputs
+
+    size, faces = renderer.image_size, renderer.faces
+    tile = _auto_tile(size, size, faces.shape[0])
+    with torch.no_grad():
+        ids, tri, valid, px, py, *_ = _visibility_inputs(renderer.project(verts), faces, size,
+                                                         size, tile, 1024)
+        _, slot = rasterize_tiles_visibility(tri, valid, px, py)
+        gid = torch.where(slot >= 0, ids.reshape(slot.shape[0], -1).gather(
+            1, slot.clamp_min(0).long()), -1)
+        n = size // tile
+        return _untile(gid.reshape(verts.shape[0], n * n, -1, 1), n, n, tile)[..., 0].cpu()
+
+
+def _neural_trainer(head, neural, lr):
+    from avi_talking_tpu_torch.train.optim import adamw
+    from avi_talking_tpu_torch.train.talking_head import TalkingHeadTrainer, emote_trainables
+
+    return TalkingHeadTrainer(head=head, optimizer=adamw(emote_trainables(head), lr),
+                              neural=neural, disentangle="condition_exchange")
+
+
+# The vertex gradient through render and towers, card vs CPU on identical
+# vertices, as a share of its largest entry: the towers' max-pools route a
+# near-tie's gradient by the last bits, and a +-1e-7 change of the rendered
+# video moves this gradient by 2.4e-4 on the CPU alone (PERF.md §6); twice
+# that, rounded up.
+VERTEX_GRAD_REL = 5e-4
+
+
+def _kernel_route_renderer(faces, size, device):
+    """A FixedViewRenderer that renders through the kernel route on any
+    device: K2's plain version on the CPU, where the package's own route is
+    the plain binned one (a different visibility, and an autograd that keeps
+    (tiles, cap, pixels) temporaries)."""
+    import functools
+    from unittest import mock
+
+    from avi_talking_tpu_torch.viz import shading
+    from avi_talking_tpu_torch.viz.rasterizer import rasterize_auto
+    from avi_talking_tpu_torch.viz.visualizer import FixedViewRenderer
+
+    class KernelRoute(FixedViewRenderer):
+        def render_torch(self, verts, view=0):
+            with mock.patch.object(shading, "rasterize_auto",
+                                   functools.partial(rasterize_auto, backend="kernel")):
+                return super().render_torch(verts, view)
+
+    return KernelRoute(faces, size, device=device)
+
+
+def _record_neural_loss(neural) -> dict:
+    """Wraps ``neural.loss`` to keep, of its last call, the predicted
+    vertices, the loss's value and the gradient that reaches the vertices
+    through it (on the CPU)."""
+    plain, seen = neural.loss, {}
+
+    def loss(vertices, *args):
+        v = vertices.view_as(vertices)
+        v.register_hook(lambda g: seen.__setitem__("cotangent", g.detach().cpu()))
+        out = plain(v, *args)
+        seen.update(vertices=vertices.detach().cpu(), value=float(out.detach()))
+        return out
+    neural.loss = loss
+    return seen
+
+
+def _adamw_replay(init: dict, grads: dict, lr: float) -> dict:
+    """``init`` after one step of the trainers' AdamW on the CPU with
+    ``grads`` (a tensor without a gradient stays)."""
+    from avi_talking_tpu_torch.train.optim import adamw
+
+    params = {k: t.clone().requires_grad_() for k, t in init.items()}
+    for k, p in params.items():
+        p.grad = grads.get(k)
+    adamw(list(params.values()), lr).step()
+    return {k: p.detach() for k, p in params.items()}
+
+
+def _neural_chain(neural, verts, gt_video, batch, perm, image_noise=None, backward=True):
+    """The neural terms of predicted ``verts`` (2B, T, V, 3) against the
+    rendered ``gt_video`` (B, T, H, W, 3) on ``neural``'s device: render,
+    towers, losses; with ``backward`` also the gradient of the loss in the
+    vertices and in the rendered video. ``image_noise`` is added to the
+    rendered video first (a perturbation of the size of its rounding)."""
+    import torch
+
+    dev = neural.renderer.device
+    v = verts.to(dev).clone().requires_grad_(backward)
+    with torch.set_grad_enabled(backward):
+        video = neural.render_video(v)
+        if image_noise is not None:
+            video = video + image_noise.to(dev)
+        if backward:
+            video.retain_grad()
+        terms = {}
+        loss = neural.video_loss(video, gt_video, {k: x.to(dev) for k, x in batch.items()},
+                                 gt_video.shape[0], perm, terms)
+        terms["loss"] = loss
+        out = {"terms": {k: float(x.detach()) for k, x in terms.items()}}
+        if backward:
+            loss.backward()
+            out.update(vertex_grad=v.grad.cpu().clone(), video_grad=video.grad.cpu().clone())
+    return out
+
+
+def _rel(a: dict, b: dict) -> dict:
+    return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b}
+
+
+def _max_rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_train_emote_neural(kb, kras, peaks, profile=False):
+    """EMOTE's neural-loss stage at full width.
+
+    1. `train-emote --neural` at B=2, 32 frames, two stages of 2 steps with
+       validation every 2 and a run directory: every loss term logged
+       finite, K1 and K2 launches.
+    2. One neural step at B=2, 8 frames (one latent frame) on the card and
+       on the CPU from the same weights and exchange permutation, the CPU
+       rendering through the same route (K2's plain version): the loss and
+       the predicted vertices within 1e-4; each neural term within 1e-4 at
+       the same vertices (the card's) on both sides, and printed for the
+       two steps as they ran, with the pixels whose winning face changed
+       between the two sides' predicted vertices and how far the CPU's own
+       terms move at the card's vertices. The update three ways: the card's
+       weights within lr / 100 (+ 1e-6 |w|) of AdamW on the CPU with the
+       card's gradients; the independent steps' weights by the 2·lr rule
+       with its floor at 1e-3 of the largest gradient; and the CPU's head
+       stepped with the neural terms' gradient at the vertices taken from
+       the card, by ``one_step_card_vs_cpu`` as it stands.
+    3. Identical vertices on both sides: winners equal, every term within
+       1e-4, the render's backward from one image gradient within 1e-4;
+       the vertex gradient through render and towers within
+       ``VERTEX_GRAD_REL`` of its largest, beside how far +-1e-7 on the
+       rendered video moves it on the CPU alone.
+    4. The step at B=2, 32 frames: median of 5 after a warm-up, K2
+       launches per step and device ms, peak memory; K2 at the predicted
+       video's launch against its plain version, with its bound; under
+       ``profile`` one profiled step."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.cli import main as cli_main
+    from avi_talking_tpu_torch.cli.train_emote import (
+        build_head, build_neural, neural_assets, synthetic_batches)
+    from avi_talking_tpu_torch.core.flame import FlameModel
+    from avi_talking_tpu_torch.models.emote import EmoteConfig
+    from avi_talking_tpu_torch.viz.rasterizer import _visibility_inputs
+
+    B, T, lr = 2, 32, 1e-4
+    steps = 2
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        run = os.path.join(tmp, "run")
+        buf = io.StringIO()
+        kb.launches = kras.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["train-emote", "--neural", "--batch-size", str(B), "--frames", str(T),
+                           "--steps", str(steps), "--val-every", str(steps), "--run-dir", run])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = {"keybias_attention": kb.launches,
+                        "rasterize_tiles_visibility": kras.launches}
+        check(rc == 0, f"train-emote --neural exited {rc}")
+        # K1: 12 a forward, 2 stages x (2 steps + 2 validation batches); K2: the
+        # neural stage alone, 2 a loss (predicted and gt video) over the same 4
+        want = {"keybias_attention": 12 * 2 * (steps + 2),
+                "rasterize_tiles_visibility": 2 * (steps + 2)}
+        check(cli_launches == want, f"train-emote --neural launched {cli_launches}, not {want}")
+        logged = {}
+        for line in open(os.path.join(run, "logs", "scalars.jsonl")):
+            logged.update(json.loads(line))
+        val = {k.split("/")[-1]: v for k, v in logged.items()
+               if k.startswith("emote_val/disentangled/")}
+        terms = NEURAL_TERMS + ("loss", "loss_exp", "loss_exp_vel", "loss_jaw", "loss_jaw_vel")
+        check(all(k in val and math.isfinite(val[k]) for k in terms),
+              f"train-emote --neural logged {sorted(val)}; every one of {terms} must be finite")
+        check("loss_vertex" not in val, "a synthetic batch got a vertex term")
+
+    # (2) one step, card vs CPU; T=8 keeps the CPU's ResNet-50 at 224^2 short
+    assets = neural_assets(tiny=False)
+    cfg = EmoteConfig()
+    n_exp, n_shape = cfg.flint.n_exp, cfg.n_shape
+    batch = next(synthetic_batches(np.random.default_rng(1), B, 8, n_exp, n_shape, "cpu"))
+    perm = torch.tensor([1, 0])
+    pair, metrics, seen, suites, grads = {}, {}, {}, {}, {}
+    for d in ("cuda", "cpu"):
+        dev = torch.device(d)
+        head = build_head(False, seed=2, device=dev, flame_assets=assets)
+        neural = build_neural(False, assets.faces, dev)
+        if d == "cpu":  # the card's route: K2's plain version
+            neural.renderer = _kernel_route_renderer(assets.faces, 224, dev)
+        seen[d] = _record_neural_loss(neural)
+        t0 = time.perf_counter()
+        m = _neural_trainer(head, neural, lr).train_step({k: v.to(dev) for k, v in batch.items()},
+                                                         perm=perm)
+        metrics[d] = {k: float(v) for k, v in m.items()}
+        metrics[d + "_step_s"] = time.perf_counter() - t0
+        pair[d] = (metrics[d]["loss"], _trained(head))
+        grads[d] = {k: t.grad.cpu() for k, t in pair[d][1].items() if t.grad is not None}
+        suites[d] = neural
+    verts = {d: s["vertices"] for d, s in seen.items()}
+    renderers = {d: s.renderer for d, s in suites.items()}
+    # K2 on both sides' vertices (bit-equal to its plain version on the same
+    # inputs) for the pixels that changed winner; the plain version on the
+    # CPU's for the identical-vertices check below
+    winners = {d: _winners(renderers[d], verts["cpu"].to(d).flatten(0, 1)) for d in ("cuda", "cpu")}
+    changed = _winners(renderers["cuda"], verts["cuda"].cuda().flatten(0, 1)) != winners["cuda"]
+    winners_changed = int(changed.sum())
+    in_mouth = int(renderers["cpu"].crop_mouth(changed[..., None]).sum())
+    vert_err = _max_rel(verts["cuda"], verts["cpu"])
+    step_rel = _rel(metrics["cuda"], metrics["cpu"])
+    # the independent step's update: the 2·lr rule with its floor at 1e-3 of
+    # the model's largest gradient, ten times the gap that the changed
+    # winners and the towers' near-ties put into the gradients, so that no
+    # weight held to 1e-4 can have its AdamW step's sign flipped by them
+    step = step_diffs(pair, rel_floor=1e-3)
+    # the card's update: AdamW on the CPU from the same initial weights with
+    # the card's gradients; a skipped, sign-flipped or mis-scaled step moves
+    # a weight by lr or more
+    head = build_head(False, seed=2, device=torch.device("cpu"), flame_assets=assets)
+    init = {k: t.detach().clone() for k, t in _trained(head).items()}
+    replay = _adamw_replay(init, grads["cuda"], lr)
+    update = {"max_abs_diff": max(float((pair["cuda"][1][k].detach().cpu() - w).abs().max())
+                                  for k, w in replay.items()),
+              "max_abs_diff_over_limit": max(
+                  float(((pair["cuda"][1][k].detach().cpu() - w).abs()
+                         / (lr / 100 + 1e-6 * w.abs())).max()) for k, w in replay.items())}
+    # the head's step under the card's neural gradient: the CPU's head with
+    # the neural terms replaced by their value and their gradient at the
+    # vertices on the card; PR 8's rule as it stands (one_step_card_vs_cpu)
+    card = seen["cuda"]
+
+    def card_neural(v, *args):
+        lin = (v * card["cotangent"]).sum()
+        return lin - lin.detach() + card["value"]
+    stand_in = types.SimpleNamespace(any_enabled=lambda: True, loss=card_neural)
+    m = _neural_trainer(head, stand_in, lr).train_step(batch, perm=perm)
+    head_step = one_step_card_vs_cpu({"cuda": pair["cuda"], "cpu": (float(m["loss"]), _trained(head))},
+                                     lr=lr, loss_tol=1e-4 * abs(metrics["cpu"]["loss"]))
+    # the batch's gt vertices, decoded as the trainer decodes them, rendered once a side
+    jaw = batch["gt_jaw"].reshape(B * 8, 3)
+    gt = FlameModel(assets, n_shape=n_shape, n_exp=n_exp).vertices_only(
+        torch.zeros(B * 8, n_shape), batch["gt_exp"].reshape(B * 8, n_exp),
+        torch.cat([torch.zeros_like(jaw), jaw], -1)).reshape(B, 8, -1, 3)
+    with torch.no_grad():
+        gt_video = {d: suites[d].render_video(gt.to(d)) for d in ("cuda", "cpu")}
+
+    # (3) identical vertices (the CPU's predicted ones) on both sides:
+    # winners, terms, the vertex gradient through render and towers; the
+    # CPU's own with the rendered video perturbed by +-1e-7, which shows how
+    # far the towers' max-pools let a rounding-sized change of the image move
+    # that gradient; and the card's render backward from the CPU's image
+    # gradient (on the CPU that is the chain's own vertex gradient)
+    noise = (torch.rand((2 * B, 8, 224, 224, 3), generator=torch.Generator().manual_seed(5))
+             - 0.5) * 2e-7
+    chain = {d: _neural_chain(suites[d], verts["cpu"], gt_video[d], batch, perm)
+             for d in ("cuda", "cpu")}
+    noisy = _neural_chain(suites["cpu"], verts["cpu"], gt_video["cpu"], batch, perm,
+                          image_noise=noise)
+    v = verts["cpu"].cuda().requires_grad_()
+    (suites["cuda"].render_video(v) * chain["cpu"]["video_grad"].cuda()).sum().backward()
+    vg = {d: c["vertex_grad"] for d, c in chain.items()}
+    same = {"winners_differing": int((winners["cuda"] != winners["cpu"]).sum()),
+            "terms_rel_diff": _rel(chain["cuda"]["terms"], chain["cpu"]["terms"]),
+            "vertex_grad_rel": _max_rel(vg["cuda"], vg["cpu"]),
+            "vertex_grad_l2_rel": float((vg["cuda"] - vg["cpu"]).norm() / vg["cpu"].norm()),
+            "vertex_grad_limit": VERTEX_GRAD_REL,
+            "cpu_vertex_grad_rel_under_image_noise": _max_rel(noisy["vertex_grad"], vg["cpu"]),
+            "video_grad_rel": _max_rel(chain["cuda"]["video_grad"], chain["cpu"]["video_grad"]),
+            "render_backward_vertex_grad_rel": _max_rel(v.grad.cpu(), vg["cpu"])}
+    # each side's neural terms at the card's predicted vertices; and the CPU's
+    # at its own, which the card's rounding of the vertices moves by this much
+    at_card = {d: _neural_chain(suites[d], verts["cuda"], gt_video[d], batch, perm,
+                                backward=False)["terms"] for d in ("cuda", "cpu")}
+    same_verts_rel = _rel(at_card["cuda"], at_card["cpu"])
+    vertex_rounding_moves = _rel(at_card["cpu"], chain["cpu"]["terms"])
+    one_step = {**step, "update_vs_adamw_on_the_cards_gradients": update,
+                "head_step_under_the_cards_neural_gradient": head_step}
+    emit({"phase": "train_emote_neural_card_vs_cpu",
+          "one_step": {"rel_diff": step_rel, "predicted_vertices_rel_diff": vert_err,
+                       "pixels_changed_winner": winners_changed,
+                       "of_them_in_the_mouth_crop": in_mouth,
+                       "terms_at_the_same_vertices_rel_diff": same_verts_rel,
+                       "cpu_terms_moved_by_the_cards_vertex_rounding": vertex_rounding_moves,
+                       **one_step},
+          "identical_vertices": same})
+    check(same["winners_differing"] == 0, f"identical vertices: {same['winners_differing']} "
+          "pixels' winners differ between K2 and its plain version")
+    check(all(v < 1e-4 for v in same["terms_rel_diff"].values()),
+          f"identical vertices, card vs CPU: terms {same['terms_rel_diff']}")
+    check(same["render_backward_vertex_grad_rel"] < 1e-4,
+          f"identical vertices and image gradient: the render's backward differs by "
+          f"{same['render_backward_vertex_grad_rel']} of its largest")
+    check(same["vertex_grad_rel"] < VERTEX_GRAD_REL,
+          f"identical vertices: the vertex gradient through render and towers differs by "
+          f"{same['vertex_grad_rel']} of its largest, past {VERTEX_GRAD_REL} (the CPU alone "
+          f"moves it by {same['cpu_vertex_grad_rel_under_image_noise']} under +-1e-7 on the "
+          "rendered video)")
+    check(vert_err < 1e-4, f"one neural step: predicted vertices differ by {vert_err} of the "
+          "largest")
+    check(step_rel["loss"] < 1e-4 and all(v < 1e-4 for v in same_verts_rel.values()),
+          f"one neural step, card vs CPU: loss {step_rel['loss']}, the neural terms at the same "
+          f"vertices {same_verts_rel}")
+    check(update["max_abs_diff_over_limit"] <= 1.0,
+          f"one neural step: the card's weights lie {update['max_abs_diff']} from AdamW on its "
+          f"own gradients, past lr / 100 + 1e-6 |w|")
+    pixel_note = (f"; {winners_changed} pixels ({in_mouth} in the mouth crop) changed winning "
+                  "face between the two sides' predicted vertices" if winners_changed else "")
+    check(step["param_max_abs_diff_where_grad_ge_floor"] < 1e-4
+          and step["param_max_abs_diff_where_grad_lt_floor"] <= 2 * lr + 1e-6,
+          f"one neural step, card vs CPU: weights max |d| "
+          f"{step['param_max_abs_diff_where_grad_ge_floor']} where |g| >= {step['grad_floor']} "
+          f"(limit 1e-4), {step['param_max_abs_diff_where_grad_lt_floor']} elsewhere (limit "
+          f"2·lr){pixel_note}")
+    del pair, suites, renderers, chain, noisy, head, gt_video, grads, replay
+
+    # (4) the timed step at B=2, T=32
+    dev = torch.device("cuda")
+    head = build_head(False, seed=0, device=dev, flame_assets=assets)
+    neural = build_neural(False, assets.faces, dev)
+    trainer = _neural_trainer(head, neural, lr)
+    batches = synthetic_batches(np.random.default_rng(0), B, T, n_exp, n_shape, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, per_step, losses = [], [], []
+    for _ in range(6):
+        b = next(batches)
+        torch.cuda.synchronize()
+        kras.launches = 0
+        t0 = time.perf_counter()
+        m = trainer.train_step(b, generator=gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(kras.launches)
+        losses.append(float(m["loss"]))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(per_step == [2] * 6, f"neural steps launched K2 {per_step} times, not 2 each")
+    check(all(math.isfinite(x) for x in losses), f"neural step losses {losses}")
+    k2_step_ms = device_ms(lambda: trainer.train_step(b, generator=gen), "rasterize_visibility",
+                           iters=3)
+    prof = None
+    if profile:
+        prof = profile_call(lambda: trainer.train_step(b, generator=gen))
+        emit({"phase": "profile", "call": "train_emote_neural_step", "batch": B, "frames": T,
+              **prof})
+
+    # K2 at the predicted video's launch (2B x T frames x 16 tiles)
+    seen = {}
+    hook = head.register_forward_hook(lambda m, a, out: seen.__setitem__("v", out["vertices"]))
+    with torch.no_grad():
+        trainer.loss_fn(b, generator=gen)
+    hook.remove()
+    del trainer, head
+    ndc = neural.renderer.project(seen.pop("v").flatten(0, 1))
+    _, tri, valid, px, py, *_ = _visibility_inputs(ndc, neural.renderer.faces, 224, 224, 56, 1024)
+    z, s = kras.rasterize_tiles_visibility(tri, valid, px, py)
+    torch.cuda.synchronize()
+    # the plain version in slot chunks of 64 (its result does not depend on the
+    # chunk) keeps its (tiles, chunk, pixels) temporaries near 1.6 GB
+    rz, rs = kras.rasterize_tiles_visibility_reference(tri, valid, px, py, chunk=64)
+    err = float((z - rz).abs().max())
+    check(torch.equal(s, rs) and torch.equal(z, rz),
+          f"K2 at the neural launch: not bit-equal to the plain version ({int((s != rs).sum())} "
+          f"slots differ, max |dz| {err})")
+    del z, s, rz, rs
+
+    def kernel():
+        return kras.rasterize_tiles_visibility(tri, valid, px, py)
+
+    row = {"case": "neural_224_tile56", "shape": list(tri.shape[:2]) + [px.shape[1]],
+           "frames": int(ndc.shape[0]), "faces": int(neural.renderer.faces.shape[0]),
+           "valid_slots": int(valid.sum()), "live_slots_per_tile": live_slot_stats(valid),
+           "max_abs_err": err, "ms": time_ms(kernel, iters=5, reps=5),
+           "device_ms": device_ms(kernel, "rasterize_visibility", iters=5),
+           "plain_ms": time_ms(lambda: kras.rasterize_tiles_visibility_reference(
+               tri, valid, px, py, chunk=64), iters=1, reps=3)}
+    row.update(visibility_bound(tri, valid, px, py, peaks))
+    emit({"phase": "kernel_check", "kernel": "rasterize_tiles_visibility", **row})
+    emit({"phase": "train_emote_neural", "config": "EmoteConfig(), synthetic FLAME 5023 / 9976, "
+          "224^2 renders, towers at seeded random init", "batch": B, "frames": T, "lr": lr,
+          "cli": f"train-emote --neural --batch-size {B} --frames {T} --steps {steps} "
+                 f"--val-every {steps} --run-dir <tmp>",
+          "cli_wall_s": cli_s, "cli_launches": cli_launches, "cli_val_metrics": val,
+          "gpu_vs_cpu_one_step_B2_T8": {"metrics": metrics, "rel_diff": step_rel,
+                                        "terms_at_the_same_vertices_rel_diff": same_verts_rel,
+                                        "pixels_changed_winner": winners_changed, **one_step},
+          "identical_vertices": same, "rtol": 1e-4,
+          "losses": losses, "step_s_all": step_s,
+          "step_s_median_after_first": statistics.median(step_s[1:]),
+          "frames_per_s": B * T / statistics.median(step_s[1:]),
+          "k2_launches_per_step": per_step, "k2_device_ms_per_step": k2_step_ms,
+          "k2_device_ms_per_launch": None if k2_step_ms is None else k2_step_ms / 2,
+          "peak_allocated_gib": peak_gib,
+          "device_idle_share": None if prof is None else prof["device_idle_share"]})
+    return {"launches": cli_launches, "row": row}
 
 
 def _prior_draws(state, B, seed):
@@ -1451,7 +1895,7 @@ def main() -> int:
                     help="also profile one generate, one render and each training step")
     ap.add_argument("--phases", choices=("all", "train"), default="all",
                     help="train: only the build, K1's rows, the K1 / K3 gradient rows and the "
-                         "EMOTE and prior training phases (about a minute on an H100)")
+                         "EMOTE (geometric and neural) and prior training phases")
     args = ap.parse_args()
     try:
         import torch
@@ -1470,6 +1914,7 @@ def main() -> int:
     from avi_talking_tpu_torch.core.assets import synthetic_assets
     from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
     from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
+    from avi_talking_tpu_torch.ops.kernels import rasterize as kras
     from avi_talking_tpu_torch.pipeline import AviTalkingPipeline, PipelineConfig
 
     name = torch.cuda.get_device_name(0)
@@ -1480,6 +1925,7 @@ def main() -> int:
         phase_attention_grads(peaks)
         emote = phase_train_emote(kb)
         check_emote_row(rows, emote)
+        phase_train_emote_neural(kb, kras, peaks, profile=args.profile)
         phase_train_prior()
         if args.profile:
             profile_emote_and_prior_steps()
@@ -1504,6 +1950,7 @@ def main() -> int:
     ff_launches = phase_faceformer(kb, kba)
     phase_train_faceformer(kb, kba)
     emote = phase_train_emote(kb)
+    neural = phase_train_emote_neural(kb, kras, peaks, profile=args.profile)
     phase_train_prior()
     if args.profile:
         phase_profile(pipe, gen_out["vertices"], faces)
@@ -1514,6 +1961,7 @@ def main() -> int:
     vis_row = vis_rows[0]  # the render path's launch: 16 frames x 64 tiles
     k3_main = k3_rows[1]  # the forward's self-attention: B=1 H=4 T=S=600 d=32, (H, T, T) bias
     emote_row = check_emote_row(rows, emote)
+    neural_row = neural["row"]  # K2 at the predicted video's launch: 2B x T = 128 frames x 16 tiles
     emit({"kernels": [{
         "name": "keybias_attention",
         "route": "cuda",
@@ -1580,6 +2028,23 @@ def main() -> int:
         "library_ms": emote_row["library_ms"],
         "shape": emote_row["shape"],
         "backward": {k: v for k, v in grad_rows[2].items() if k != "kernel"},
+        "peaks": peaks_line,
+    }, {
+        "name": "rasterize_tiles_visibility",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/rasterize_visibility.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/rasterize.py:111",
+        "path": "train-emote --neural (the predicted video's render, under a gradient)",
+        "launches": neural["launches"]["rasterize_tiles_visibility"],  # the command's run
+        "max_abs_err": neural_row["max_abs_err"],
+        "ms": neural_row["ms"],
+        "device_ms": neural_row["device_ms"],
+        "plain_ms": neural_row["plain_ms"],
+        "bound_ms": neural_row["bound_ms"],
+        "bound_by": neural_row["bound_by"],
+        "bound_ms_no_fma": neural_row["bound_ms_no_fma"],
+        "library_ms": None,  # no PyTorch call computes z-buffer visibility
+        "shape": neural_row["shape"],
         "peaks": peaks_line,
     }], "keybias_attention_backward": {k: v for k, v in grad_rows[0].items() if k != "kernel"},
         "total_s": time.perf_counter() - t_start})

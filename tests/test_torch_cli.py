@@ -132,7 +132,7 @@ def test_train_prior_runs_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cmd,flag", [
-    ("train-emote", ["--root", "/data"]), ("train-emote", ["--neural"]),
+    ("train-emote", ["--root", "/data"]), ("train-emote", ["--neural", "--bf16"]),
     ("train-emote", ["--bf16"]),
     ("train-prior", ["--json-dir", "experiments/json_dir"]), ("train-prior", ["--root", "/d"]),
     ("train-prior", ["--captions", "c.json"]), ("train-prior", ["--pipeline-checkpoint", "p"]),

@@ -277,14 +277,23 @@ def test_run_dir_round_trip_matches_jax(tmp_path):
 
 
 def test_neural_losses_wait_for_their_slice():
-    tm = random_module(lambda: EmoteTalkingHead(EmoteConfig.tiny()), torch.device("cpu"),
+    """The neural stage's entry points take their arguments: a suite with
+    no tower enabled adds nothing to the geometric metrics, and a
+    ``use_neural`` stage given no suite trains the geometric loss (JAX:
+    ``neural if stage.use_neural else None``). The suite itself is held to
+    JAX in tests/test_torch_emote_neural.py."""
+    cfg = EmoteConfig.tiny()
+    tm = random_module(lambda: EmoteTalkingHead(cfg, condition_dim=51), torch.device("cpu"),
                        torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NeuralLosses(renderer=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TalkingHeadTrainer(head=tm, optimizer=adamw(tm.parameters(), 1e-4), neural=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_emote(tm, lambda: iter([]), stages=[EmoteStage("perceptual", 1, use_neural=True)])
+    suite = NeuralLosses(renderer=None)
+    assert not suite.any_enabled()
+    batch = _torch(_batch(cfg))
+    trainer = TalkingHeadTrainer(head=tm, optimizer=adamw(tm.parameters(), 1e-4), neural=suite)
+    assert set(trainer.eval_step(batch)) == {"loss", "loss_exp", "loss_exp_vel", "loss_jaw",
+                                             "loss_jaw_vel"}
+    res = train_emote(tm, lambda: iter([batch]),
+                      stages=[EmoteStage("perceptual", 1, use_neural=True)], log_every=1000)
+    assert res["total_steps"] == 1
 
 
 @pytest.fixture(scope="module")
