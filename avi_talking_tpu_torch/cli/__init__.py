@@ -8,7 +8,13 @@ Subcommands:
   serve      the same corpus through the micro-batching InferenceServer
              (batch coalescing, warmup, p50 / p99)
   train-faceformer
-             stage-1 FaceFormer training (AdamW) on synthetic batches
+             stage-1 FaceFormer training (AdamW) on synthetic batches, with
+             the FLAME landmark terms given --flame-npz at full size
+  train-faceformer-vert
+             vertex-space FaceFormer training (Adam) on synthetic, VOCASET
+             (--root) or MEAD (--mead-root) batches, with the disentangle
+             shuffle terms and the rendered emotion loss through the frozen
+             FAN tower (--emo-cls, --emo-cls-pretrain)
   train-emote
              staged EMOTE training (geometric, then condition exchange at
              lr / 2) on synthetic batches, with validation, best / last
@@ -32,14 +38,14 @@ import argparse
 
 
 def main(argv=None) -> int:
-    from . import run, train, train_emote, train_prior
+    from . import run, train, train_emote, train_faceformer_vert, train_prior
     from ._common import common_args
 
     p = argparse.ArgumentParser(prog="avi-talking-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
     run.register(sub, common_args)
-    for mod in (train, train_emote, train_prior):
+    for mod in (train, train_faceformer_vert, train_emote, train_prior):
         mod.register(sub, common_args)
     args = p.parse_args(argv)
     return args.fn(args)

@@ -1,19 +1,21 @@
 """train-faceformer: stage-1 coefficient-space FaceFormer training on
-synthetic batches (the JAX command without ``--root``)."""
+synthetic batches (the JAX command without ``--root``). At full size, FLAME
+assets (``--flame-npz``, else the default assets where found) add the
+landmark terms, as in the JAX command; ``--ckpt-dir`` saves the trained
+weights (``infra.checkpoint``)."""
 
 from __future__ import annotations
 
 import time
 
 REFUSED = {
-    "root": "--root (MEAD / EMOCA data) waits for the data-backed batches (ROADMAP Queue 1, item 7)",
+    "root": "--root (MEAD / EMOCA data) waits for FanConditioner and the PNG readers "
+            "(ROADMAP Queue 1, item 2)",
     "render_loss": "--render-loss needs PIRender (ROADMAP Queue 1, item 5)",
-    "emo_loss": "--emo-loss needs EmoNet (ROADMAP Queue 1, items 2 and 3)",
-    "fan_checkpoint": "--fan-checkpoint needs the FanEncoder (ROADMAP Queue 1, item 2)",
-    "emonet_checkpoint": "--emonet-checkpoint needs EmoNet (ROADMAP Queue 1, item 3)",
-    "ckpt_dir": "--ckpt-dir waits for the rest of the FaceFormer family (ROADMAP Queue 1, item 2)",
-    "flame_npz": "--flame-npz feeds the landmark terms, which need FLAME landmarks "
-                 "(ROADMAP Queue 1, item 2)",
+    "emo_loss": "--emo-loss needs EmoNet on PIRender's renders (ROADMAP Queue 1, item 5)",
+    "fan_checkpoint": "--fan-checkpoint feeds the FanConditioner of --root "
+                      "(ROADMAP Queue 1, item 2)",
+    "emonet_checkpoint": "--emonet-checkpoint needs EmoNet (ROADMAP Queue 1, item 5)",
     "bf16": "--bf16: the port computes in float32",
     "checkpoint": "--checkpoint: the port trains from seeded random weights",
 }
@@ -40,7 +42,23 @@ def synthetic_batches(cfg, batch_size: int, seq_length: int, seed: int, device):
         yield {k: torch.from_numpy(a).to(device) for k, a in out.items()}
 
 
+def landmark_flame(args, device):
+    """The FLAME of the landmark terms: none with ``--tiny`` (its synthetic
+    FLAME has no 68-point layout, and the JAX command leaves the terms out),
+    else from ``--flame-npz`` or the default assets, where found."""
+    from ..core.assets import default_assets_path, load_flame_assets
+    from ..core.flame import FlameModel
+
+    npz = None if args.tiny else (args.flame_npz or default_assets_path())
+    if not npz:
+        return None
+    return FlameModel(load_flame_assets(npz, 100, 50).to(device), n_shape=100, n_exp=50)
+
+
 def cmd_train_faceformer(args) -> int:
+    import torch
+
+    from ..infra.checkpoint import save_checkpoint
     from ..infra.device import resolve_device
     from ..models.faceformer import FaceFormerCoeff, FaceFormerConfig
     from ..train.faceformer_trainer import FaceFormerTrainer
@@ -52,7 +70,10 @@ def cmd_train_faceformer(args) -> int:
     device = resolve_device(args.device)
     cfg = FaceFormerConfig.tiny() if args.tiny else FaceFormerConfig()
     model = FaceFormerCoeff.random_init(cfg, seed=args.seed, device=device)
-    trainer = FaceFormerTrainer(model=model, optimizer=adamw(model.parameters(), args.lr))
+    flame = landmark_flame(args, device)
+    zeros = torch.zeros(cfg.vertice_dim, device=device)
+    trainer = FaceFormerTrainer(model=model, optimizer=adamw(model.parameters(), args.lr),
+                                flame=flame, coeff_mean=zeros, coeff_std=zeros + 1.0)
     batches = synthetic_batches(cfg, args.batch_size, args.seq_length, args.seed, device)
     next(batches)  # the JAX command draws its first batch to initialise the params
 
@@ -63,6 +84,8 @@ def cmd_train_faceformer(args) -> int:
         if (i + 1) % 50 == 0:
             print(f"step {i+1}: " + " ".join(f"{k}={float(v):.4f}" for k, v in metrics.items())
                   + f" ({(i+1)/(time.time()-t0):.1f} it/s)")
+    if args.ckpt_dir:
+        save_checkpoint(args.ckpt_dir, {"params": model.state_dict()})
     print("final:", {k: float(v) for k, v in metrics.items()})
     return 0
 
@@ -78,6 +101,6 @@ def register(sub, common):
     tf.add_argument("--render-loss", action="store_true", help="(not ported yet)")
     tf.add_argument("--emo-loss", action="store_true", help="(not ported yet)")
     tf.add_argument("--emonet-checkpoint", default=None, help="(not ported yet)")
-    tf.add_argument("--ckpt-dir", default=None, help="(not ported yet)")
+    tf.add_argument("--ckpt-dir", default=None)
     common(tf)
     tf.set_defaults(fn=cmd_train_faceformer)

@@ -10,8 +10,8 @@ import itertools
 import sys
 
 REFUSED = {
-    "root": "--root (MEAD / EMOCA data) waits for the data-backed batches "
-            "(ROADMAP Queue 1, item 7)",
+    "root": "--root (MEAD / EMOCA data) waits for EmoteBatchBuilder "
+            "(ROADMAP Queue 1, item 2)",
     "bf16": "--bf16 needs K1 / K3 on bf16 inputs (ROADMAP Queue 1, item 4)",
 }
 

@@ -1,6 +1,7 @@
-"""FLAME head model, linear blend skinning (port of the vertices path of
-``avi_talking_tpu/core/flame.py``: ``FlameAssets``, ``lbs`` and
-``FlameModel.vertices_only``; landmarks come in a later slice).
+"""FLAME head model (port of ``avi_talking_tpu/core/flame.py``):
+``FlameAssets``, linear blend skinning, and ``FlameModel`` with its
+landmarks (``vertices2landmarks``, the dynamic contour chosen from the neck
+chain's y rotation, the 68-point 2D / 3D and the mediapipe sets).
 
 Pose layout [global(3), neck(3), jaw(3), eyes(6)] in axis-angle; betas =
 concat[shape, expression].
@@ -9,11 +10,12 @@ concat[shape, expression].
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
 
-from .rotations import batch_rodrigues
+from .rotations import batch_rodrigues, rot_mat_to_euler_y
 
 FLAME_NUM_JOINTS = 5  # global, neck, jaw, eye_l, eye_r
 FLAME_PARENTS = (-1, 0, 1, 1, 1)
@@ -116,19 +118,59 @@ def lbs(
     return verts, posed_joints
 
 
+def vertices2landmarks(
+    vertices: torch.Tensor,  # (B, V, 3)
+    faces: torch.Tensor,  # (F, 3) int
+    lmk_faces_idx: torch.Tensor,  # (L,) or (B, L)
+    lmk_bary_coords: torch.Tensor,  # (L, 3) or (B, L, 3)
+) -> torch.Tensor:
+    """Barycentric landmark interpolation -> (B, L, 3)."""
+    B = vertices.shape[0]
+    lmk_faces = faces.long()[lmk_faces_idx.long()]  # (L, 3) or (B, L, 3)
+    if lmk_faces.dim() == 2:
+        lmk_faces = lmk_faces.expand(B, *lmk_faces.shape)
+    if lmk_bary_coords.dim() == 2:
+        lmk_bary_coords = lmk_bary_coords.expand(B, *lmk_bary_coords.shape)
+    rows = torch.arange(B, device=vertices.device)[:, None, None]
+    lmk_vertices = vertices[rows, lmk_faces]  # (B, L, 3 corners, 3)
+    return torch.einsum("blfi,blf->bli", lmk_vertices, lmk_bary_coords)
+
+
+def _neck_chain_indices(parents: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The joints from the neck up to the root: (1, 0) for FLAME."""
+    chain = []
+    idx = 1  # the neck
+    while idx != -1:
+        chain.append(idx)
+        idx = parents[idx]
+    return tuple(chain)
+
+
 @dataclasses.dataclass(frozen=True)
 class FlameModel:
-    """FLAME decoder; ``vertices_only(shape, exp, pose)`` with pose (B, 6) =
-    [global(3), jaw(3)] is the generate path's hot path."""
+    """FLAME decoder. ``vertices_only(shape, exp, pose)`` with pose (B, 6) =
+    [global(3), jaw(3)] is the generate path's hot path; calling the model
+    also returns the landmarks: (vertices, landmarks2d, landmarks3d), and
+    the mediapipe set fourth with ``with_mediapipe``."""
 
     assets: FlameAssets
     n_shape: int = 100
     n_exp: int = 50
+    with_mediapipe: bool = False
 
-    def full_pose(self, pose_params: torch.Tensor) -> torch.Tensor:
+    def full_pose(
+        self,
+        pose_params: torch.Tensor,  # (B, 6) global + jaw
+        eye_pose_params: Optional[torch.Tensor] = None,  # (B, 6)
+        neck_pose: Optional[torch.Tensor] = None,  # (B, 3)
+    ) -> torch.Tensor:
         B = pose_params.shape[0]
-        z = pose_params.new_zeros
-        return torch.cat([pose_params[:, :3], z(B, 3), pose_params[:, 3:], z(B, 6)], dim=1)
+        if eye_pose_params is None:
+            eye_pose_params = pose_params.new_zeros(B, 6)
+        if neck_pose is None:
+            neck_pose = pose_params.new_zeros(B, 3)
+        return torch.cat([pose_params[:, :3], neck_pose, pose_params[:, 3:], eye_pose_params],
+                         dim=1)
 
     def vertices_only(
         self,
@@ -141,3 +183,57 @@ class FlameModel:
         betas = torch.cat([shape_params, expression_params], dim=1)
         verts, _ = lbs(betas, self.full_pose(pose_params), self.assets)
         return verts
+
+    def _dynamic_landmarks(self, full_pose: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The contour landmarks' faces (B, 17) and barycentrics (B, 17, 3),
+        picked by the neck chain's y rotation in whole degrees (rounded half
+        to even, as ``jnp.round`` and ``torch.round`` both do; at most 39,
+        and 78 below -39)."""
+        assets = self.assets
+        B = full_pose.shape[0]
+        chain = _neck_chain_indices(FLAME_PARENTS[:assets.num_joints])
+        aa = full_pose.reshape(B, -1, 3)[:, list(chain)]  # (B, C, 3)
+        rots = batch_rodrigues(aa.reshape(-1, 3)).reshape(B, -1, 3, 3)
+        rel = torch.eye(3, dtype=full_pose.dtype, device=full_pose.device).expand(B, 3, 3)
+        for i in range(len(chain)):
+            rel = rots[:, i] @ rel
+        # divided by a tensor: CUDA turns a division by a Python number into a
+        # product with its reciprocal, which could move a knife-edge angle
+        pi = torch.full((), math.pi, dtype=full_pose.dtype, device=full_pose.device)
+        y = torch.round(torch.clamp(rot_mat_to_euler_y(rel) * 180.0 / pi, max=39.0)).long()
+        idx = torch.where(y < 0, torch.where(y < -39, 78, 39 - y), y)  # (B,)
+        return assets.dynamic_lmk_faces_idx[idx], assets.dynamic_lmk_bary_coords[idx]
+
+    def __call__(
+        self,
+        shape_params: torch.Tensor,
+        expression_params: Optional[torch.Tensor] = None,
+        pose_params: Optional[torch.Tensor] = None,
+        eye_pose_params: Optional[torch.Tensor] = None,
+    ):
+        B = shape_params.shape[0]
+        if expression_params is None:
+            expression_params = shape_params.new_zeros(B, self.n_exp)
+        if pose_params is None:
+            pose_params = shape_params.new_zeros(B, 6)
+        betas = torch.cat([shape_params, expression_params], dim=1)
+        fp = self.full_pose(pose_params, eye_pose_params)
+        vertices, _ = lbs(betas, fp, self.assets)
+
+        a = self.assets
+        landmarks2d = landmarks3d = None
+        if a.lmk_faces_idx is not None:
+            lf, lb = a.lmk_faces_idx, a.lmk_bary_coords
+            if a.dynamic_lmk_faces_idx is not None:
+                dyn_idx, dyn_bary = self._dynamic_landmarks(fp)
+                lf = torch.cat([dyn_idx, lf.expand(B, *lf.shape)], dim=1)
+                lb = torch.cat([dyn_bary, lb.expand(B, *lb.shape)], dim=1)
+            landmarks2d = vertices2landmarks(vertices, a.faces, lf, lb)
+        if a.full_lmk_faces_idx is not None:
+            landmarks3d = vertices2landmarks(vertices, a.faces, a.full_lmk_faces_idx,
+                                             a.full_lmk_bary_coords)
+        if self.with_mediapipe and a.mediapipe_lmk_faces_idx is not None:
+            lmk_mp = vertices2landmarks(vertices, a.faces, a.mediapipe_lmk_faces_idx,
+                                        a.mediapipe_lmk_bary_coords)
+            return vertices, landmarks2d, landmarks3d, lmk_mp
+        return vertices, landmarks2d, landmarks3d

@@ -1,7 +1,14 @@
-"""Host-side data helpers."""
+"""Host-side data: captions, MEAD / EMOCA and VOCASET datasets, their
+statistics, splits and batches."""
 
-from .batching import pad_to_bucket
+from .batching import batch_iterator, default_collate, pad_to_bucket
 from .captions import MEAD_TRAINING_IDS, CaptionDataset, CaptionItem, MeadFilenameParser
+from .mead import MeadEmocaDataset, build_index
+from .splits import MEAD_IDENTITIES, identity_of, mead_identity_split
+from .stats import CoeffStats
+from .vocaset import VOCASET_SPLITS, VocasetDataset
 
-__all__ = ["MEAD_TRAINING_IDS", "CaptionDataset", "CaptionItem", "MeadFilenameParser",
-           "pad_to_bucket"]
+__all__ = ["MEAD_IDENTITIES", "MEAD_TRAINING_IDS", "VOCASET_SPLITS", "CaptionDataset",
+           "CaptionItem", "CoeffStats", "MeadEmocaDataset", "MeadFilenameParser",
+           "VocasetDataset", "batch_iterator", "build_index", "default_collate",
+           "identity_of", "mead_identity_split", "pad_to_bucket"]

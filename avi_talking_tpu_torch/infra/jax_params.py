@@ -204,9 +204,13 @@ def emote_head_state_from_jax(variables: Tree) -> State:
 
 
 def _conv_nd(p: Tree) -> State:
-    """A bias-free 2-D or 3-D flax conv kernel (..., in, out) -> (out, in, ...)."""
+    """A 2-D or 3-D flax conv kernel (..., in, out) -> (out, in, ...), and its
+    bias where it has one."""
     k = np.asarray(p["kernel"])
-    return {"weight": _a(k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2)))}
+    out = {"weight": _a(k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2)))}
+    if "bias" in p:
+        out["bias"] = _a(p["bias"])
+    return out
 
 
 def resnet50_state_from_jax(params: Tree, batch_stats: Tree) -> State:
@@ -267,6 +271,51 @@ def video_emotion_state_from_jax(params: Tree) -> State:
     _put(out, "in_proj.", _dense(params["in_proj"]))
     _put(out, "encoder.", transformer_encoder_state_from_jax(params["encoder"]))
     _put(out, "classifier.", _dense(params["classifier"]))
+    return out
+
+
+def _fan_convblock(p: Tree, s: Tree) -> State:
+    out: State = {}
+    for i in (1, 2, 3):
+        _put(out, f"conv{i}.", _conv_nd(p[f"conv{i}"]))
+        _put(out, f"bn{i}.", _batchnorm(p[f"bn{i}"]["bn"], s[f"bn{i}"]["bn"]))
+    if "down_conv" in p:
+        _put(out, "downsample.0.", _batchnorm(p["down_bn"]["bn"], s["down_bn"]["bn"]))
+        _put(out, "downsample.2.", _conv_nd(p["down_conv"]))
+    return out
+
+
+def fan_encoder_state_from_jax(variables: Tree) -> State:
+    """``models.fan_encoder.FanEncoder`` variables -> port state, under the
+    reference torch names (``model.m0.b1_4``, ``to_mouth.2``, ...)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    p, s = params["model"], stats["model"]
+    out: State = {}
+    for name in ("conv1", "conv_last0", "l0", "conv6"):
+        _put(out, f"model.{name}.", _conv_nd(p[name]))
+    for name in ("bn1", "bn_end0", "bn5"):
+        _put(out, f"model.{name}.", _batchnorm(p[name]["bn"], s[name]["bn"]))
+    for name in ("conv2", "conv3", "conv4", "top_m_0"):
+        _put(out, f"model.{name}.", _fan_convblock(p[name], s[name]))
+    for name in p["m0"]:
+        _put(out, f"model.m0.{name}.", _fan_convblock(p["m0"][name], s["m0"][name]))
+    _put(out, "model.fc.", _dense(p["fc"]))
+    for head in ("mouth", "headpose", "eye", "emo"):
+        hp, hs = params[head], stats[head]
+        _put(out, f"to_{head}.0.", _dense(hp["to_dense0"]))
+        _put(out, f"to_{head}.2.", _batchnorm(hp["to_bn"], hs["to_bn"]))
+        _put(out, f"to_{head}.3.", _dense(hp["to_dense1"]))
+        _put(out, f"{head}_embed.1.", _dense(hp["embed"]))
+    return out
+
+
+def emo_cls_head_state_from_jax(variables: Tree) -> State:
+    """``train.emo_cls.EmoClsHead`` variables -> port state (``0``, ``2``, ``3``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: State = {}
+    _put(out, "0.", _dense(params["fc0"]))
+    _put(out, "2.", _batchnorm(params["bn"], stats["bn"]))
+    _put(out, "3.", _dense(params["fc1"]))
     return out
 
 

@@ -52,9 +52,9 @@ class RunningStatsBatchNorm1d(nn.BatchNorm1d):
     ``batch_stats`` included, to optax, and the statistics then train like
     weights (``train.talking_head.emote_trainables``)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, C, T)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, C) or (B, C, T)
         def col(t):
-            return t[None, :, None]
+            return t.reshape((1, -1) + (1,) * (x.dim() - 2))
 
         mul = torch.rsqrt(col(self.running_var) + self.eps) * col(self.weight)
         return (x - col(self.running_mean)) * mul + col(self.bias)

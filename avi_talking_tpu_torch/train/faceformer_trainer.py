@@ -1,12 +1,14 @@
 """Stage-1 FaceFormer training step (port of
 ``avi_talking_tpu/train/faceformer_trainer.py``).
 
-The loss is the coefficient MSE over the first min(dim, 53) channels,
-weighted by ``lip_coeff_weight``. The JAX trainer's other terms need modules
-the port does not have yet, and asking for them raises
-``NotImplementedError``: the landmark terms (``flame=``) need FLAME
-``vertices2landmarks`` and ``train/landmark_losses.py``, the render term
-PIRender and the emotion term EmoNet (ROADMAP Queue 1, items 2, 3 and 5).
+loss = lip_coeff_weight * coefficient MSE over the first min(dim, 53)
+channels, plus, with ``flame=``, ldmk_weight * the FLAME landmark terms:
+lipd_weight * (lip distance + mouth-corner loss), and eyed_weight * the eye
+distance where that weight is set, on the 68-point 2D landmarks of the
+de-normalised predicted and ground-truth coefficients (the ground truth's
+without a gradient). The render term (PIRender) and the emotion term
+(EmoNet) are not ported yet, and asking for them raises
+``NotImplementedError`` (ROADMAP Queue 1, item 5).
 
 The gradient runs through wav2vec2's K1 and the decoder's K3 (their
 autograd backward is the plain recompute of JAX's ``_keybias_bwd``); the
@@ -17,35 +19,53 @@ defaults.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..core.flame import FlameModel
 from ..models.faceformer import FaceFormerCoeff
+from .landmark_losses import eyed_loss, lipd_loss, mouth_corner_loss
 
 
 @dataclasses.dataclass
 class FaceFormerTrainer:
     model: FaceFormerCoeff
     optimizer: torch.optim.Optimizer
-    flame: Optional[Any] = None
+    flame: Optional[FlameModel] = None
+    coeff_mean: Optional[torch.Tensor] = None  # (D,) de-normalisation statistics
+    coeff_std: Optional[torch.Tensor] = None
     lip_coeff_weight: float = 1.0
+    ldmk_weight: float = 10.0
+    lipd_weight: float = 1.0
+    eyed_weight: float = 0.0
     render_loss_fn: Optional[Callable] = None
     emo_loss_fn: Optional[Callable] = None
 
     def __post_init__(self):
-        if self.flame is not None:
-            raise NotImplementedError(
-                "the landmark terms (flame=) are not ported yet: they need FLAME "
-                "vertices2landmarks and train/landmark_losses.py (ROADMAP Queue 1, item 2)")
         if self.render_loss_fn is not None:
             raise NotImplementedError(
                 "render_loss_fn is not ported yet: it needs PIRender and "
                 "train/render_loss.py (ROADMAP Queue 1, item 5)")
         if self.emo_loss_fn is not None:
             raise NotImplementedError(
-                "emo_loss_fn is not ported yet: it needs EmoNet and train/emo_cls.py "
-                "(ROADMAP Queue 1, items 2 and 3)")
+                "emo_loss_fn is not ported yet: it needs EmoNet "
+                "(ROADMAP Queue 1, item 5)")
+
+    def _denorm(self, coeff: torch.Tensor) -> torch.Tensor:
+        if self.coeff_mean is None:
+            return coeff
+        d = coeff.shape[-1]
+        return coeff * self.coeff_std[:d] + self.coeff_mean[:d]
+
+    def _landmarks(self, coeff_norm: torch.Tensor) -> torch.Tensor:
+        """Normalised (N, 53+) coefficients -> FLAME 68-point 2D landmarks."""
+        ne = self.flame.n_exp
+        c = self._denorm(coeff_norm)
+        N = c.shape[0]
+        pose = torch.cat([c.new_zeros(N, 3), c[:, ne:ne + 3]], dim=1)
+        _, lmk2d, _ = self.flame(c.new_zeros(N, self.flame.n_shape), c[:, :ne], pose)
+        return lmk2d
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         pred = self.model(batch["audio"], batch["coeff"], batch.get("eye_embed"),
@@ -54,10 +74,27 @@ class FaceFormerTrainer:
         d = min(pred.shape[-1], 53)
         loss_coeff = ((pred[..., :d] - gt[..., :d]) ** 2).mean()
         loss = self.lip_coeff_weight * loss_coeff
-        return loss, {"coeff": loss_coeff, "loss": loss}
+        metrics = {"coeff": loss_coeff}
+        if self.flame is not None and self.ldmk_weight > 0:
+            B, T = pred.shape[:2]
+            lmk_pred = self._landmarks(pred.reshape(B * T, -1)[:, :d])
+            with torch.no_grad():
+                lmk_gt = self._landmarks(gt.reshape(B * T, -1)[:, :d])
+            # the lip / eye losses index the 68-point iBUG layout
+            if lmk_pred.shape[1] < 68:
+                raise ValueError("landmark losses need the 68-point FLAME embedding, got "
+                                 f"{lmk_pred.shape[1]} landmarks")
+            l_ldmk = self.lipd_weight * (lipd_loss(lmk_pred, lmk_gt)
+                                         + mouth_corner_loss(lmk_pred, lmk_gt))
+            if self.eyed_weight:
+                l_ldmk = l_ldmk + self.eyed_weight * eyed_loss(lmk_pred, lmk_gt)
+            loss = loss + self.ldmk_weight * l_ldmk
+            metrics["ldmk"] = l_ldmk
+        metrics["loss"] = loss
+        return loss, metrics
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """One AdamW step in place; returns the step's metrics (detached)."""
+        """One optimizer step in place; returns the step's metrics (detached)."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.loss_fn(batch)
         loss.backward()

@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py              # the check; needs one CUDA card and nvcc
     python3 chip_smoke.py --profile    # also profiles one generate, one render
-                                       # and one FaceFormer, EMOTE and prior
-                                       # training step each
+                                       # and one FaceFormer, EMOTE, vertex
+                                       # FaceFormer and prior training step
+                                       # each
     python3 chip_smoke.py --phases train [--profile]
                                        # the build, K1's rows, the gradient
-                                       # rows and phases 12-14 alone; its
+                                       # rows and phases 12-15 alone; its
                                        # result line says "phases": "train"
 
 Run it from the root of a checkout: it builds the port's CUDA kernels from
@@ -18,7 +19,7 @@ the checkout's sources into build/, then
             spill report; a spill fails the check;
 2. kernels: K1 (key-bias attention) against its plain PyTorch version on the
             card at the generate path's shapes, the FaceFormer encoder's and
-            the EMOTE training step's,
+            the EMOTE and vertex FaceFormer training steps',
             and K3 (biased attention) at the FaceFormer decoder's four
             shapes, each with its time (CUDA events around the wrapper, and
             the kernel's own device time under torch.profiler), the plain
@@ -66,12 +67,25 @@ the checkout's sources into build/, then
             frames per second, K2 launches and device ms, peak memory; K2
             at the predicted video's launch (2048 tiles) against its plain
             version;
-14. train_prior: the prior trainer at full width (B=256): step time; one
+14. train_faceformer_vert: `train-faceformer-vert` at full width
+            (FaceFormerVertConfig(), B=4, 100 frames) on a synthetic MEAD
+            tree and a synthetic full-size FLAME: synthetic and
+            --disentangle runs with checkpoints loaded back; the main path
+            `--mead-root --disentangle --emo-cls` with K1, K3 and K2 under
+            every step; the emotion head's pretrain round trip; one step
+            card vs CPU (B=2, 40 frames) and one `train-faceformer` step
+            with the landmark terms; the step's time, launches and peak
+            memory; K3 at the decoder's shape forward and backward, K2 at
+            the emotion loss's launch;
+15. train_prior: the prior trainer at full width (B=256): step time; one
             step card vs CPU with the same draws; `train-prior` for 4 steps
             with validation and checkpoints, then --resume from step 4;
-15. the kernels summary line (K2 twice: the render path's launch and the
-            neural step's) and the card's name and power limit;
-16. the result line.
+16. the kernels summary line (K1 at the generate path's, the EMOTE step's
+            and the vertex step's shapes; K2 at the render path's, the
+            neural step's and the emotion loss's launches; K3 at the
+            FaceFormer decoder's and the vertex decoder's) and the card's
+            name and power limit;
+17. the result line.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without the result line. It imports nothing of JAX.
@@ -379,6 +393,7 @@ def phase_kernels(peaks):
         ("ragged_333", 1, 12, 333, 333, 64, (333,)),
         ("faceformer_600", 1, 12, 600, 600, 64, (600,)),  # the FaceFormer encoder
         ("emote_train", 8, 12, 64, 64, 64, (64,) * 8),  # train-emote's step, after the resample
+        ("vert_train", 4, 12, 100, 100, 64, (100,) * 4),  # train-faceformer-vert's step
     ]
     rows = []
     for name, B, H, T, S, d, lens in cases:
@@ -415,10 +430,11 @@ def phase_kernels(peaks):
     return rows
 
 
-def phase_bias_kernels(peaks):
-    """K3 against its plain version at the FaceFormer decoder's shapes: the
-    training step's self-attention, and predict-length (600-frame)
-    self-attention, cross-attention and the vertex model's head width."""
+def bias_attention_row(name, B, H, T, d, kind, period, peaks, g):
+    """K3 against its plain version on random q / k / v of (B, H, T, d)
+    (S = T) with the decoder's (H, T, T) bias ("HTT", ``period``) or its
+    (T, S) alignment bias ("TS"): the error, the wrapper's and the kernel's
+    time, the plain version's, scaled_dot_product_attention's, the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -426,6 +442,46 @@ def phase_bias_kernels(peaks):
     from avi_talking_tpu_torch.ops.positional import enc_dec_alignment_bias, faceformer_bias
 
     tol = 1e-5  # fp32 kernel vs fp32 plain version: only summation order differs
+    S = T
+    q = torch.randn(B, H, T, d, device="cuda", generator=g) * d ** -0.5
+    k = torch.randn(B, H, S, d, device="cuda", generator=g)
+    v = torch.randn(B, H, S, d, device="cuda", generator=g)
+    bias = (faceformer_bias(H, T, period, device="cuda") if kind == "HTT"
+            else enc_dec_alignment_bias(T, S, device="cuda"))
+    out = kba.fused_bias_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    ref = kba.fused_bias_attention_reference(q, k, v, bias)
+    err = float((out - ref).abs().max())
+    check(math.isfinite(err) and err < tol, f"fused_bias_attention {name}: max |d| {err} >= {tol}")
+    mask = bias[None] if bias.dim() == 3 else bias[None, None]  # a broadcast view, no copy
+
+    def kernel():
+        return kba.fused_bias_attention(q, k, v, bias)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+
+    row = {
+        "case": name, "shape": [B, H, T, S, d], "bias_shape": list(bias.shape),
+        "max_abs_err": err, "tol": tol,
+        "ms": time_ms(kernel),
+        "device_ms": device_ms(kernel, "bias_attention_kernel"),
+        "plain_ms": time_ms(lambda: kba.fused_bias_attention_reference(q, k, v, bias)),
+        "library_ms": time_ms(library),
+        "library_device_ms": device_ms(library),
+    }
+    row["bound_ms"], row["bound_by"], row["tf32_ops"], row["bytes"] = attention_bound(
+        B, H, T, S, d, bias.numel(), peaks)
+    emit({"phase": "kernel_check", "kernel": "fused_bias_attention", **row})
+    return row
+
+
+def phase_bias_kernels(peaks):
+    """K3 against its plain version at the FaceFormer decoder's shapes: the
+    training step's self-attention, and predict-length (600-frame)
+    self-attention, cross-attention and the vertex model's head width."""
+    import torch
+
     g = torch.Generator(device="cuda").manual_seed(3)
     cases = [
         ("train_self_HTT", 16, 4, 25, 32, "HTT"),
@@ -433,120 +489,99 @@ def phase_bias_kernels(peaks):
         ("forward_cross_TS", 1, 4, 600, 32, "TS"),
         ("vert_self_HTT_d16", 1, 4, 600, 16, "HTT"),
     ]
-    rows = []
-    for name, B, H, T, d, kind in cases:
-        S = T
-        q = torch.randn(B, H, T, d, device="cuda", generator=g) * d ** -0.5
-        k = torch.randn(B, H, S, d, device="cuda", generator=g)
-        v = torch.randn(B, H, S, d, device="cuda", generator=g)
-        bias = (faceformer_bias(H, T, 25, device="cuda") if kind == "HTT"
-                else enc_dec_alignment_bias(T, S, device="cuda"))
-        out = kba.fused_bias_attention(q, k, v, bias)
-        torch.cuda.synchronize()
-        ref = kba.fused_bias_attention_reference(q, k, v, bias)
-        err = float((out - ref).abs().max())
-        check(math.isfinite(err) and err < tol, f"fused_bias_attention {name}: max |d| {err} >= {tol}")
-        mask = bias[None] if bias.dim() == 3 else bias[None, None]  # a broadcast view, no copy
+    return [bias_attention_row(name, B, H, T, d, kind, 25, peaks, g)
+            for name, B, H, T, d, kind in cases]
 
-        def kernel():
-            return kba.fused_bias_attention(q, k, v, bias)
 
-        def library():
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+def attention_grad_row(name, B, H, T, d, bias, peaks, g):
+    """The gradient of K1 (``name`` "keybias_attention", ``bias`` (B, S)) or
+    K3 ("fused_bias_attention", its bias as stored) at (B, H, T, d), S = T:
+    the kernel forward with the autograd backward on the card against the
+    same wrappers on CPU copies, and the backward's time beside its bound,
+    the plain version's backward (autograd through it) and
+    scaled_dot_product_attention's backward."""
+    import torch
+    import torch.nn.functional as F
 
-        row = {
-            "case": name, "shape": [B, H, T, S, d], "bias_shape": list(bias.shape),
-            "max_abs_err": err, "tol": tol,
-            "ms": time_ms(kernel),
-            "device_ms": device_ms(kernel, "bias_attention_kernel"),
-            "plain_ms": time_ms(lambda: kba.fused_bias_attention_reference(q, k, v, bias)),
-            "library_ms": time_ms(library),
-            "library_device_ms": device_ms(library),
-        }
-        row["bound_ms"], row["bound_by"], row["tf32_ops"], row["bytes"] = attention_bound(
-            B, H, T, S, d, bias.numel(), peaks)
-        rows.append(row)
-        emit({"phase": "kernel_check", "kernel": "fused_bias_attention", **row})
-    return rows
+    from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
+    from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
+
+    tol = 1e-4
+    S = T
+    q = torch.randn(B, H, T, d, generator=g) * d ** -0.5
+    k, v = torch.randn(B, H, S, d, generator=g), torch.randn(B, H, S, d, generator=g)
+    cot = torch.randn(B, H, T, d, generator=g)
+    if name == "keybias_attention":
+        fn, plain, bias4 = kb.keybias_attention, kb.keybias_attention_reference, bias[:, None, None]
+    else:
+        fn, plain = kba.fused_bias_attention, kba.fused_bias_attention_reference
+        bias4 = bias[None] if bias.dim() == 3 else bias[None, None]
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        ts = [t.to(dev, copy=True).requires_grad_(i < 3) for i, t in enumerate((q, k, v, bias))]
+        (fn(*ts) * cot.to(dev)).sum().backward()
+        grads[dev] = [t.grad.cpu() for t in ts[:3]]
+    errs = {n: float((a - b).abs().max()) for n, a, b in zip(("dq", "dk", "dv"), grads["cuda"],
+                                                              grads["cpu"])}
+    for n, e in errs.items():
+        check(e < tol, f"{name} gradient {n} on the card vs the CPU: max |d| {e} >= {tol}")
+    qc, kc, vc = (t.cuda().requires_grad_() for t in (q, k, v))
+    bc, cc = bias.cuda(), cot.cuda()
+
+    def bwd_ms(out):
+        return time_ms(lambda: torch.autograd.grad(out, (qc, kc, vc), cc, retain_graph=True))
+
+    out = fn(qc, kc, vc, bc)
+    row = {"kernel": name, "shape": [B, H, T, S, d], "bias_shape": list(bias.shape),
+           "max_abs_err": errs, "tol": tol, "backward_ms": bwd_ms(out),
+           # every device kernel of the backward, summed
+           "backward_device_ms": device_ms(
+               lambda: torch.autograd.grad(out, (qc, kc, vc), cc, retain_graph=True)),
+           "plain_backward_ms": bwd_ms(plain(qc, kc, vc, bc)),
+           "library_backward_ms": bwd_ms(F.scaled_dot_product_attention(
+               qc, kc, vc, attn_mask=bias4.cuda(), scale=1.0))}
+    row["bound_ms"], row["bound_by"] = attention_backward_bound(B, H, T, S, d, bias.numel(), peaks)
+    emit({"phase": "attention_grads", **row})
+    return row
 
 
 def phase_attention_grads(peaks):
     """K1's and K3's gradients at the training steps' shapes (K1: wav2vec2
     after the 50 -> 25 fps resample, B=16 H=12 T=S=25 d=64 in the FaceFormer
     step and B=8 H=12 T=S=64 d=64 in the EMOTE step; K3: the decoder's
-    self-attention, B=16 H=4 T=S=25 d=32): the kernel forward with the
-    autograd backward on the card against the same wrappers on CPU copies,
-    and the backward's time beside its bound, the plain version's backward
-    (autograd through it) and scaled_dot_product_attention's backward."""
+    self-attention, B=16 H=4 T=S=25 d=32), by ``attention_grad_row``."""
     import torch
-    import torch.nn.functional as F
 
-    from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
-    from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
     from avi_talking_tpu_torch.ops.positional import faceformer_bias
 
-    tol = 1e-4
     g = torch.Generator().manual_seed(5)
-    rows = []
-    for name, B, H, T, d in (("keybias_attention", 16, 12, 25, 64),
-                             ("fused_bias_attention", 16, 4, 25, 32),
-                             ("keybias_attention", 8, 12, 64, 64)):
-        S = T
-        q = torch.randn(B, H, T, d, generator=g) * d ** -0.5
-        k, v = torch.randn(B, H, S, d, generator=g), torch.randn(B, H, S, d, generator=g)
-        cot = torch.randn(B, H, T, d, generator=g)
-        if name == "keybias_attention":
-            bias = torch.zeros(B, S)
-            fn, plain, bias4 = kb.keybias_attention, kb.keybias_attention_reference, bias[:, None, None]
-        else:
-            bias = faceformer_bias(H, T, 25)
-            fn, plain, bias4 = kba.fused_bias_attention, kba.fused_bias_attention_reference, bias[None]
-        grads = {}
-        for dev in ("cpu", "cuda"):
-            ts = [t.to(dev, copy=True).requires_grad_(i < 3) for i, t in enumerate((q, k, v, bias))]
-            (fn(*ts) * cot.to(dev)).sum().backward()
-            grads[dev] = [t.grad.cpu() for t in ts[:3]]
-        errs = {n: float((a - b).abs().max()) for n, a, b in zip(("dq", "dk", "dv"), grads["cuda"],
-                                                                  grads["cpu"])}
-        for n, e in errs.items():
-            check(e < tol, f"{name} gradient {n} on the card vs the CPU: max |d| {e} >= {tol}")
-        qc, kc, vc = (t.cuda().requires_grad_() for t in (q, k, v))
-        bc, cc = bias.cuda(), cot.cuda()
-
-        def bwd_ms(out):
-            return time_ms(lambda: torch.autograd.grad(out, (qc, kc, vc), cc, retain_graph=True))
-
-        out = fn(qc, kc, vc, bc)
-        row = {"kernel": name, "shape": [B, H, T, S, d], "max_abs_err": errs, "tol": tol,
-               "backward_ms": bwd_ms(out),
-               # every device kernel of the backward, summed
-               "backward_device_ms": device_ms(
-                   lambda: torch.autograd.grad(out, (qc, kc, vc), cc, retain_graph=True)),
-               "plain_backward_ms": bwd_ms(plain(qc, kc, vc, bc)),
-               "library_backward_ms": bwd_ms(F.scaled_dot_product_attention(
-                   qc, kc, vc, attn_mask=bias4.cuda(), scale=1.0))}
-        row["bound_ms"], row["bound_by"] = attention_backward_bound(B, H, T, S, d, bias.numel(),
-                                                                     peaks)
-        rows.append(row)
-        emit({"phase": "attention_grads", **row})
-    return rows
+    return [attention_grad_row(name, B, H, T, d, torch.zeros(B, T) if name == "keybias_attention"
+                               else faceformer_bias(H, T, 25), peaks, g)
+            for name, B, H, T, d in (("keybias_attention", 16, 12, 25, 64),
+                                     ("fused_bias_attention", 16, 4, 25, 32),
+                                     ("keybias_attention", 8, 12, 64, 64))]
 
 
-def _faceformer_model(cfg, seed, device):
-    """Seeded full-width FaceFormerCoeff with its zero-init head filled
-    (seeded, LeCun scale), so the outputs carry weight; obj_embedding and
-    the vertice_map bias stay 0, which aligns the AR and teacher-forced
-    start tokens."""
+def _fill_output_map(model, seed):
+    """Fills a FaceFormer's zero-init output map ``vertice_map_r`` (seeded,
+    LeCun scale), so that its outputs carry weight and every weight takes a
+    gradient in the first step."""
     import torch
 
-    from avi_talking_tpu_torch.models.faceformer import FaceFormerCoeff
-
-    model = FaceFormerCoeff.random_init(cfg, seed=seed, device=device)
     g = torch.Generator().manual_seed(seed + 1)
     w = model.vertice_map_r.weight
     with torch.no_grad():
         w.copy_(torch.randn(w.shape, generator=g) * w.shape[1] ** -0.5)
     return model
+
+
+def _faceformer_model(cfg, seed, device):
+    """Seeded full-width FaceFormerCoeff with its zero-init head filled
+    (``_fill_output_map``); obj_embedding and the vertice_map bias stay 0,
+    which aligns the AR and teacher-forced start tokens."""
+    from avi_talking_tpu_torch.models.faceformer import FaceFormerCoeff
+
+    return _fill_output_map(FaceFormerCoeff.random_init(cfg, seed=seed, device=device), seed)
 
 
 def _faceformer_inputs(cfg, B, T, seed, device):
@@ -899,26 +934,29 @@ NEURAL_TERMS = ("loss_lipread", "loss_emotion", "loss_video_emotion",
                 "loss_video_emotion_disentangled")
 
 
-def _winners(renderer, verts):
-    """The face that wins each pixel of the front view's render of verts
-    (N, V, 3), -1 where none does, through the binning and visibility of
-    the kernel route on verts' device (K2 on the card, its plain version on
+def _winners(ndc, faces, size):
+    """The face that wins each pixel of the size^2 render of ``ndc`` (N, V,
+    3) vertices, -1 where none does, through the binning and visibility of
+    the kernel route on their device (K2 on the card, its plain version on
     the CPU) -> (N, H, W) on the CPU."""
     import torch
 
     from avi_talking_tpu_torch.ops.kernels.rasterize import rasterize_tiles_visibility
     from avi_talking_tpu_torch.viz.rasterizer import _auto_tile, _untile, _visibility_inputs
 
-    size, faces = renderer.image_size, renderer.faces
     tile = _auto_tile(size, size, faces.shape[0])
     with torch.no_grad():
-        ids, tri, valid, px, py, *_ = _visibility_inputs(renderer.project(verts), faces, size,
-                                                         size, tile, 1024)
+        ids, tri, valid, px, py, *_ = _visibility_inputs(ndc, faces, size, size, tile, 1024)
         _, slot = rasterize_tiles_visibility(tri, valid, px, py)
         gid = torch.where(slot >= 0, ids.reshape(slot.shape[0], -1).gather(
             1, slot.clamp_min(0).long()), -1)
         n = size // tile
-        return _untile(gid.reshape(verts.shape[0], n * n, -1, 1), n, n, tile)[..., 0].cpu()
+        return _untile(gid.reshape(ndc.shape[0], n * n, -1, 1), n, n, tile)[..., 0].cpu()
+
+
+def _view_winners(renderer, verts):
+    """``_winners`` of the front view's render of verts (N, V, 3)."""
+    return _winners(renderer.project(verts), renderer.faces, renderer.image_size)
 
 
 def _neural_trainer(head, neural, lr):
@@ -935,6 +973,12 @@ def _neural_trainer(head, neural, lr):
 # video moves this gradient by 2.4e-4 on the CPU alone (PERF.md §6); twice
 # that, rounded up.
 VERTEX_GRAD_REL = 5e-4
+
+# The same through the emotion loss's render and FAN backbone
+# (train-faceformer-vert), whose 2x2 max-pools route near-ties in the same
+# way: +-1e-7 on the rendered images moves this gradient by 2.24e-3 of its
+# largest on the CPU alone (PERF.md §6); twice that, rounded up.
+FAN_VERTEX_GRAD_REL = 5e-3
 
 
 def _kernel_route_renderer(faces, size, device):
@@ -958,31 +1002,29 @@ def _kernel_route_renderer(faces, size, device):
     return KernelRoute(faces, size, device=device)
 
 
-def _record_neural_loss(neural) -> dict:
-    """Wraps ``neural.loss`` to keep, of its last call, the predicted
-    vertices, the loss's value and the gradient that reaches the vertices
-    through it (on the CPU)."""
-    plain, seen = neural.loss, {}
+def _recording(loss):
+    """``loss`` wrapped to keep, of its last call, the predicted vertices
+    (its first argument), its value and the gradient that reaches the
+    vertices through it (on the CPU) -> (the wrapper, what it keeps)."""
+    seen = {}
 
-    def loss(vertices, *args):
+    def wrapped(vertices, *args):
         v = vertices.view_as(vertices)
         v.register_hook(lambda g: seen.__setitem__("cotangent", g.detach().cpu()))
-        out = plain(v, *args)
+        out = loss(v, *args)
         seen.update(vertices=vertices.detach().cpu(), value=float(out.detach()))
         return out
-    neural.loss = loss
-    return seen
+    return wrapped, seen
 
 
-def _adamw_replay(init: dict, grads: dict, lr: float) -> dict:
-    """``init`` after one step of the trainers' AdamW on the CPU with
-    ``grads`` (a tensor without a gradient stays)."""
-    from avi_talking_tpu_torch.train.optim import adamw
-
+def _replay(init: dict, grads: dict, optimizer) -> dict:
+    """``init`` after one step on the CPU of ``optimizer(params)`` (the
+    trainers' ``adamw`` or ``adam`` at their lr) with ``grads`` (a tensor
+    without a gradient stays)."""
     params = {k: t.clone().requires_grad_() for k, t in init.items()}
     for k, p in params.items():
         p.grad = grads.get(k)
-    adamw(list(params.values()), lr).step()
+    optimizer(list(params.values())).step()
     return {k: p.detach() for k, p in params.items()}
 
 
@@ -1050,6 +1092,7 @@ def phase_train_emote_neural(kb, kras, peaks, profile=False):
        video's launch against its plain version, with its bound; under
        ``profile`` one profiled step."""
     import contextlib
+    import functools
     import io
     import tempfile
 
@@ -1061,6 +1104,7 @@ def phase_train_emote_neural(kb, kras, peaks, profile=False):
         build_head, build_neural, neural_assets, synthetic_batches)
     from avi_talking_tpu_torch.core.flame import FlameModel
     from avi_talking_tpu_torch.models.emote import EmoteConfig
+    from avi_talking_tpu_torch.train.optim import adamw
     from avi_talking_tpu_torch.viz.rasterizer import _visibility_inputs
 
     B, T, lr = 2, 32, 1e-4
@@ -1108,7 +1152,7 @@ def phase_train_emote_neural(kb, kras, peaks, profile=False):
         neural = build_neural(False, assets.faces, dev)
         if d == "cpu":  # the card's route: K2's plain version
             neural.renderer = _kernel_route_renderer(assets.faces, 224, dev)
-        seen[d] = _record_neural_loss(neural)
+        neural.loss, seen[d] = _recording(neural.loss)
         t0 = time.perf_counter()
         m = _neural_trainer(head, neural, lr).train_step({k: v.to(dev) for k, v in batch.items()},
                                                          perm=perm)
@@ -1122,8 +1166,10 @@ def phase_train_emote_neural(kb, kras, peaks, profile=False):
     # K2 on both sides' vertices (bit-equal to its plain version on the same
     # inputs) for the pixels that changed winner; the plain version on the
     # CPU's for the identical-vertices check below
-    winners = {d: _winners(renderers[d], verts["cpu"].to(d).flatten(0, 1)) for d in ("cuda", "cpu")}
-    changed = _winners(renderers["cuda"], verts["cuda"].cuda().flatten(0, 1)) != winners["cuda"]
+    winners = {d: _view_winners(renderers[d], verts["cpu"].to(d).flatten(0, 1))
+               for d in ("cuda", "cpu")}
+    changed = (_view_winners(renderers["cuda"], verts["cuda"].cuda().flatten(0, 1))
+               != winners["cuda"])
     winners_changed = int(changed.sum())
     in_mouth = int(renderers["cpu"].crop_mouth(changed[..., None]).sum())
     vert_err = _max_rel(verts["cuda"], verts["cpu"])
@@ -1138,7 +1184,7 @@ def phase_train_emote_neural(kb, kras, peaks, profile=False):
     # a weight by lr or more
     head = build_head(False, seed=2, device=torch.device("cpu"), flame_assets=assets)
     init = {k: t.detach().clone() for k, t in _trained(head).items()}
-    replay = _adamw_replay(init, grads["cuda"], lr)
+    replay = _replay(init, grads["cuda"], functools.partial(adamw, lr=lr))
     update = {"max_abs_diff": max(float((pair["cuda"][1][k].detach().cpu() - w).abs().max())
                                   for k, w in replay.items()),
               "max_abs_diff_over_limit": max(
@@ -1313,6 +1359,450 @@ def phase_train_emote_neural(kb, kras, peaks, profile=False):
           "peak_allocated_gib": peak_gib,
           "device_idle_share": None if prof is None else prof["device_idle_share"]})
     return {"launches": cli_launches, "row": row}
+
+
+def _write_mead_tree(root, n_clips, frames, seed):
+    """A MEAD-layout root as the data tests build one: ``n_clips`` clips of
+    ``frames`` frames (identities M003 / W009, emotions neutral / happy /
+    angry / sad / surprised), each frame's EMOCA exp (50), pose (6), shape
+    (100) and cam (3) npys, and the clip's 16 kHz wav."""
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    emotions = ("neutral", "happy", "angry", "sad", "surprised")
+    for c in range(n_clips):
+        name = f"{('M003', 'W009')[c % 2]}_front_{emotions[c % 5]}_level1_{c:03d}"
+        for i in range(frames):
+            fd = os.path.join(root, name, "EMOCA_v2_lr_mse_20", f"{i:06d}_000")
+            os.makedirs(fd)
+            for key, n, scale in (("exp", 50, 0.5), ("pose", 6, 0.1), ("shape", 100, 1.0),
+                                  ("cam", 3, 1.0)):
+                np.save(os.path.join(fd, f"{key}.npy"),
+                        (rng.standard_normal(n) * scale).astype(np.float32))
+        pcm = (np.clip(synthetic_wav(frames / 25.0, seed + c), -1, 1) * 32767).astype(np.int16)
+        with wave.open(os.path.join(root, name, name + ".wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(pcm.tobytes())
+
+
+def _vert_model(cfg, template, seed, device):
+    """Seeded FaceFormerVert with its zero-init output map filled."""
+    from avi_talking_tpu_torch.models.faceformer_vert import FaceFormerVert
+
+    return _fill_output_map(FaceFormerVert.random_init(cfg, template=template, seed=seed,
+                                                       device=device), seed)
+
+
+def _emo_chain(emo_cls, verts, labels, backward=True, image_noise=None):
+    """The emotion term of predicted ``verts`` on emo_cls's device -> (value,
+    its gradient in the vertices, its gradient in the rendered images, both
+    on the CPU under ``backward``). ``image_noise`` is added to the rendered
+    images first (a perturbation of the size of their rounding)."""
+    import torch
+
+    dev = emo_cls.faces.device
+    seen = {}
+
+    def fan_input(module, args):
+        x = args[0] if image_noise is None else args[0] + image_noise.to(dev)
+        if backward:
+            x.retain_grad()
+        seen["images"] = x
+        return (x,)
+    hook = emo_cls.fan.model.register_forward_pre_hook(fan_input)
+    try:
+        v = verts.to(dev).clone().requires_grad_(backward)
+        with torch.set_grad_enabled(backward):
+            out = emo_cls(v, labels.to(dev))
+            if backward:
+                out.backward()
+    finally:
+        hook.remove()
+    if not backward:
+        return float(out), None, None
+    return float(out.detach()), v.grad.cpu(), seen["images"].grad.cpu()
+
+
+def _vert_args(mead, npz, B, T, **kw):
+    return types.SimpleNamespace(mead_root=mead, root=None, tiny=False, flame_npz=npz,
+                                 batch_size=B, frames=T, fan_checkpoint=None,
+                                 head_checkpoint=None, emo_cls_pretrain=False, **kw)
+
+
+def phase_train_faceformer_vert(kb, kba, kras, peaks, profile=False):
+    """Vertex-space FaceFormer training at full width (FaceFormerVertConfig():
+    wav2vec2-base, vertice_dim 15069, 4 heads of 16, period 30) at the
+    command's defaults (B=4, 100 frames, lr 1e-4), on a synthetic MEAD tree
+    (5 clips of 120 frames) and a synthetic full-size FLAME npz (n_shape
+    100, n_exp 50, 68-point landmark tables, 5023 vertices, 9976 random
+    faces).
+
+    a. `train-faceformer-vert` synthetic and `--disentangle`, 2 steps each
+       with `--ckpt-dir`, each checkpoint loaded strictly into a fresh model;
+    b. the main path: `--mead-root --disentangle --emo-cls` for 2 steps, K1,
+       K3 and K2 counted (48, 8 and 1 a step);
+    c. `--emo-cls-pretrain --ckpt-dir` for 2 steps (every frame rendered),
+       then `--emo-cls --head-checkpoint` from it;
+    d. one step at B=2, 40 frames, stride 20 (4 frames rendered at 224^2) on
+       the card and on the CPU (rendering through the same kernel route, K2's
+       plain version) from the same weights, batch and permutations, with
+       region masks thresholded from the template so that the shuffle terms
+       carry weight: the geometric terms within 1e-4 and the update by the
+       2·lr rule (``one_step_card_vs_cpu`` on the CPU model stepped with the
+       card's emotion-term gradient at the vertices); the emotion term split
+       as the neural step's (at the same vertices within 1e-4; the card's weights
+       within lr / 100 of Adam replayed on its own gradients; identical
+       vertices: winners equal, the term within 1e-4, the render's backward
+       from one image gradient within 1e-4, the vertex gradient through
+       render and FAN within ``FAN_VERTEX_GRAD_REL``). The two independent
+       steps' weights are reported, not held: the pixels that change winner
+       between the sides' vertices move the gradients further than a
+       rounding rule allows (PERF.md §6). Then one `train-faceformer` step
+       with the landmark terms card vs CPU by ``one_step_card_vs_cpu``;
+    e. the step at B=4, 100 frames: median of 5 after a warm-up, launches
+       per step, peak memory, under ``profile`` a profiled step; K3 at the
+       decoder's shape (B=4 H=4 T=S=100 d=16, both biases) forward and
+       backward; K2 at the emotion loss's launch (20 frames x 16 tiles)
+       against its plain version."""
+    import ast
+    import contextlib
+    import dataclasses
+    import functools
+    import io
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.cli import main as cli_main
+    from avi_talking_tpu_torch.cli.train import synthetic_batches as ff_batches
+    from avi_talking_tpu_torch.cli.train_faceformer_vert import (
+        batch_source, build_emo_cls, model_config, region_selector, template_selector)
+    from avi_talking_tpu_torch.core.assets import synthetic_assets
+    from avi_talking_tpu_torch.core.flame import FlameModel
+    from avi_talking_tpu_torch.infra.checkpoint import restore_checkpoint
+    from avi_talking_tpu_torch.models.faceformer import FaceFormerConfig
+    from avi_talking_tpu_torch.models.faceformer_vert import FaceFormerVert, FaceFormerVertConfig
+    from avi_talking_tpu_torch.ops.positional import enc_dec_alignment_bias, faceformer_bias
+    from avi_talking_tpu_torch.train.emo_cls import EmoClsHead
+    from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer
+    from avi_talking_tpu_torch.train.faceformer_vert_trainer import FaceFormerVertTrainer
+    from avi_talking_tpu_torch.train.optim import adam, adamw
+    from avi_talking_tpu_torch.viz import rasterizer
+    from avi_talking_tpu_torch.viz.rasterizer import _visibility_inputs
+
+    B, T, lr = 4, 100, 1e-4
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+
+    def counts():
+        return {"keybias_attention": kb.launches, "fused_bias_attention": kba.launches,
+                "rasterize_tiles_visibility": kras.launches}
+
+    def zero():
+        kb.launches = kba.launches = kras.launches = 0
+
+    def run_cli(*argv):
+        buf = io.StringIO()
+        zero()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_main(["train-faceformer-vert", *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"train-faceformer-vert {' '.join(argv)} exited {rc}")
+        final = [ln for ln in buf.getvalue().splitlines() if ln.startswith("final:")]
+        check(len(final) == 1, f"train-faceformer-vert printed {buf.getvalue()!r}")
+        terms = ast.literal_eval(final[0][len("final:"):].strip())
+        check(all(math.isfinite(v) for v in terms.values()), f"final terms {terms}")
+        return {"argv": " ".join(argv), "wall_s": wall, "launches": counts(), "final": terms}
+
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        mead, npz = os.path.join(tmp, "mead"), os.path.join(tmp, "flame.npz")
+        t0 = time.perf_counter()
+        _write_mead_tree(mead, n_clips=5, frames=120, seed=0)
+        assets = synthetic_assets(num_vertices=5023, n_shape=100, n_exp=50, num_faces=9976,
+                                  n_static_landmarks=51)
+        np.savez(npz, **{f.name: getattr(assets, f.name).numpy()
+                         for f in dataclasses.fields(assets)})
+        setup_s = time.perf_counter() - t0
+
+        # (a) synthetic and --disentangle, checkpoints loaded back
+        for name, mode, forwards in (("synthetic", [], 1), ("disentangle", ["--disentangle"], 3)):
+            ck = os.path.join(tmp, "ck_" + name)
+            r = runs[name] = run_cli("--steps", "2", "--ckpt-dir", ck, *mode)
+            want = {"keybias_attention": 12 * forwards * 2,
+                    "fused_bias_attention": 2 * forwards * 2, "rasterize_tiles_visibility": 0}
+            check(r["launches"] == want, f"{name}: launched {r['launches']}, not {want}")
+            state = restore_checkpoint(ck)["params"]
+            m = FaceFormerVert.random_init(FaceFormerVertConfig(num_train_subjects=2), device=cuda)
+            m.load_state_dict(state, strict=True)
+            check(all(bool(torch.isfinite(t).all()) for t in state.values())
+                  and float(state["vertice_map_r.weight"].abs().max()) > 0,
+                  f"{name}: the checkpoint holds non-finite or untrained weights")
+            del m, state
+
+        # (b) the main path, every kernel under one step
+        main = runs["mead_disentangle_emo_cls"] = run_cli(
+            "--steps", "2", "--mead-root", mead, "--flame-npz", npz, "--disentangle", "--emo-cls")
+        want = {"keybias_attention": 48 * 2, "fused_bias_attention": 8 * 2,
+                "rasterize_tiles_visibility": 2}
+        check(main["launches"] == want, f"the main path launched {main['launches']}, not {want}")
+        check(set(main["final"]) == {"verts", "verts_eye_area", "verts_mouth_area", "emo_cls"},
+              f"the main path's terms {main['final']}")
+
+        # (c) the pretrain round trip
+        head_ck = os.path.join(tmp, "head")
+        runs["pretrain"] = run_cli("--steps", "2", "--mead-root", mead, "--flame-npz", npz,
+                                   "--emo-cls-pretrain", "--ckpt-dir", head_ck)
+        check(runs["pretrain"]["launches"] == {"keybias_attention": 0, "fused_bias_attention": 0,
+                                               "rasterize_tiles_visibility": 2},
+              f"the pretrain stage launched {runs['pretrain']['launches']}")
+        head_state = restore_checkpoint(head_ck)["emo_cls_head"]
+        init = EmoClsHead.random_init(seed=6, device=cpu).state_dict()
+        check(all(not torch.equal(head_state[k], init[k]) for k in ("0.weight", "2.running_var")),
+              "the pretrain stage left the head's weights or statistics as they were")
+        runs["head_checkpoint"] = run_cli("--steps", "1", "--mead-root", mead, "--flame-npz", npz,
+                                          "--emo-cls", "--head-checkpoint", head_ck)
+
+        # (d) one step card vs CPU at B=2, 40 frames
+        Bd, Td = 2, 40
+        srcs = {d: batch_source(_vert_args(mead, npz, Bd, Td), np.random.default_rng(0), d)
+                for d in (cuda, cpu)}
+        audio, payload, one_hot, emo_idx = srcs[cpu].batch()
+        emo = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (Bd, Td, 30)).astype(np.float32))
+        batch = (audio, payload, one_hot, emo, emo_idx)
+        perms = (torch.tensor([1, 0]), torch.tensor([1, 0]))
+        selector = template_selector(srcs[cpu].template)
+        cfg = model_config(_vert_args(mead, npz, Bd, Td), srcs[cpu])
+        kernel_route = functools.partial(rasterizer.rasterize_auto, backend="kernel")
+        pair, grads, terms, seen, emo_fns = {}, {}, {}, {}, {}
+        for dev in (cuda, cpu):
+            d = dev.type
+            emo_fns[d] = build_emo_cls(_vert_args(mead, npz, Bd, Td), srcs[dev], dev, Td)
+            recording, seen[d] = _recording(emo_fns[d])
+            model = _vert_model(cfg, srcs[cpu].template.to(dev), seed=2, device=dev)
+            trainer = FaceFormerVertTrainer(model, adam(model.parameters(), lr),
+                                            srcs[dev].to_verts, selector, recording)
+            route = (mock.patch.object(rasterizer, "rasterize_auto", kernel_route) if d == "cpu"
+                     else contextlib.nullcontext())
+            t0 = time.perf_counter()
+            with route:
+                m = trainer.train_step(*(x.to(dev) for x in batch), perms=perms)
+            terms[d] = {k: float(v) for k, v in m.items()}
+            terms[d + "_step_s"] = time.perf_counter() - t0
+            pair[d] = (sum(terms[d].values()), dict(model.named_parameters()))
+            grads[d] = {k: t.grad.cpu() for k, t in pair[d][1].items() if t.grad is not None}
+        geo_rel = {k: abs(terms["cuda"][k] - terms["cpu"][k]) / max(abs(terms["cpu"][k]), 1e-12)
+                   for k in ("verts", "verts_eye_area", "verts_mouth_area")}
+        vert_err = _max_rel(seen["cuda"]["vertices"], seen["cpu"]["vertices"])
+        with mock.patch.object(rasterizer, "rasterize_auto", kernel_route):
+            # the emotion term at the card's vertices on both sides, and the
+            # CPU's at its own, which the card's rounding of them moves
+            at_card = {d: _emo_chain(emo_fns[d], seen["cuda"]["vertices"], emo_idx,
+                                     backward=False)[0] for d in ("cuda", "cpu")}
+            # identical vertices (the CPU's): the term, its gradients in the
+            # vertices and in the rendered images, and the CPU's own with the
+            # images perturbed by +-1e-7, which shows how far FAN's max-pools
+            # let a rounding-sized change move the vertex gradient
+            chain = {d: _emo_chain(emo_fns[d], seen["cpu"]["vertices"], emo_idx)
+                     for d in ("cuda", "cpu")}
+            noise = (torch.rand((Bd * 2, 3, 224, 224), generator=torch.Generator().manual_seed(5))
+                     - 0.5) * 2e-7
+            noisy = _emo_chain(emo_fns["cpu"], seen["cpu"]["vertices"], emo_idx,
+                               image_noise=noise)
+            winners = {d: _winners(emo_fns[d].ndc(seen["cpu"]["vertices"].to(d)),
+                                   emo_fns[d].faces, 224) for d in ("cuda", "cpu")}
+        # the card's render backward from the CPU's image gradient (on the CPU
+        # that is the chain's own vertex gradient)
+        v = seen["cpu"]["vertices"].cuda().requires_grad_()
+        (emo_fns["cuda"].images(v) * chain["cpu"][2].cuda()).sum().backward()
+        changed = int((_winners(emo_fns["cuda"].ndc(seen["cuda"]["vertices"].cuda()),
+                                emo_fns["cuda"].faces, 224) != winners["cuda"]).sum())
+        vg = {d: c[1] for d, c in chain.items()}
+        same = {"winners_differing": int((winners["cuda"] != winners["cpu"]).sum()),
+                "term_rel_diff": abs(chain["cuda"][0] - chain["cpu"][0]) / abs(chain["cpu"][0]),
+                "image_grad_rel": _max_rel(chain["cuda"][2], chain["cpu"][2]),
+                "render_backward_vertex_grad_rel": _max_rel(v.grad.cpu(), vg["cpu"]),
+                "vertex_grad_rel": _max_rel(vg["cuda"], vg["cpu"]),
+                "vertex_grad_l2_rel": float((vg["cuda"] - vg["cpu"]).norm() / vg["cpu"].norm()),
+                "cpu_vertex_grad_rel_under_image_noise": _max_rel(noisy[1], vg["cpu"]),
+                "cpu_vertex_grad_l2_rel_under_image_noise": float(
+                    (noisy[1] - vg["cpu"]).norm() / vg["cpu"].norm()),
+                "vertex_grad_limit": FAN_VERTEX_GRAD_REL}
+        at_card_rel = abs(at_card["cuda"] - at_card["cpu"]) / abs(at_card["cpu"])
+        # the card's update: Adam on the CPU with the card's gradients
+        init = {k: t.detach().cpu().clone() for k, t in _vert_model(
+            cfg, srcs[cpu].template, seed=2, device=cpu).named_parameters()}
+        replay = _replay(init, grads["cuda"], functools.partial(adam, lr=lr))
+        update = {"max_abs_diff": max(float((pair["cuda"][1][k].detach().cpu() - w).abs().max())
+                                      for k, w in replay.items()),
+                  "max_abs_diff_over_limit": max(
+                      float(((pair["cuda"][1][k].detach().cpu() - w).abs()
+                             / (lr / 100 + 1e-6 * w.abs())).max()) for k, w in replay.items())}
+        # the rest of the step under the card's emotion-term gradient at the
+        # vertices: the CPU model with a stand-in term, by one_step_card_vs_cpu as it stands
+        card = seen["cuda"]
+
+        def stand_in(v, labels):
+            lin = (v * card["cotangent"] * 10.0).sum()  # the trainer weighs the term by 0.1
+            return lin - lin.detach() + card["value"]
+        model = _vert_model(cfg, srcs[cpu].template, seed=2, device=cpu)
+        m = FaceFormerVertTrainer(model, adam(model.parameters(), lr), srcs[cpu].to_verts,
+                                  selector, stand_in).train_step(*batch, perms=perms)
+        rest = one_step_card_vs_cpu(
+            {"cuda": pair["cuda"], "cpu": (float(sum(m.values())), dict(model.named_parameters()))},
+            lr=lr, loss_tol=1e-4 * abs(pair["cpu"][0]))
+        step = step_diffs(pair, rel_floor=1e-3)
+        emit({"phase": "train_faceformer_vert_card_vs_cpu", "batch": Bd, "frames": Td,
+              "stride": emo_fns["cpu"].stride, "rendered_frames": Bd * -(-Td // 20),
+              "terms": terms, "geometric_rel_diff": geo_rel,
+              "predicted_vertices_rel_diff": vert_err, "pixels_changed_winner": changed,
+              "emo_cls_at_the_same_vertices_rel_diff": at_card_rel,
+              "cpu_emo_cls_moved_by_the_cards_vertex_rounding":
+                  abs(at_card["cpu"] - chain["cpu"][0]) / abs(chain["cpu"][0]),
+              "update_vs_adam_on_the_cards_gradients": update,
+              "step_under_the_cards_emo_cls_gradient": rest, "independent_step": step,
+              "identical_vertices": same})
+        check(all(v < 1e-4 for v in geo_rel.values()), f"geometric terms card vs CPU: {geo_rel}")
+        check(vert_err < 1e-4, f"predicted vertices card vs CPU: {vert_err} of the largest")
+        check(at_card_rel < 1e-4, f"the emotion term at the same vertices: {at_card_rel}")
+        check(same["winners_differing"] == 0 and same["term_rel_diff"] < 1e-4,
+              f"identical vertices: {same['winners_differing']} winners differ, the term by "
+              f"{same['term_rel_diff']}")
+        check(same["render_backward_vertex_grad_rel"] < 1e-4,
+              f"identical vertices and image gradient: the render's backward differs by "
+              f"{same['render_backward_vertex_grad_rel']} of its largest")
+        check(same["vertex_grad_rel"] < FAN_VERTEX_GRAD_REL,
+              f"identical vertices: the vertex gradient through render and FAN differs by "
+              f"{same['vertex_grad_rel']} of its largest, past {FAN_VERTEX_GRAD_REL} (the CPU "
+              f"alone moves it by {same['cpu_vertex_grad_rel_under_image_noise']} under +-1e-7 "
+              "on the rendered images)")
+        check(float(vg["cpu"].abs().max()) > 0, "the emotion term has no vertex gradient")
+        check(update["max_abs_diff_over_limit"] <= 1.0,
+              f"the card's weights lie {update['max_abs_diff']} from Adam on its own gradients")
+        del pair, grads, emo_fns, chain, noisy, replay, model, srcs, v, trainer, recording
+
+        # the landmark terms of train-faceformer, one step card vs CPU
+        fcfg = FaceFormerConfig()
+        fbatch = next(ff_batches(fcfg, 2, 25, seed=1, device="cpu"))
+        lpair = {}
+        for d in ("cuda", "cpu"):
+            fm = _faceformer_model(fcfg, seed=2, device=d)
+            tr = FaceFormerTrainer(fm, adamw(fm.parameters(), lr),
+                                   flame=FlameModel(assets.to(d), n_shape=100, n_exp=50),
+                                   coeff_mean=torch.zeros(53, device=d),
+                                   coeff_std=torch.ones(53, device=d))
+            lm = tr.train_step({k: v.to(d) for k, v in fbatch.items()})
+            check(float(lm["ldmk"]) > 0, f"the landmark term on the {d} is {float(lm['ldmk'])}")
+            lpair[d] = (float(lm["loss"]), dict(fm.named_parameters()))
+        landmark_step = one_step_card_vs_cpu(lpair, lr=lr, loss_tol=1e-4 * abs(lpair["cpu"][0]))
+        del lpair, fm, tr
+
+        # (e) the timed step at B=4, 100 frames
+        args = _vert_args(mead, npz, B, T)
+        src = batch_source(args, np.random.default_rng(0), cuda)
+        emo_cls = build_emo_cls(args, src, cuda, T)
+        cfg = model_config(args, src)
+        model = FaceFormerVert.random_init(cfg, template=src.template, seed=0, device=cuda)
+        trainer = FaceFormerVertTrainer(model, adam(model.parameters(), lr), src.to_verts,
+                                        region_selector(args, src), emo_cls)
+        gen = torch.Generator().manual_seed(0)
+        rng = np.random.default_rng(1)
+        shapes = {}
+        hook = model.audio_encoder.encoder.layers[0].register_forward_pre_hook(
+            lambda mod, a: shapes.__setitem__("encoder_input", list(a[0].shape)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_s, per_step, losses = [], [], []
+        for _ in range(6):
+            b = src.batch()
+            e = torch.from_numpy(rng.standard_normal((B, T, 30)).astype(np.float32)).cuda()
+            torch.cuda.synchronize()
+            zero()
+            t0 = time.perf_counter()
+            m = trainer.train_step(*b[:3], e, b[3], generator=gen)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append(counts())
+            losses.append(float(sum(m.values())))
+        hook.remove()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {"keybias_attention": 48, "fused_bias_attention": 8, "rasterize_tiles_visibility": 1}
+        check(all(c == want for c in per_step), f"the steps launched {per_step}, not {want} each")
+        check(all(math.isfinite(x) for x in losses), f"step losses {losses}")
+        hidden = cfg.wav2vec2.hidden_size
+        check(shapes["encoder_input"] == [B, T, hidden],
+              f"the encoder saw {shapes['encoder_input']}, not [{B}, {T}, {hidden}]")
+        heads = cfg.wav2vec2.num_attention_heads
+        k1_shape = [B, heads, T, T, hidden // heads]
+        prof = None
+        if profile:
+            prof = profile_call(lambda: trainer.train_step(*b[:3], e, b[3], generator=gen))
+            emit({"phase": "profile", "call": "train_faceformer_vert_step", "batch": B,
+                  "frames": T, **prof})
+        with torch.no_grad():
+            pred = model(b[0], src.to_verts(b[1]), e, b[2])
+        del trainer, model
+
+        # K3 at the decoder's shape, forward and backward
+        g = torch.Generator(device="cuda").manual_seed(11)
+        d = cfg.d_model // cfg.nhead
+        k3_rows = [bias_attention_row(f"vert_train_{kind}_d{d}", B, cfg.nhead, T, d, kind,
+                                      cfg.period, peaks, g) for kind in ("HTT", "TS")]
+        gc = torch.Generator().manual_seed(12)
+        k3_grads = [attention_grad_row("fused_bias_attention", B, cfg.nhead, T, d, bias, peaks, gc)
+                    for bias in (faceformer_bias(cfg.nhead, T, cfg.period),
+                                 enc_dec_alignment_bias(T, T))]
+
+        # K2 at the emotion loss's launch: B x T / stride frames x 16 tiles
+        ndc = emo_cls.ndc(pred)
+        _, tri, valid, px, py, *_ = _visibility_inputs(ndc, emo_cls.faces, 224, 224, 56, 1024)
+        z, s = kras.rasterize_tiles_visibility(tri, valid, px, py)
+        torch.cuda.synchronize()
+        rz, rs = kras.rasterize_tiles_visibility_reference(tri, valid, px, py, chunk=64)
+        err = float((z - rz).abs().max())
+        check(torch.equal(s, rs) and torch.equal(z, rz),
+              f"K2 at the emotion loss's launch: not bit-equal to the plain version "
+              f"({int((s != rs).sum())} slots differ, max |dz| {err})")
+        del z, s, rz, rs
+
+        def kernel():
+            return kras.rasterize_tiles_visibility(tri, valid, px, py)
+
+        k2_row = {"case": "emo_cls_224_tile56", "shape": list(tri.shape[:2]) + [px.shape[1]],
+                  "frames": int(ndc.shape[0]), "faces": int(emo_cls.faces.shape[0]),
+                  "valid_slots": int(valid.sum()), "live_slots_per_tile": live_slot_stats(valid),
+                  "max_abs_err": err, "ms": time_ms(kernel, iters=10, reps=5),
+                  "device_ms": device_ms(kernel, "rasterize_visibility", iters=10),
+                  "plain_ms": time_ms(lambda: kras.rasterize_tiles_visibility_reference(
+                      tri, valid, px, py, chunk=64), iters=1, reps=3)}
+        k2_row.update(visibility_bound(tri, valid, px, py, peaks))
+        emit({"phase": "kernel_check", "kernel": "rasterize_tiles_visibility", **k2_row})
+    emit({"phase": "train_faceformer_vert",
+          "config": "FaceFormerVertConfig(): wav2vec2-base, vertice_dim 15069, feature_dim 64, "
+                    "4 heads of 16, period 30; synthetic FLAME 5023 / 9976 with 68 landmarks; "
+                    "FAN and head at seeded random init; renders at 224^2",
+          "batch": B, "frames": T, "lr": lr, "setup_s": setup_s, "cli_runs": runs,
+          "k1_shape": k1_shape, "launches_per_step": per_step[0], "losses": losses,
+          "step_s_all": step_s, "step_s_median_after_first": statistics.median(step_s[1:]),
+          "peak_allocated_gib": peak_gib,
+          "device_busy_ms": None if prof is None else prof["device_busy_ms"],
+          "device_idle_share": None if prof is None else prof["device_idle_share"],
+          "k3_device_ms": [r["device_ms"] for r in k3_rows],
+          "k3_backward_device_ms": [r["backward_device_ms"] for r in k3_grads],
+          "k2_device_ms_emo_cls_launch": k2_row["device_ms"],
+          "train_faceformer_landmark_step_card_vs_cpu": landmark_step})
+    return {"launches": main["launches"], "k1_shape": k1_shape, "k3_rows": k3_rows,
+            "k3_grads": k3_grads, "k2_row": k2_row}
 
 
 def _prior_draws(state, B, seed):
@@ -1875,6 +2365,15 @@ def check_emote_row(rows, emote) -> dict:
     return row
 
 
+def check_vert_row(rows, vert) -> dict:
+    """K1's row at train-faceformer-vert's step, checked against the shape
+    the step's encoder saw."""
+    row = next(r for r in rows if r["case"] == "vert_train")
+    check(row["shape"] == vert["k1_shape"],
+          f"K1 measured at {row['shape']}, the vertex step runs {vert['k1_shape']}")
+    return row
+
+
 def finish(name: str, **extra) -> int:
     """The card's name and power limit, then the result line."""
     import torch
@@ -1895,7 +2394,8 @@ def main() -> int:
                     help="also profile one generate, one render and each training step")
     ap.add_argument("--phases", choices=("all", "train"), default="all",
                     help="train: only the build, K1's rows, the K1 / K3 gradient rows and the "
-                         "EMOTE (geometric and neural) and prior training phases")
+                         "EMOTE (geometric and neural), vertex FaceFormer and prior training "
+                         "phases")
     args = ap.parse_args()
     try:
         import torch
@@ -1926,6 +2426,8 @@ def main() -> int:
         emote = phase_train_emote(kb)
         check_emote_row(rows, emote)
         phase_train_emote_neural(kb, kras, peaks, profile=args.profile)
+        vert = phase_train_faceformer_vert(kb, kba, kras, peaks, profile=args.profile)
+        check_vert_row(rows, vert)
         phase_train_prior()
         if args.profile:
             profile_emote_and_prior_steps()
@@ -1951,6 +2453,7 @@ def main() -> int:
     phase_train_faceformer(kb, kba)
     emote = phase_train_emote(kb)
     neural = phase_train_emote_neural(kb, kras, peaks, profile=args.profile)
+    vert = phase_train_faceformer_vert(kb, kba, kras, peaks, profile=args.profile)
     phase_train_prior()
     if args.profile:
         phase_profile(pipe, gen_out["vertices"], faces)
@@ -1962,6 +2465,9 @@ def main() -> int:
     k3_main = k3_rows[1]  # the forward's self-attention: B=1 H=4 T=S=600 d=32, (H, T, T) bias
     emote_row = check_emote_row(rows, emote)
     neural_row = neural["row"]  # K2 at the predicted video's launch: 2B x T = 128 frames x 16 tiles
+    vert_k1 = check_vert_row(rows, vert)  # K1 at train-faceformer-vert's step: B=4 T=S=100
+    vert_k3 = vert["k3_rows"][0]  # K3's self-attention at the vertex decoder: B=4 H=4 T=S=100 d=16
+    vert_k2 = vert["k2_row"]  # K2 at the emotion loss's launch: 20 frames x 16 tiles
     emit({"kernels": [{
         "name": "keybias_attention",
         "route": "cuda",
@@ -2045,6 +2551,60 @@ def main() -> int:
         "bound_ms_no_fma": neural_row["bound_ms_no_fma"],
         "library_ms": None,  # no PyTorch call computes z-buffer visibility
         "shape": neural_row["shape"],
+        "peaks": peaks_line,
+    }, {
+        "name": "keybias_attention",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/bias_attention.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:114",
+        "path": "train-faceformer-vert --mead-root --disentangle --emo-cls",
+        "launches": vert["launches"]["keybias_attention"],  # the command's run
+        "max_abs_err": vert_k1["max_abs_err"],
+        "ms": vert_k1["ms"],
+        "device_ms": vert_k1["device_ms"],
+        "library_device_ms": vert_k1["library_device_ms"],
+        "plain_ms": vert_k1["plain_ms"],
+        "bound_ms": vert_k1["bound_ms"],
+        "bound_by": vert_k1["bound_by"],
+        "library_ms": vert_k1["library_ms"],
+        "shape": vert_k1["shape"],
+        "peaks": peaks_line,
+    }, {
+        "name": "fused_bias_attention",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/bias_attention.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:185",
+        "path": "train-faceformer-vert --mead-root --disentangle --emo-cls",
+        "launches": vert["launches"]["fused_bias_attention"],  # the command's run
+        "max_abs_err": max(r["max_abs_err"] for r in vert["k3_rows"]),
+        "ms": vert_k3["ms"],
+        "device_ms": vert_k3["device_ms"],
+        "library_device_ms": vert_k3["library_device_ms"],
+        "plain_ms": vert_k3["plain_ms"],
+        "bound_ms": vert_k3["bound_ms"],
+        "bound_by": vert_k3["bound_by"],
+        "library_ms": vert_k3["library_ms"],
+        "shape": vert_k3["shape"],
+        "bias_shape": vert_k3["bias_shape"],
+        "backward": {k: v for k, v in vert["k3_grads"][0].items() if k != "kernel"},
+        "peaks": peaks_line,
+    }, {
+        "name": "rasterize_tiles_visibility",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/rasterize_visibility.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/rasterize.py:111",
+        "path": "train-faceformer-vert --mead-root --disentangle --emo-cls (the emotion loss's "
+                "render, under a gradient)",
+        "launches": vert["launches"]["rasterize_tiles_visibility"],  # the command's run
+        "max_abs_err": vert_k2["max_abs_err"],
+        "ms": vert_k2["ms"],
+        "device_ms": vert_k2["device_ms"],
+        "plain_ms": vert_k2["plain_ms"],
+        "bound_ms": vert_k2["bound_ms"],
+        "bound_by": vert_k2["bound_by"],
+        "bound_ms_no_fma": vert_k2["bound_ms_no_fma"],
+        "library_ms": None,  # no PyTorch call computes z-buffer visibility
+        "shape": vert_k2["shape"],
         "peaks": peaks_line,
     }], "keybias_attention_backward": {k: v for k, v in grad_rows[0].items() if k != "kernel"},
         "total_s": time.perf_counter() - t_start})

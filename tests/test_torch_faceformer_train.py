@@ -4,6 +4,8 @@ K3's autograd backward) from carried weights on the same batches as the JAX
 trainer with ``optax.adamw(1e-4)``; and the ``train-faceformer`` command on
 the CPU."""
 
+import dataclasses
+
 import jax
 import numpy as np
 import optax
@@ -14,6 +16,9 @@ from avi_talking_tpu.models import faceformer as jff
 from avi_talking_tpu.train.faceformer_trainer import FaceFormerTrainer as JTrainer
 from avi_talking_tpu_torch.cli import main as cli_main
 from avi_talking_tpu_torch.cli.train import synthetic_batches
+from avi_talking_tpu_torch.core.assets import synthetic_assets as t_synthetic_assets
+from avi_talking_tpu_torch.core.flame import FlameModel as TFlame
+from avi_talking_tpu_torch.infra.checkpoint import restore_checkpoint
 from avi_talking_tpu_torch.infra.jax_params import faceformer_state_from_jax
 from avi_talking_tpu_torch.models import faceformer as tff
 from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer
@@ -63,10 +68,20 @@ def test_three_adamw_steps_match_optax():
 def test_trainer_refuses_terms_not_ported():
     tm = tff.FaceFormerCoeff.random_init(tff.FaceFormerConfig.tiny(), device="cpu")
     opt = adamw(tm.parameters(), 1e-4)
-    for kw in ({"flame": object()}, {"render_loss_fn": lambda p, b: 0.0},
-               {"emo_loss_fn": lambda p, b: 0.0}):
+    for kw in ({"render_loss_fn": lambda p, b: 0.0}, {"emo_loss_fn": lambda p, b: 0.0}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FaceFormerTrainer(model=tm, optimizer=opt, **kw)
+
+
+def test_trainer_takes_the_landmark_terms():
+    """``flame=`` (once refused) adds the landmark terms; their parity with
+    JAX is held in ``test_torch_flame_landmarks.py``."""
+    tm = tff.FaceFormerCoeff.random_init(tff.FaceFormerConfig.tiny(), device="cpu")
+    flame = TFlame(t_synthetic_assets(n_shape=8, n_exp=6, n_static_landmarks=51), 8, 6)
+    trainer = FaceFormerTrainer(model=tm, optimizer=adamw(tm.parameters(), 1e-4), flame=flame)
+    metrics = trainer.train_step(next(synthetic_batches(tff.FaceFormerConfig.tiny(), 2, 8, seed=0,
+                                                        device="cpu")))
+    assert set(metrics) == {"coeff", "ldmk", "loss"} and float(metrics["ldmk"]) > 0
 
 
 def test_adamw_is_optax_default():
@@ -86,8 +101,35 @@ def test_cli_train_faceformer_runs_on_cpu(capsys):
 
 @pytest.mark.parametrize("flag", [["--root", "/data"], ["--render-loss"], ["--emo-loss"],
                                   ["--fan-checkpoint", "f.pt"], ["--emonet-checkpoint", "e.pt"],
-                                  ["--ckpt-dir", "ck"], ["--flame-npz", "flame.npz"],
                                   ["--bf16"], ["--checkpoint", "ck"]])
 def test_cli_train_faceformer_refuses_what_is_not_ported(flag):
     with pytest.raises(SystemExit, match="not ported"):
         cli_main(["train-faceformer", "--tiny", "--device", "cpu", "--steps", "1", *flag])
+
+
+def test_cli_train_faceformer_ckpt_dir_saves_the_weights(tmp_path, capsys):
+    """``--ckpt-dir`` (once refused) writes ``{"params": state_dict}``."""
+    ck = str(tmp_path / "ck")
+    assert cli_main(["train-faceformer", "--tiny", "--device", "cpu", "--steps", "1",
+                     "--batch-size", "2", "--seq-length", "8", "--ckpt-dir", ck]) == 0
+    state = restore_checkpoint(ck)["params"]
+    tm = tff.FaceFormerCoeff.random_init(tff.FaceFormerConfig.tiny(), device="cpu")
+    tm.load_state_dict(state)
+    fresh = tff.FaceFormerCoeff.random_init(tff.FaceFormerConfig.tiny(), device="cpu")
+    assert any(not torch.equal(v, fresh.state_dict()[k]) for k, v in state.items())
+
+
+def test_cli_train_faceformer_flame_npz_adds_the_landmark_terms(tmp_path, capsys):
+    """``--flame-npz`` (once refused) gives the landmark terms at full size,
+    and, as in the JAX command, none with ``--tiny``."""
+    assets = t_synthetic_assets(num_vertices=200, n_shape=100, n_exp=50, num_faces=150,
+                                n_static_landmarks=51)
+    npz = str(tmp_path / "flame.npz")
+    np.savez(npz, **{f.name: getattr(assets, f.name).numpy()
+                     for f in dataclasses.fields(assets)})
+    run = ["train-faceformer", "--device", "cpu", "--steps", "1", "--batch-size", "1",
+           "--seq-length", "4", "--flame-npz", npz]
+    assert cli_main(run) == 0
+    assert "'ldmk'" in capsys.readouterr().out
+    assert cli_main(run + ["--tiny"]) == 0
+    assert "'ldmk'" not in capsys.readouterr().out

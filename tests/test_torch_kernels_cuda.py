@@ -454,3 +454,169 @@ def test_pixel_centres_match_cpu(size):
         pytest.skip("needs a CUDA card")
     for got, ref in zip(_pixel_grid(size, size, device="cuda"), _pixel_grid(size, size)):
         assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_kind", ["HTT", "TS"])
+def test_bias_kernel_at_the_vertex_decoder_shape(bias_kind):
+    """K3 at train-faceformer-vert's decoder (B=4, 4 heads of 16, T=S=100,
+    the period-30 self-attention bias or the alignment bias): forward <
+    1e-5 and dq, dk, dv < 1e-4 against the plain version, one launch."""
+    from avi_talking_tpu_torch.ops.positional import enc_dec_alignment_bias, faceformer_bias
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    B, H, T, d = 4, 4, 100, 16
+    g = torch.Generator("cuda").manual_seed(6)
+    q = torch.randn(B, H, T, d, device="cuda", generator=g) * d ** -0.5
+    k, v = (torch.randn(B, H, T, d, device="cuda", generator=g) for _ in range(2))
+    bias = (faceformer_bias(H, T, 30, device="cuda") if bias_kind == "HTT"
+            else enc_dec_alignment_bias(T, T, device="cuda"))
+    cot = torch.randn(B, H, T, d, device="cuda", generator=g)
+    before = kba.launches
+    ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = kba.fused_bias_attention(*ts, bias)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert kba.launches == before + 1
+    rs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref = kba.fused_bias_attention_reference(*rs, bias)
+    (ref * cot).sum().backward()
+    torch.testing.assert_close(out.detach(), ref.detach(), atol=1e-5, rtol=0)
+    for t, r in zip(ts, rs):
+        torch.testing.assert_close(t.grad, r.grad, atol=1e-4, rtol=0)
+
+
+def _full_flame():
+    from avi_talking_tpu_torch.core.assets import synthetic_assets
+
+    return synthetic_assets(num_vertices=5023, n_shape=100, n_exp=50, num_faces=9976,
+                            n_static_landmarks=51)
+
+
+@pytest.fixture
+def no_tf32():
+    """fp32 convolutions and matmuls on the card, as the CPU computes them."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_emo_cls_launch_bit_equal_and_its_gradient_route_matches_cpu():
+    """The emotion loss's render at train-faceformer-vert's defaults (4
+    clips x 100 frames every 20th: 20 frames at 224^2, 16 tiles of 56^2) of
+    a synthetic full-size FLAME: K2 bit-equal to its plain version on the
+    card; and on 4 of those frames the normal-map render with its gradient
+    in the vertices, card against the CPU through the same route: masks
+    equal, images and the vertex gradient of sum(img * w) within 1e-5 of
+    their largest."""
+    from avi_talking_tpu_torch.core.flame import FlameModel
+    from avi_talking_tpu_torch.models.fan_encoder import FanEncoder
+    from avi_talking_tpu_torch.train.emo_cls import EmoClsHead, EmoClsLoss
+    from avi_talking_tpu_torch.viz.rasterizer import (
+        compute_vertex_normals, rasterize_binned_kernel, _visibility_inputs)
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    assets = _full_flame()
+    exp = torch.from_numpy(np.random.default_rng(3).standard_normal((400, 50)).astype(np.float32))
+    verts = FlameModel(assets).vertices_only(torch.zeros(400, 100), exp * 0.5)
+    verts = verts.reshape(4, 100, -1)
+    emo = EmoClsLoss(faces=assets.faces.cuda(), fan=FanEncoder(224), head=EmoClsHead())
+    ndc = emo.ndc(verts.cuda())
+    assert ndc.shape[0] == 20
+    _, tri, valid, px, py, *_ = _visibility_inputs(ndc, emo.faces, 224, 224, 56, 1024)
+    assert tri.shape[:2] == (320, 1024)
+    before = kras.launches
+    z, s = kras.rasterize_tiles_visibility(tri, valid, px, py)
+    torch.cuda.synchronize()
+    assert kras.launches == before + 1
+    rz, rs = kras.rasterize_tiles_visibility_reference(tri, valid, px, py, chunk=64)
+    assert torch.equal(s, rs) and torch.equal(z, rz) and bool((s >= 0).any())
+
+    w = torch.from_numpy(np.random.default_rng(4).random((4, 224, 224, 3)).astype(np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        v = ndc[:4].detach().to(dev).requires_grad_()
+        f = assets.faces.to(dev)
+        img, mask = rasterize_binned_kernel(v, f, compute_vertex_normals(v, f), 224, 224,
+                                            tile=56, cap=1024)
+        (img * w.to(dev)).sum().backward()
+        out[dev] = (img.detach().cpu(), mask.cpu(), v.grad.cpu())
+    (ig, mg, vg), (ic, mc, vc) = out["cuda"], out["cpu"]
+    assert torch.equal(mg, mc) and bool(mc.any())
+    for got, ref in ((ig, ic), (vg, vc)):
+        scale = float(ref.abs().max())
+        assert scale > 0 and float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_fan_encoder_card_matches_cpu(no_tf32):
+    """FanEncoder at 224^2 (seeded weights, BatchNorm statistics off 0 / 1)
+    on the card against the CPU: the four outputs within 1e-4 of their
+    largest. The backbone feature's gradient in the image passes 2x2
+    max-pools, which route a near-tie's gradient by the last bits of their
+    inputs: it is held within 1e-3 of its largest entry and, as a whole,
+    1e-4 of its norm; +-1e-7 on the image moves it by 5.5e-3 and 6.6e-4 on
+    the CPU alone (``scripts/torch_fan_gradient_noise.py``, PERF.md §6)."""
+    from avi_talking_tpu_torch.models.fan_encoder import FanEncoder
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x = torch.from_numpy(np.random.default_rng(5).random((2, 3, 224, 224)).astype(np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = FanEncoder.random_init(224, seed=1, device=dev)
+        with torch.no_grad():
+            for name, t in m.named_buffers():
+                if name.endswith("running_var"):
+                    t.fill_(1.5)
+        xi = x.to(dev).requires_grad_()
+        heads = m(xi)
+        m.backbone_feature(xi).pow(2).sum().backward()
+        out[dev] = [h.detach().cpu() for h in heads] + [xi.grad.cpu()]
+    for got, ref in zip(out["cuda"][:4], out["cpu"][:4]):
+        scale = float(ref.abs().max())
+        assert scale > 0 and float((got - ref).abs().max()) <= 1e-4 * scale
+    got, ref = out["cuda"][4], out["cpu"][4]
+    assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+    assert float((got - ref).norm()) <= 1e-4 * float(ref.norm())
+
+
+@pytest.mark.cuda
+def test_flame_landmarks_card_match_cpu():
+    """A synthetic full-size FLAME with the 68-point tables, global y
+    rotations from -60 to 60 degrees (past the contour table's +-39) plus
+    random jaws and expressions: the contour rows chosen on the card equal
+    the CPU's, and the vertices, 2D / 3D / mediapipe landmarks and the 2D
+    landmarks' gradient in the expression (a scatter-add on the card)
+    within 1e-5 of their largest."""
+    import dataclasses
+
+    from avi_talking_tpu_torch.core.flame import FlameModel
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    assets = _full_flame()
+    rng = np.random.default_rng(6)
+    N = 25
+    pose = np.zeros((N, 6), np.float32)
+    pose[:, 1] = np.deg2rad(np.linspace(-60, 60, N) + 0.25)  # off the half-degree edges
+    pose[:, 3:] = rng.standard_normal((N, 3)) * 0.1
+    exp = rng.standard_normal((N, 50)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        flame = dataclasses.replace(FlameModel(assets.to(dev)), with_mediapipe=True)
+        e = torch.from_numpy(exp).to(dev).requires_grad_()
+        p = torch.from_numpy(pose).to(dev)
+        res = flame(torch.zeros(N, 100, device=dev), e, p)
+        res[1].pow(2).sum().backward()
+        idx, _ = flame._dynamic_landmarks(flame.full_pose(p))
+        out[dev] = [r.detach().cpu() for r in res] + [e.grad.cpu(), idx.cpu()]
+    assert torch.equal(out["cuda"][-1], out["cpu"][-1])
+    assert len(set(out["cpu"][-1][:, 0].tolist())) > 10  # the sweep walks the table
+    for got, ref in zip(out["cuda"][:-1], out["cpu"][:-1]):
+        scale = float(ref.abs().max())
+        assert scale > 0 and float((got - ref).abs().max()) <= 1e-5 * scale
