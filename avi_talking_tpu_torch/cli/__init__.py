@@ -8,8 +8,10 @@ Subcommands:
   serve      the same corpus through the micro-batching InferenceServer
              (batch coalescing, warmup, p50 / p99)
   train-faceformer
-             stage-1 FaceFormer training (AdamW) on synthetic batches, with
-             the FLAME landmark terms given --flame-npz at full size
+             stage-1 FaceFormer training (AdamW) on synthetic batches or a
+             MEAD tree (--root, conditioned by the frozen FAN's eye and
+             emotion embeddings of the detection crops), with the FLAME
+             landmark terms given --flame-npz at full size
   train-faceformer-vert
              vertex-space FaceFormer training (Adam) on synthetic, VOCASET
              (--root) or MEAD (--mead-root) batches, with the disentangle
@@ -17,12 +19,15 @@ Subcommands:
              FAN tower (--emo-cls, --emo-cls-pretrain)
   train-emote
              staged EMOTE training (geometric, then condition exchange at
-             lr / 2) on synthetic batches, with validation, best / last
-             checkpoints and early stopping
+             lr / 2) on synthetic batches or a MEAD tree (--root, split by
+             clip), with validation, best / last checkpoints and early
+             stopping
   train-prior
              diffusion-prior training (clipped AdamW, one-cycle schedule)
-             on the structured synthetic stream, with validation, best /
-             last checkpoints and --resume
+             on the structured synthetic stream or a caption corpus
+             (--json-dir / --root through the frozen CLIP text tower and
+             style encoder), with validation, best / last checkpoints and
+             --resume
 
 Everything runs on the CUDA card unless ``--device cpu`` is given; without
 a card and without ``--device`` the commands raise. Weights are seeded

@@ -1,20 +1,24 @@
-"""train-faceformer: stage-1 coefficient-space FaceFormer training on
-synthetic batches (the JAX command without ``--root``). At full size, FLAME
-assets (``--flame-npz``, else the default assets where found) add the
+"""train-faceformer: stage-1 coefficient-space FaceFormer training, on
+synthetic batches or, with ``--root``, on an EMOCA-preprocessed MEAD tree:
+the coefficient windows and audio of ``data.train_batches.
+FaceFormerBatchBuilder`` and, where the config merges conditions (the full
+``FaceFormerConfig()`` does), the eye / emotion embeddings and reference
+coefficients that ``FanConditioner`` computes from the window's detection
+crops with a frozen FAN (seed 1, or ``--fan-checkpoint``). At full size,
+FLAME assets (``--flame-npz``, else the default assets where found) add the
 landmark terms, as in the JAX command; ``--ckpt-dir`` saves the trained
 weights (``infra.checkpoint``)."""
 
 from __future__ import annotations
 
+import sys
 import time
 
+NO_CROPS = "conditioning needs detection crops under the data root (EMOCA detections/*.png)"
+
 REFUSED = {
-    "root": "--root (MEAD / EMOCA data) waits for FanConditioner and the PNG readers "
-            "(ROADMAP Queue 1, item 2)",
     "render_loss": "--render-loss needs PIRender (ROADMAP Queue 1, item 5)",
     "emo_loss": "--emo-loss needs EmoNet on PIRender's renders (ROADMAP Queue 1, item 5)",
-    "fan_checkpoint": "--fan-checkpoint feeds the FanConditioner of --root "
-                      "(ROADMAP Queue 1, item 2)",
     "emonet_checkpoint": "--emonet-checkpoint needs EmoNet (ROADMAP Queue 1, item 5)",
     "bf16": "--bf16: the port computes in float32",
     "checkpoint": "--checkpoint: the port trains from seeded random weights",
@@ -40,6 +44,77 @@ def synthetic_batches(cfg, batch_size: int, seq_length: int, seed: int, device):
             out["emo_embed"] = draw((B, T, cfg.emo_dim))
             out["ref_coeff"] = draw((B, 1, cfg.vertice_dim))
         yield {k: torch.from_numpy(a).to(device) for k, a in out.items()}
+
+
+def frozen_fan(args, image_size: int, device):
+    """The conditioning FAN at the crops' size: ``--fan-checkpoint`` (a
+    reference-named state dict, loaded strictly, tensors only) or seeded
+    random weights (seed 1: a random FAN's single-channel ``conv6`` is dead
+    for seeds 0, 2 and 5, and its embeddings would not vary)."""
+    import torch
+
+    from ..models.fan_encoder import FanEncoder
+
+    fan = FanEncoder.random_init(image_size, seed=1, device=device)
+    if args.fan_checkpoint:
+        sd = torch.load(args.fan_checkpoint, map_location="cpu", weights_only=True)
+        if isinstance(sd, dict) and "state_dict" in sd:
+            sd = sd["state_dict"]
+        fan.load_state_dict(sd, strict=True)
+    else:
+        print("train-faceformer: no --fan-checkpoint; the frozen FanEncoder is RANDOM-init "
+              "(smoke semantics)", file=sys.stderr)
+    return fan
+
+
+def mead_source(args, cfg, device):
+    """``--root``'s (endless numpy batches, conditioner): shuffled epochs of
+    ``FaceFormerBatchBuilder`` items in batches of min(batch size, clips),
+    and a ``FanConditioner`` seeded ``--seed`` where the config merges
+    conditions (else None)."""
+    from ..data.batching import batch_iterator
+    from ..data.mead import MeadEmocaDataset
+    from ..data.train_batches import FaceFormerBatchBuilder, FanConditioner
+    from ..viz.pngio import read_png
+
+    T = args.seq_length
+    ds = MeadEmocaDataset(root=args.root, seq_length=T)
+    builder = FaceFormerBatchBuilder(ds, frames=T, coeff_dim=cfg.vertice_dim,
+                                     load_images=cfg.with_condition_merge)
+    if len(builder) == 0:
+        raise SystemExit(f"no usable MEAD clips under {args.root}")
+    batches = batch_iterator(builder, batch_size=min(args.batch_size, len(builder)), epochs=None)
+    if not cfg.with_condition_merge:
+        return batches, None
+    crops = ds.image_paths(builder.valid[0])
+    if not crops:
+        raise SystemExit(NO_CROPS)
+    return batches, FanConditioner(frozen_fan(args, read_png(crops[0]).shape[0], device),
+                                   seed=args.seed)
+
+
+def conditioned(b, cfg, conditioner, device):
+    """A numpy batch -> the trainer's batch on ``device``: audio and
+    coefficients, with the conditioner's eye / emotion embeddings and
+    reference coefficients where there is one."""
+    import numpy as np
+    import torch
+
+    out = {"audio": torch.from_numpy(b["audio"]).to(device),
+           "coeff": torch.from_numpy(b["coeff"][..., :cfg.vertice_dim]).to(device)}
+    if conditioner is not None:
+        if "img" not in b or not hasattr(b["img"], "ndim"):
+            raise SystemExit(NO_CROPS)
+        out.update(conditioner.condition(b["img"], np.asarray(b["coeff"])))
+        out["ref_coeff"] = out["ref_coeff"][..., :cfg.vertice_dim]
+    return out
+
+
+def mead_batches(args, cfg, device):
+    """``--root``'s endless batches, drawn as the JAX command draws them."""
+    batches, conditioner = mead_source(args, cfg, device)
+    while True:
+        yield conditioned(next(batches), cfg, conditioner, device)
 
 
 def landmark_flame(args, device):
@@ -74,7 +149,8 @@ def cmd_train_faceformer(args) -> int:
     zeros = torch.zeros(cfg.vertice_dim, device=device)
     trainer = FaceFormerTrainer(model=model, optimizer=adamw(model.parameters(), args.lr),
                                 flame=flame, coeff_mean=zeros, coeff_std=zeros + 1.0)
-    batches = synthetic_batches(cfg, args.batch_size, args.seq_length, args.seed, device)
+    batches = (mead_batches(args, cfg, device) if args.root else
+               synthetic_batches(cfg, args.batch_size, args.seq_length, args.seed, device))
     next(batches)  # the JAX command draws its first batch to initialise the params
 
     metrics = {}
@@ -91,13 +167,15 @@ def cmd_train_faceformer(args) -> int:
 
 
 def register(sub, common):
-    tf = sub.add_parser("train-faceformer", help="stage-1 FaceFormer training (synthetic batches)")
+    tf = sub.add_parser("train-faceformer", help="stage-1 FaceFormer training")
     tf.add_argument("--steps", type=int, default=200)
     tf.add_argument("--batch-size", type=int, default=16)
     tf.add_argument("--seq-length", type=int, default=25)
     tf.add_argument("--lr", type=float, default=1e-4)
-    tf.add_argument("--root", default=None, help="(not ported yet)")
-    tf.add_argument("--fan-checkpoint", default=None, help="(not ported yet)")
+    tf.add_argument("--root", default=None, help="MEAD / EMOCA data root")
+    tf.add_argument("--fan-checkpoint", default=None,
+                    help="reference-named torch FanEncoder state dict for the frozen "
+                         "conditioning tower (seeded random without it)")
     tf.add_argument("--render-loss", action="store_true", help="(not ported yet)")
     tf.add_argument("--emo-loss", action="store_true", help="(not ported yet)")
     tf.add_argument("--emonet-checkpoint", default=None, help="(not ported yet)")

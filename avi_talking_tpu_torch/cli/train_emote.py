@@ -1,8 +1,10 @@
-"""train-emote: the staged EMOTE training loop on synthetic batches (the
-JAX command without ``--root``): a geometric stage at ``--lr``, then a
-condition-exchange stage at ``--lr / 2``, which with ``--neural`` adds the
-perceptual terms (lip reading, EmoNet, video emotion over renders of the
-head's FLAME vertices, with towers at seeded random init)."""
+"""train-emote: the staged EMOTE training loop: a geometric stage at
+``--lr``, then a condition-exchange stage at ``--lr / 2``, which with
+``--neural`` adds the perceptual terms (lip reading, EmoNet, video emotion
+over renders of the head's FLAME vertices, with towers at seeded random
+init). Batches are synthetic, or with ``--root`` the windows of an
+EMOCA-preprocessed MEAD tree (``data.train_batches.EmoteBatchBuilder``),
+split by clip into train and val (``--val-fraction``)."""
 
 from __future__ import annotations
 
@@ -10,9 +12,7 @@ import itertools
 import sys
 
 REFUSED = {
-    "root": "--root (MEAD / EMOCA data) waits for EmoteBatchBuilder "
-            "(ROADMAP Queue 1, item 2)",
-    "bf16": "--bf16 needs K1 / K3 on bf16 inputs (ROADMAP Queue 1, item 4)",
+    "bf16": "--bf16 needs K1 / K3 on bf16 inputs (ROADMAP Queue 1, item 4d)",
 }
 
 
@@ -35,6 +35,34 @@ def synthetic_batches(rng, batch_size: int, frames: int, n_exp: int, n_shape: in
             "gt_jaw": rng.standard_normal((B, T, 3)).astype(np.float32) * 0.05,
         }
         yield {k: torch.from_numpy(a).to(device) for k, a in out.items()}
+
+
+def mead_batches(root: str, batch_size: int, frames: int, n_exp: int, n_shape: int,
+                 val_fraction: float, device):
+    """``--root``'s streams, as the JAX command builds them: (endless
+    shuffled training batches, one unshuffled validation epoch), each
+    batch of min(batch_size, clips on its side) moved to ``device``."""
+    import torch
+
+    from ..data.mead import MeadEmocaDataset
+    from ..data.train_batches import EmoteBatchBuilder, emote_batches
+
+    builder = EmoteBatchBuilder(MeadEmocaDataset(root=root, seq_length=frames), frames=frames,
+                                n_exp=n_exp, n_shape=n_shape)
+    if len(builder) == 0:
+        raise SystemExit(f"no usable MEAD clips under {root}")
+    tr_b, va_b = builder.split(val_fraction)
+    print(f"data root: {len(tr_b)} train / {len(va_b)} val clips")
+    # the JAX command reads one batch to initialise the head; its window
+    # draws move the dataset's generator, so the port reads it too
+    next(emote_batches(tr_b, min(batch_size, len(tr_b)), epochs=1))
+
+    def put(stream):
+        return ({k: torch.from_numpy(v).to(device) for k, v in b.items()} for b in stream)
+
+    return (lambda: put(emote_batches(tr_b, min(batch_size, len(tr_b)), epochs=None)),
+            lambda: put(emote_batches(va_b, min(batch_size, len(va_b)), shuffle=False,
+                                      epochs=1)))
 
 
 def build_head(tiny: bool, seed: int, device, flame_assets=None):
@@ -121,17 +149,22 @@ def cmd_train_emote(args) -> int:
     cfg = head.cfg
     T = args.frames - args.frames % cfg.flint.latent_frame_size
     draw = (args.batch_size, T, cfg.flint.n_exp, cfg.n_shape, device)
-    rng = np.random.default_rng(0)
-    batches = lambda: synthetic_batches(rng, *draw)  # noqa: E731  (one stream, continued)
-    # a disjoint validation stream: early stopping and "best" must not read training data
-    val_cached = list(itertools.islice(synthetic_batches(np.random.default_rng(99_991), *draw), 2))
+    if args.root:
+        batches, val_batches = mead_batches(args.root, *draw[:4], args.val_fraction, device)
+    else:
+        rng = np.random.default_rng(0)
+        batches = lambda: synthetic_batches(rng, *draw)  # noqa: E731  (one stream, continued)
+        # a disjoint validation stream: early stopping and "best" must not read training data
+        val_cached = list(itertools.islice(
+            synthetic_batches(np.random.default_rng(99_991), *draw), 2))
+        val_batches = lambda: iter(val_cached)  # noqa: E731
     stages = [
         EmoteStage(name="geometric", steps=args.steps, lr=args.lr),
         EmoteStage(name="disentangled", steps=args.steps, lr=args.lr / 2,
                    disentangle="condition_exchange", use_neural=neural is not None),
     ]
     res = train_emote(head, batches, stages=stages, neural=neural,
-                      val_batches=lambda: iter(val_cached),
+                      val_batches=val_batches,
                       val_every=args.val_every, early_stop_patience=args.early_stop_patience,
                       run_dir=args.run_dir)
     print(f"done: {res['total_steps']} steps, best val {res['best_val']:.4f}")
@@ -139,7 +172,7 @@ def cmd_train_emote(args) -> int:
 
 
 def register(sub, common):
-    te = sub.add_parser("train-emote", help="staged EMOTE training loop (synthetic batches)")
+    te = sub.add_parser("train-emote", help="staged EMOTE training loop")
     te.add_argument("--steps", type=int, default=200, help="steps per stage")
     te.add_argument("--batch-size", type=int, default=8)
     te.add_argument("--frames", type=int, default=64)
@@ -148,7 +181,11 @@ def register(sub, common):
     te.add_argument("--early-stop-patience", type=int, default=0)
     te.add_argument("--run-dir", default=None)
     te.add_argument("--tiny", action="store_true")
-    te.add_argument("--root", default=None, help="(not ported yet)")
+    te.add_argument("--root", default=None,
+                    help="EMOCA-preprocessed MEAD root; without it the loop runs on synthetic "
+                         "batches")
+    te.add_argument("--val-fraction", type=float, default=0.1,
+                    help="held-out clip fraction of --root")
     te.add_argument("--neural", action="store_true",
                     help="add the perceptual terms (renders + lip-reading / EmoNet / "
                          "video-emotion towers) to the second stage; gt meshes are decoded "

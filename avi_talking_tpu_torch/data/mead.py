@@ -1,6 +1,6 @@
 """MEAD / EMOCA-preprocessed talking-face dataset (port of
-``build_index`` and ``MeadEmocaDataset`` from ``avi_talking_tpu/data/mead.py``;
-host only, numpy).
+``avi_talking_tpu/data/mead.py``: ``build_index``, ``ScreenedMeadAudio`` and
+``MeadEmocaDataset``; host only, numpy).
 
 Each clip directory holds per-frame EMOCA codes
 (``EMOCA_v2_lr_mse_20/<frame>_000/{exp,pose,shape,cam}.npy``) and the clip's
@@ -13,18 +13,20 @@ The windows and captions are drawn from ``np.random.default_rng(seed)`` in
 the JAX package's order, so both packages give the same items.
 
 The directory index is cached as ``index_cache.json`` in the root, in the
-JAX package's format, so the two packages read one cache. Decoding the
-detection crops (``load_images=True``) needs the PNG reader of
-``viz/pngio.py``, which is not ported (ROADMAP Queue 1, item 2): asking for
-images raises.
+JAX package's format, so the two packages read one cache. With
+``load_images=True`` an item also holds the window's detection crops
+(``img``) and the leading window of the identity's neutral clip
+(``ref_img``, the clip itself where the identity has no neutral clip), each
+(T, H, W, 3) float32 in [-1, 1], decoded by ``viz/pngio.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -77,6 +79,50 @@ def build_index(root: str, use_cache: bool = True) -> List[Dict]:
 
 
 @dataclasses.dataclass
+class ScreenedMeadAudio:
+    """The clips of one or more MEAD roots that (a) scan, (b) have a wav,
+    (c) get a caption from ``caption_db`` (default ``TalkClipGenerator``)
+    and (d) whose wav is on the allowlist file (one path a line), where one
+    is given: the reference's ``ScreenedMeadAudio`` and its
+    ``meta_audio.txt``. ``wav_paths``, ``names`` and ``captions`` are sorted
+    by wav path."""
+
+    roots: Sequence[str]
+    allowlist_path: Optional[str] = None
+    caption_db: Optional[object] = None  # .query(name) -> caption
+
+    def __post_init__(self):
+        allow = None
+        if self.allowlist_path:
+            with open(self.allowlist_path) as f:
+                allow = {ln.strip() for ln in f if ln.strip()}
+        if self.caption_db is None:
+            from .caption_gen import TalkClipGenerator
+
+            self.caption_db = TalkClipGenerator()
+        entries = []
+        for root in self.roots:
+            for clip in build_index(root):
+                wav = clip.get("wav")
+                if not wav:
+                    continue
+                try:
+                    caption = self.caption_db.query(clip["name"])
+                except Exception:  # a database without the clip leaves it out
+                    continue
+                if allow is not None and wav not in allow:
+                    continue
+                entries.append((wav, clip["name"], caption))
+        entries.sort()
+        self.wav_paths = [e[0] for e in entries]
+        self.names = [e[1] for e in entries]
+        self.captions = [e[2] for e in entries]
+
+    def __len__(self) -> int:
+        return len(self.wav_paths)
+
+
+@dataclasses.dataclass
 class MeadEmocaDataset:
     root: str
     seq_length: int = 25
@@ -85,7 +131,7 @@ class MeadEmocaDataset:
     smooth_pose: bool = False
     seed: int = 0
     captions_path: Optional[str] = None  # JSON: clip name -> caption or captions
-    load_images: bool = False  # not ported: raises when an item is read
+    load_images: bool = False  # add the crops as ``img`` and ``ref_img``
     # None (all clips) or "train" / "val" / "test" of ``splits.mead_identity_split``
     subject_split: Optional[str] = None
     subject_split_seed: Optional[int] = None
@@ -103,6 +149,7 @@ class MeadEmocaDataset:
                 self._captions = json.load(f)
         self.parser = MeadFilenameParser()
         self._rng = np.random.default_rng(self.seed)
+        self._by_name = {c["name"]: c for c in self.index}
         # the first neutral clip of each identity
         self._neutral_by_id: Dict[str, str] = {}
         for clip in self.index:
@@ -134,10 +181,6 @@ class MeadEmocaDataset:
                                codes["pose"][:, :3], codes["cam"][:, :3]], axis=-1)  # (T, 59)
 
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
-        if self.load_images:
-            raise NotImplementedError(
-                "MeadEmocaDataset(load_images=True) needs viz/pngio.py's PNG reader, which is "
-                "not ported yet (ROADMAP Queue 1, item 2)")
         clip = self.index[i]
         codes = self._load_codes(clip["frames"])
         if self.smooth_pose and codes["pose"].shape[0] > 15:
@@ -180,4 +223,44 @@ class MeadEmocaDataset:
             caps = [caps] if isinstance(caps, str) else list(caps)
             item["text"] = caps[int(self._rng.integers(0, len(caps)))
                                 if self.split == "train" else 0]
+        if self.load_images:
+            img = self._load_image_window(clip, start, L)
+            if img is not None:
+                item["img"] = img
+                ref_clip = self._by_name.get(item.get("neutral_clip"), clip)
+                ref = self._load_image_window(ref_clip, 0, L)
+                item["ref_img"] = ref if ref is not None else img
         return item
+
+    def image_paths(self, i: int) -> List[str]:
+        """The detection crops of clip ``i``, in frame order."""
+        return self._clip_image_paths(self.index[i])
+
+    @staticmethod
+    def _clip_image_paths(clip: Dict) -> List[str]:
+        """Per-frame detection crops, sorted to align with ``frames``: the
+        first of four layouts that has any (under a ``processed_*``
+        directory, one level deeper, beside the frames directory, or
+        directly under the clip)."""
+        frames_dir = os.path.dirname(clip["frames"][0])
+        for pat in (
+            os.path.join(frames_dir, "*", "detections", "*_000.png"),
+            os.path.join(frames_dir, "*", "*", "detections", "*_000.png"),
+            os.path.join(os.path.dirname(frames_dir), "*", "detections", "*_000.png"),
+            os.path.join(os.path.dirname(frames_dir), "detections", "*_000.png"),
+        ):
+            cands = sorted(glob.glob(pat))
+            if cands:
+                return cands
+        return []
+
+    def _load_image_window(self, clip: Dict, start: int, length: int) -> Optional[np.ndarray]:
+        """(length, H, W, 3) float32 in [-1, 1], or None where the clip has
+        no crops; a short clip repeats its last crop."""
+        from ..viz.pngio import read_image_normalized
+
+        paths = self._clip_image_paths(clip)
+        if not paths:
+            return None
+        return np.stack([read_image_normalized(paths[min(start + k, len(paths) - 1)])
+                         for k in range(length)])

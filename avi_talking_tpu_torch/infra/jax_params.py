@@ -176,6 +176,12 @@ def flint_state_from_jax(params: Tree, batch_stats: Tree) -> State:
     return out
 
 
+def style_encoder_state_from_jax(params: Tree) -> State:
+    """``models.conditioning.EmotionStyleEncoder`` params -> port state
+    (``map.``): the style tower of the prior's caption featurizer."""
+    return {"map." + k: v for k, v in _dense(params["map"]).items()}
+
+
 def emote_head_state_from_jax(variables: Tree) -> State:
     """``models.emote.EmoteTalkingHead`` variables ({"params",
     "batch_stats"}) -> port state. The style encoder is carried when the JAX
@@ -185,7 +191,7 @@ def emote_head_state_from_jax(variables: Tree) -> State:
     _put(out, "audio_encoder.", wav2vec2_state_from_jax(params["audio_encoder"]))
     _put(out, "sequence_encoder.", _dense(params["sequence_encoder"]))
     if "style_encoder" in params:
-        _put(out, "style_encoder.map.", _dense(params["style_encoder"]["map"]))
+        _put(out, "style_encoder.", style_encoder_state_from_jax(params["style_encoder"]))
     if "bert_decoder" in params:
         _put(out, "bert_decoder.", transformer_encoder_state_from_jax(params["bert_decoder"]))
     _put(out, "decoder.", _dense(params["decoder"]))

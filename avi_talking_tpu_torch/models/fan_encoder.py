@@ -4,6 +4,7 @@ heads (port of ``avi_talking_tpu/models/fan_encoder.py``, NCHW).
 ``FanBackbone`` (the reference's ``FAN_use``): a single-stack hourglass
 landmark CNN, image -> 512-d feature. ``FanEncoder`` adds the heads:
 headpose (6), eye (6), emotion (30) embeddings and the mouth feature (512).
+``mask_lip`` blanks the mouth of the crops the emotion head conditions on.
 
 * ``ConvBlock``: pre-activation BN-ReLU-conv x3 with the outputs
   concatenated (out = cat[c1(x), c2(c1), c3(c2)]), plus a BN-ReLU-1x1
@@ -152,3 +153,20 @@ class FanEncoder(nn.Module):
 
     def backbone_feature(self, x: torch.Tensor) -> torch.Tensor:
         return self.model(x)
+
+
+def mask_lip(images: torch.Tensor, variant: str = "coeff") -> torch.Tensor:
+    """Zero the lip region of (B, 3, H, W) crops in [-1, 1]: "coeff" is the
+    reference's ``faceformer.py:114-126`` box, "disentangle" the wider
+    ``faceformer_disentangle.py:119-133`` one (the lower half of the face).
+    The box's edges truncate as Python's ``int()`` does, as in JAX."""
+    H, W = images.shape[-2:]
+    if variant == "coeff":
+        h0, h1 = int(100 / 224 * H), int(210 / 224 * H)
+        w0, w1 = int(40 / 224 * W), int(185 / 224 * W)
+    else:
+        h0, h1 = int(100 / 224 * H), H
+        w0, w1 = 0, W
+    mask = torch.ones(H, W, dtype=images.dtype, device=images.device)
+    mask[h0:h1, w0:w1] = 0.0
+    return images * mask

@@ -3,7 +3,8 @@
 Queue 1).
 
 Each batch holds ``voxel`` (B, 768) CLIP text means and ``style_target``
-(B, 128) style embeddings as numpy arrays; ``synthetic_batches`` draws a
+(B, 128) style embeddings, as numpy arrays or tensors (the caption corpus's
+``data.prior_corpus.prior_corpus_batches``); ``synthetic_batches`` draws a
 structured random stream (a codebook of styles, voxels their noisy
 projections) with JAX's numpy calls. The NCE temperature is annealed by
 ``cosine_anneal``. With ``val_every`` the loop validates on a disjoint
@@ -131,7 +132,9 @@ def train_prior(
     start_step = state.step
     temps = cosine_anneal(cfg.nce_temp_start, cfg.nce_temp_end, max(cfg.total_steps, 2)).tolist()
 
-    def put(x: np.ndarray) -> torch.Tensor:
+    def put(x) -> torch.Tensor:  # numpy, or a featurizer's tensor already on a device
+        if isinstance(x, torch.Tensor):
+            return x.to(device=device, dtype=torch.float32)
         return torch.from_numpy(np.asarray(x, np.float32)).to(device)
 
     def run_validation(step: int) -> Dict[str, float]:

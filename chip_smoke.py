@@ -8,7 +8,7 @@
                                        # each
     python3 chip_smoke.py --phases train [--profile]
                                        # the build, K1's rows, the gradient
-                                       # rows and phases 12-15 alone; its
+                                       # rows and phases 12-16 alone; its
                                        # result line says "phases": "train"
 
 Run it from the root of a checkout: it builds the port's CUDA kernels from
@@ -19,7 +19,7 @@ the checkout's sources into build/, then
             spill report; a spill fails the check;
 2. kernels: K1 (key-bias attention) against its plain PyTorch version on the
             card at the generate path's shapes, the FaceFormer encoder's and
-            the EMOTE and vertex FaceFormer training steps',
+            the EMOTE, vertex FaceFormer and FaceFormer training steps',
             and K3 (biased attention) at the FaceFormer decoder's four
             shapes, each with its time (CUDA events around the wrapper, and
             the kernel's own device time under torch.profiler), the plain
@@ -80,12 +80,24 @@ the checkout's sources into build/, then
 15. train_prior: the prior trainer at full width (B=256): step time; one
             step card vs CPU with the same draws; `train-prior` for 4 steps
             with validation and checkpoints, then --resume from step 4;
-16. the kernels summary line (K1 at the generate path's, the EMOTE step's
-            and the vertex step's shapes; K2 at the render path's, the
-            neural step's and the emotion loss's launches; K3 at the
-            FaceFormer decoder's and the vertex decoder's) and the card's
-            name and power limit;
-17. the result line.
+16. train_data: the data-backed commands on a synthetic MEAD tree of 18
+            clips x 100 frames with 224^2 crops, at full width and their
+            defaults: `train-emote --root` (the split, K1 12 a step, the head
+            moved), `train-faceformer --root` with FAN conditioning (K1 12
+            and K3 2 a step; the step split into batch reading and PNG
+            decoding, the FanConditioner and the training step),
+            FanConditioner and one conditioned step card vs CPU, and
+            `train-prior --json-dir` / `--root` on the caption corpus with
+            featurize card vs CPU (limits in its docstring; the crops are
+            unfiltered PNGs, so their decode is a lower bound of a real
+            crop's, which the phase also times per row filter);
+17. the kernels summary line (K1 at the generate path's, the EMOTE step's,
+            the vertex step's and the FaceFormer step's shapes; K2 at the
+            render path's, the neural step's and the emotion loss's
+            launches; K3 at the FaceFormer decoder's and the vertex
+            decoder's; with the launches of each path that runs them) and
+            the card's name and power limit;
+18. the result line.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without the result line. It imports nothing of JAX.
@@ -93,6 +105,7 @@ non-zero without the result line. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -394,6 +407,7 @@ def phase_kernels(peaks):
         ("faceformer_600", 1, 12, 600, 600, 64, (600,)),  # the FaceFormer encoder
         ("emote_train", 8, 12, 64, 64, 64, (64,) * 8),  # train-emote's step, after the resample
         ("vert_train", 4, 12, 100, 100, 64, (100,) * 4),  # train-faceformer-vert's step
+        ("faceformer_train", 16, 12, 25, 25, 64, (25,) * 16),  # train-faceformer's step
     ]
     rows = []
     for name, B, H, T, S, d, lens in cases:
@@ -1361,19 +1375,35 @@ def phase_train_emote_neural(kb, kras, peaks, profile=False):
     return {"launches": cli_launches, "row": row}
 
 
-def _write_mead_tree(root, n_clips, frames, seed):
+def _write_mead_tree(root, n_clips, frames, seed, names=None, crop_size=None):
     """A MEAD-layout root as the data tests build one: ``n_clips`` clips of
     ``frames`` frames (identities M003 / W009, emotions neutral / happy /
-    angry / sad / surprised), each frame's EMOCA exp (50), pose (6), shape
-    (100) and cam (3) npys, and the clip's 16 kHz wav."""
+    angry / sad / surprised; or the clips ``names``), each frame's EMOCA exp
+    (50), pose (6), shape (100) and cam (3) npys, and the clip's 16 kHz wav;
+    with ``crop_size``, each frame's crop_size^2 detection crop under
+    ``EMOCA_v2_lr_mse_20/processed_x/detections`` (written by the port's
+    ``write_png``: 16 px blocks that drift by frame, smooth enough to keep
+    the files small)."""
     import wave
 
     import numpy as np
 
+    from avi_talking_tpu_torch.viz.pngio import write_png
+
     rng = np.random.default_rng(seed)
     emotions = ("neutral", "happy", "angry", "sad", "surprised")
+    if crop_size:
+        yy, xx = np.mgrid[0:crop_size, 0:crop_size] // 16
+        blocks = np.stack([xx * 4, yy * 4, (xx + yy) * 2], axis=-1)
     for c in range(n_clips):
-        name = f"{('M003', 'W009')[c % 2]}_front_{emotions[c % 5]}_level1_{c:03d}"
+        name = (names[c] if names else
+                f"{('M003', 'W009')[c % 2]}_front_{emotions[c % 5]}_level1_{c:03d}")
+        if crop_size:
+            det = os.path.join(root, name, "EMOCA_v2_lr_mse_20", "processed_x", "detections")
+            os.makedirs(det)
+            for i in range(frames):
+                write_png(os.path.join(det, f"{i:06d}_000.png"),
+                          ((blocks + 3 * i + 37 * c) % 256).astype(np.uint8))
         for i in range(frames):
             fd = os.path.join(root, name, "EMOCA_v2_lr_mse_20", f"{i:06d}_000")
             os.makedirs(fd)
@@ -1953,6 +1983,354 @@ def phase_train_prior():
           "cli_wall_s": cli_s, "resumed_final": final[0] if final else None})
 
 
+MEAD_DATA_CLIPS = [f"{ident}_front_{emo}_level{lvl}_001"
+                   for ident in ("M003", "M005", "M007", "W009", "W011", "W014")
+                   for emo, lvl in (("neutral", 1), ("happy", 2), ("angry", 3))]
+
+
+def _filtered_decode_s(filter_type: int, size: int = 224) -> float:
+    """Seconds the port's pure-Python decoder takes to undo one size^2 RGB
+    crop whose rows all carry ``filter_type`` (real encoders choose Sub /
+    Up / Average / Paeth per row; the synthetic crops are all None)."""
+    import numpy as np
+
+    from avi_talking_tpu_torch.viz.pngio import _unfilter
+
+    stride = size * 3
+    rows = np.random.default_rng(filter_type).integers(0, 256, (size, stride), dtype=np.uint8)
+    raw = b"".join(bytes([filter_type]) + r.tobytes() for r in rows)
+    t0 = time.perf_counter()
+    _unfilter(raw, size, size, 3)
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _patched(obj, name, wrap):
+    """``obj.name`` replaced by ``wrap(obj.name)`` inside the block."""
+    orig = getattr(obj, name)
+    setattr(obj, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def _timed_next(it, seconds: list):
+    """``it``, with the host seconds of each ``next`` appended to ``seconds``."""
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        seconds.append(time.perf_counter() - t0)
+        yield item
+
+
+def _step_probe(record: dict, counters, seen: dict):
+    """A wrapper of a trainer's ``train_step`` that records each step's
+    seconds (synchronised), loss and kernel launches (the change of each
+    module's ``launches`` across the step), and the input shape of the
+    first wav2vec2 encoder layer."""
+    import torch
+
+    def wrap(orig):
+        def train_step(self, batch, *args, **kwargs):
+            model = self.model if hasattr(self, "model") else self.head
+            hook = model.audio_encoder.encoder.layers[0].register_forward_pre_hook(
+                lambda module, a: seen.update(encoder_input=list(a[0].shape)))
+            torch.cuda.synchronize()
+            before = [m.launches for m in counters]
+            t0 = time.perf_counter()
+            try:
+                out = orig(self, batch, *args, **kwargs)
+                torch.cuda.synchronize()
+            finally:
+                hook.remove()
+            record["step_s"].append(time.perf_counter() - t0)
+            record["launches"].append([m.launches - b for m, b in zip(counters, before)])
+            record["losses"].append(float(out["loss"]))
+            return out
+        return train_step
+    return wrap
+
+
+def phase_train_data(kb, kba):
+    """The data-backed training commands at full width on a synthetic MEAD
+    tree under build/chip_smoke/ (18 clips: 6 identities x neutral level 1 /
+    happy level 2 / angry level 3, 100 frames, full-width EMOCA codes, 16
+    kHz wavs, 224^2 crops), each command's own steps timed and counted
+    (its trainer's ``train_step`` and its batch reading wrapped):
+
+    - `train-emote --root` at its defaults (EmoteConfig(), B=8, 64 frames,
+      --val-fraction 0.2), two stages of 3 steps with a run directory: the
+      split line, K1 12 a step and 12 a validation batch, the head's
+      weights moved from their init, each step's batch and step seconds;
+    - `train-faceformer --root` at its defaults (FaceFormerConfig(), B=16,
+      T=25, conditioning on), 5 steps: K1 12 and K3 2 a step; the seconds
+      of each step's batch (npys, wavs, 800 PNG decodes), FanConditioner
+      (two FAN passes over 400 crops) and training step, and their shares;
+      the decode of one crop under each row filter;
+    - FanConditioner card vs CPU on the same B=2, T=6 crops and seed: the
+      draws and ref_coeff equal, the embeddings within 1e-4 of their
+      largest (TF32 off); then one train-faceformer step at B=2, T=6 on that
+      conditioned batch, card vs CPU, by `one_step_card_vs_cpu`;
+    - `train-prior --json-dir experiments/json_dir --wav-dir
+      experiments/wav_dir` (CLIP ViT-L/14 text tower, B=256 by wrap-around)
+      for 4 steps with validation, then `train-prior --root` (generated
+      captions) for 2 steps: the corpus and split lines; the step stepped
+      directly (featurize + step); `featurize` card vs CPU on 8 captions:
+      voxel and style within 1e-4 of their largest.
+
+    No kernel runs on the prior's route. The phase prints its seconds."""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.cli import main as cli_main
+    from avi_talking_tpu_torch.cli import train as ff_cli
+    from avi_talking_tpu_torch.cli.train_emote import build_head
+    from avi_talking_tpu_torch.cli.train_prior import build_featurizer
+    from avi_talking_tpu_torch.data import train_batches
+    from avi_talking_tpu_torch.data.prior_corpus import load_corpus_items, prior_corpus_batches
+    from avi_talking_tpu_torch.infra.checkpoint import restore_checkpoint
+    from avi_talking_tpu_torch.models.faceformer import FaceFormerConfig
+    from avi_talking_tpu_torch.train.driver import PriorTrainingConfig, build_state, step_generator
+    from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer
+    from avi_talking_tpu_torch.train.optim import adamw
+    from avi_talking_tpu_torch.train.prior import PriorTrainer
+    from avi_talking_tpu_torch.train.talking_head import TalkingHeadTrainer
+    from avi_talking_tpu_torch.viz.pngio import read_image_normalized
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    root = os.path.join(out_dir, "mead_data")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    _write_mead_tree(root, len(MEAD_DATA_CLIPS), 100, seed=21, names=MEAD_DATA_CLIPS, crop_size=224)
+    tree_s = time.perf_counter() - t0
+
+    def run(argv):
+        buf, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = cli_main(argv)
+        torch.cuda.synchronize()
+        check(rc == 0, f"{argv[0]} exited {rc}: {err.getvalue()[-2000:]}")
+        return buf.getvalue(), time.perf_counter() - t0
+
+    def line(out, prefix):
+        found = [ln for ln in out.splitlines() if ln.startswith(prefix)]
+        check(len(found) == 1, f"expected one {prefix!r} line in {out!r}")
+        return found[0]
+
+    def median_after_first(xs):
+        return statistics.median(xs[1:])
+
+    # train-emote --root: the command, its steps probed
+    B, T = 8, 64
+    n_val = int(round(0.2 * len(MEAD_DATA_CLIPS)))
+    emote = {"data_s": [], "step_s": [], "launches": [], "losses": []}
+
+    def timed_emote_batches(orig):
+        def emote_batches(builder, batch_size, *args, epochs=None, **kwargs):
+            it = orig(builder, batch_size, *args, epochs=epochs, **kwargs)
+            return _timed_next(it, emote["data_s"]) if epochs is None else it  # the training stream
+        return emote_batches
+
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp, \
+            _patched(train_batches, "emote_batches", timed_emote_batches), \
+            _patched(TalkingHeadTrainer, "train_step", _step_probe(emote, [kb], {})):
+        kb.launches = 0
+        out, emote_cli_s = run(["train-emote", "--root", root, "--steps", "3", "--val-every", "3",
+                                "--val-fraction", "0.2", "--run-dir", os.path.join(tmp, "run")])
+        emote_cli_launches = kb.launches
+        last = restore_checkpoint(os.path.join(tmp, "run", "checkpoints", "last"),
+                                  map_location="cpu")["params"]
+    split_line = line(out, "data root:")
+    check(split_line == f"data root: {len(MEAD_DATA_CLIPS) - n_val} train / {n_val} val clips",
+          f"train-emote --root printed {split_line!r}")
+    check(emote["launches"] == [[12]] * 6, f"train-emote --root's steps launched K1 "
+          f"{emote['launches']} times, not 12 each")
+    # and one validation of one batch (the n_val clips) after each stage's third step
+    check(emote_cli_launches == 12 * 2 * (3 + 1),
+          f"train-emote --root launched K1 {emote_cli_launches} times, not {12 * 2 * 4}")
+    check(all(math.isfinite(x) for x in emote["losses"]), f"losses {emote['losses']}")
+    init = build_head(tiny=False, seed=0, device=torch.device("cpu")).state_dict()
+    moved = max(float((last[k].float() - v.float()).abs().max()) for k, v in init.items()
+                if v.is_floating_point())
+    check(math.isfinite(moved) and moved > 0, f"train-emote --root moved the head by {moved}")
+    del last, init
+
+    # train-faceformer --root: the command, its batches, conditioning and steps probed
+    steps = 5
+    ff = {"data_s": [], "condition_s": [], "step_s": [], "launches": [], "losses": []}
+    seen = {}
+
+    def timed_source(orig):
+        def mead_source(*args, **kwargs):
+            batches, conditioner = orig(*args, **kwargs)
+            return _timed_next(batches, ff["data_s"]), conditioner
+        return mead_source
+
+    def timed_conditioned(orig):
+        def conditioned(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            ff["condition_s"].append(time.perf_counter() - t0)
+            return out
+        return conditioned
+
+    torch.cuda.reset_peak_memory_stats()
+    with _patched(ff_cli, "mead_source", timed_source), \
+            _patched(ff_cli, "conditioned", timed_conditioned), \
+            _patched(FaceFormerTrainer, "train_step", _step_probe(ff, [kb, kba], seen)):
+        kb.launches = kba.launches = 0
+        out, ff_cli_s = run(["train-faceformer", "--root", root, "--steps", str(steps)])
+        ff_cli_launches = {"keybias_attention": kb.launches, "fused_bias_attention": kba.launches}
+    ff_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(ff_cli_launches == {"keybias_attention": 12 * steps, "fused_bias_attention": 2 * steps},
+          f"train-faceformer --root's {steps} steps launched {ff_cli_launches}")
+    check(ff["launches"] == [[12, 2]] * steps, f"train-faceformer --root's steps launched "
+          f"{ff['launches']}, not K1 12 and K3 2 each")
+    ff_final = line(out, "final:")
+    check(math.isfinite(float(ff_final.split("'loss': ")[1].rstrip("}"))), ff_final)
+    # the command reads and conditions one batch before its first step
+    check(len(ff["data_s"]) == len(ff["condition_s"]) == steps + 1,
+          f"{len(ff['data_s'])} batches read for {steps} steps")
+    per_step = {"data_s": ff["data_s"][1:], "condition_s": ff["condition_s"][1:],
+                "step_s": ff["step_s"]}
+    med = {k: median_after_first(v) for k, v in per_step.items()}
+    total = sum(med.values())
+    cfg = FaceFormerConfig()
+    heads = cfg.wav2vec2.num_attention_heads
+    ff_k1_shape = [16, heads, seen["encoder_input"][1], seen["encoder_input"][1],
+                   cfg.wav2vec2.hidden_size // heads]
+    crops = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(root) for f in fs
+                   if f.endswith(".png"))[:100]
+    t0 = time.perf_counter()
+    for p in crops:
+        read_image_normalized(p)
+    decode_s = (time.perf_counter() - t0) / len(crops)
+
+    # FanConditioner, then one conditioned step, card vs CPU
+    small = types.SimpleNamespace(root=root, seq_length=6, batch_size=2, seed=3,
+                                  fan_checkpoint=None)
+    cond_out, states, raw = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        with contextlib.redirect_stderr(io.StringIO()):
+            source, cond = ff_cli.mead_source(small, cfg, torch.device(dev))
+        raw[dev] = next(source)
+        cond_out[dev] = {k: v.cpu() for k, v in
+                         ff_cli.conditioned(raw[dev], cfg, cond, torch.device(dev)).items()}
+        states[dev] = cond._rng.bit_generator.state
+    check(np.array_equal(raw["cuda"]["img"], raw["cpu"]["img"]), "the two sides read other crops")
+    check(states["cuda"] == states["cpu"], "FanConditioner drew differently on the card")
+    check(torch.equal(cond_out["cuda"]["ref_coeff"], cond_out["cpu"]["ref_coeff"]),
+          "ref_coeff differs card vs CPU")
+    fan_rel = {k: float((cond_out["cuda"][k] - cond_out["cpu"][k]).abs().max()
+                        / cond_out["cpu"][k].abs().max()) for k in ("eye_embed", "emo_embed")}
+    check(all(v < 1e-4 for v in fan_rel.values()),
+          f"FanConditioner card vs CPU: {fan_rel} of the largest (limit 1e-4)")
+    pair = {}
+    for dev in ("cuda", "cpu"):
+        m = _faceformer_model(cfg, seed=2, device=dev)
+        tr = FaceFormerTrainer(model=m, optimizer=adamw(m.parameters(), 1e-4))
+        loss = float(tr.train_step({k: v.to(dev) for k, v in cond_out["cuda"].items()})["loss"])
+        pair[dev] = (loss, dict(m.named_parameters()))
+    one_step = one_step_card_vs_cpu(pair, lr=1e-4, loss_tol=1e-4 * max(1.0, abs(pair["cpu"][0])))
+    del pair
+
+    # train-prior on the caption corpus: both routes, the step, featurize card vs CPU
+    json_dir = os.path.join(HERE, "experiments", "json_dir")
+    wav_dir = os.path.join(HERE, "experiments", "wav_dir")
+    out, prior_json_s = run(["train-prior", "--json-dir", json_dir, "--wav-dir", wav_dir,
+                             "--steps", "4", "--val-every", "2", "--val-fraction", "0.25"])
+    prior_json = [line(out, "corpus:"), line(out, "split:")]
+    check(prior_json == ["corpus: 4 caption pairs", "split: 3 train / 1 val"],
+          f"train-prior --json-dir printed {prior_json}")
+    check("val@2" in out and "val@4" in out, f"train-prior --json-dir printed {out!r}")
+    out, prior_root_s = run(["train-prior", "--root", root, "--steps", "2"])
+    n = len(MEAD_DATA_CLIPS)
+    prior_root = [line(out, "corpus:"), line(out, "split:")]
+    check(prior_root == [f"corpus: {n} caption pairs", f"split: {n} train / 0 val"],
+          f"train-prior --root printed {prior_root}")
+    pcfg = PriorTrainingConfig()
+    feats = {dev: build_featurizer(False, pcfg.clip_size, torch.device(dev))
+             for dev in ("cuda", "cpu")}
+    items = load_corpus_items(json_dir=json_dir, wav_dir=wav_dir)
+    state = build_state(pcfg, seed=0, device=cuda)
+    prior = {"featurize_s": [], "step_s": [], "losses": []}
+    stream = prior_corpus_batches(items, feats["cuda"], pcfg.batch_size, 6)
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = next(stream)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = PriorTrainer().train_step(state, b["voxel"], b["style_target"], 0.006,
+                                            generator=step_generator(cuda, 0, i))
+        torch.cuda.synchronize()
+        prior["featurize_s"].append(t1 - t0)
+        prior["step_s"].append(time.perf_counter() - t1)
+        prior["losses"].append(float(metrics["loss"]))
+    check(all(math.isfinite(x) for x in prior["losses"]), f"prior losses {prior['losses']}")
+    del state, stream
+    tok = feats["cpu"].tokenize_corpus(load_corpus_items(mead_root=root)[:8])
+    f = {dev: {k: v.cpu() for k, v in feats[dev].featurize(tok["ids"], tok["cond"]).items()}
+         for dev in ("cuda", "cpu")}
+    feat_rel = {k: float((f["cuda"][k] - f["cpu"][k]).abs().max() / f["cpu"][k].abs().max())
+                for k in ("voxel", "style_target")}
+    check(all(v < 1e-4 for v in feat_rel.values()),
+          f"featurize card vs CPU: {feat_rel} of the largest (limit 1e-4)")
+    del feats
+
+    emit({"phase": "train_data", "tree": {"clips": n, "frames": 100, "crop": 224,
+                                          "seconds": tree_s},
+          "train_emote_root": {
+              "cli": "train-emote --root <tree> --steps 3 --val-every 3 --val-fraction 0.2 "
+                     "--run-dir <tmp>", "cli_wall_s": emote_cli_s, "split": split_line,
+              "cli_k1_launches": emote_cli_launches, "head_moved_max_abs": moved,
+              "batch": B, "frames": T, "k1_launches_per_step": [n for n, in emote["launches"]],
+              "losses": emote["losses"], "data_s_all": emote["data_s"],
+              "step_s_all": emote["step_s"],
+              "data_s_median_after_first": median_after_first(emote["data_s"]),
+              "step_s_median_after_first": median_after_first(emote["step_s"])},
+          "train_faceformer_root": {
+              "cli": f"train-faceformer --root <tree> --steps {steps}", "cli_wall_s": ff_cli_s,
+              "cli_launches": ff_cli_launches, "final": ff_final, "batch": 16, "seq_length": 25,
+              "k1_shape": ff_k1_shape, "launches_per_step": ff["launches"],
+              "losses": ff["losses"], "data_s_all": per_step["data_s"],
+              "condition_s_all": per_step["condition_s"], "step_s_all": per_step["step_s"],
+              "median_after_first": med, "total_s": total,
+              "share": {k: v / total for k, v in med.items()},
+              "pngs_per_step": 2 * 16 * 25, "png_decode_s_per_crop": decode_s,
+              "unfilter_s_per_crop": {name: _filtered_decode_s(ft) for name, ft in (
+                  ("none", 0), ("sub", 1), ("up", 2), ("average", 3), ("paeth", 4))},
+              "peak_allocated_gib": ff_peak_gib},
+          "fan_conditioner_card_vs_cpu_B2_T6": {"rel_to_largest": fan_rel, "limit": 1e-4,
+                                                 "draws_equal": True},
+          "gpu_vs_cpu_one_step_B2_T6": one_step,
+          "train_prior_corpus": {
+              "json_dir": prior_json, "json_dir_cli_wall_s": prior_json_s,
+              "root": prior_root, "root_cli_wall_s": prior_root_s,
+              "batch": pcfg.batch_size, "losses": prior["losses"],
+              "featurize_s_all": prior["featurize_s"], "step_s_all": prior["step_s"],
+              "featurize_s_median_after_first": median_after_first(prior["featurize_s"]),
+              "step_s_median_after_first": median_after_first(prior["step_s"]),
+              "featurize_card_vs_cpu_8_captions": {"rel_to_largest": feat_rel, "limit": 1e-4}},
+          "seconds": time.perf_counter() - t_phase})
+    return {"emote_launches": emote_cli_launches, "ff_launches": ff_cli_launches,
+            "ff_k1_shape": ff_k1_shape}
+
+
 def phase_generate(pipe, kb):
     import numpy as np
 
@@ -2374,6 +2752,15 @@ def check_vert_row(rows, vert) -> dict:
     return row
 
 
+def check_faceformer_row(rows, data) -> dict:
+    """K1's row at train-faceformer's step, checked against the shape the
+    --root step's encoder saw."""
+    row = next(r for r in rows if r["case"] == "faceformer_train")
+    check(row["shape"] == data["ff_k1_shape"],
+          f"K1 measured at {row['shape']}, the train-faceformer step runs {data['ff_k1_shape']}")
+    return row
+
+
 def finish(name: str, **extra) -> int:
     """The card's name and power limit, then the result line."""
     import torch
@@ -2394,8 +2781,8 @@ def main() -> int:
                     help="also profile one generate, one render and each training step")
     ap.add_argument("--phases", choices=("all", "train"), default="all",
                     help="train: only the build, K1's rows, the K1 / K3 gradient rows and the "
-                         "EMOTE (geometric and neural), vertex FaceFormer and prior training "
-                         "phases")
+                         "EMOTE (geometric and neural), vertex FaceFormer, prior and "
+                         "data-backed training phases")
     args = ap.parse_args()
     try:
         import torch
@@ -2429,6 +2816,7 @@ def main() -> int:
         vert = phase_train_faceformer_vert(kb, kba, kras, peaks, profile=args.profile)
         check_vert_row(rows, vert)
         phase_train_prior()
+        check_faceformer_row(rows, phase_train_data(kb, kba))
         if args.profile:
             profile_emote_and_prior_steps()
         emit({"phases": "train", "total_s": time.perf_counter() - t_start})
@@ -2455,6 +2843,7 @@ def main() -> int:
     neural = phase_train_emote_neural(kb, kras, peaks, profile=args.profile)
     vert = phase_train_faceformer_vert(kb, kba, kras, peaks, profile=args.profile)
     phase_train_prior()
+    data = phase_train_data(kb, kba)
     if args.profile:
         phase_profile(pipe, gen_out["vertices"], faces)
 
@@ -2468,6 +2857,8 @@ def main() -> int:
     vert_k1 = check_vert_row(rows, vert)  # K1 at train-faceformer-vert's step: B=4 T=S=100
     vert_k3 = vert["k3_rows"][0]  # K3's self-attention at the vertex decoder: B=4 H=4 T=S=100 d=16
     vert_k2 = vert["k2_row"]  # K2 at the emotion loss's launch: 20 frames x 16 tiles
+    ff_k1 = check_faceformer_row(rows, data)  # K1 at train-faceformer's step: B=16 T=S=25
+    ff_k3 = k3_rows[0]  # K3's self-attention at train-faceformer's step: B=16 H=4 T=S=25 d=32
     emit({"kernels": [{
         "name": "keybias_attention",
         "route": "cuda",
@@ -2605,6 +2996,60 @@ def main() -> int:
         "bound_ms_no_fma": vert_k2["bound_ms_no_fma"],
         "library_ms": None,  # no PyTorch call computes z-buffer visibility
         "shape": vert_k2["shape"],
+        "peaks": peaks_line,
+    }, {
+        "name": "keybias_attention",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/bias_attention.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:114",
+        "path": "train-emote --root (MEAD windows read from disk)",
+        "launches": data["emote_launches"],  # the command's run
+        "max_abs_err": emote_row["max_abs_err"],
+        "ms": emote_row["ms"],
+        "device_ms": emote_row["device_ms"],
+        "library_device_ms": emote_row["library_device_ms"],
+        "plain_ms": emote_row["plain_ms"],
+        "bound_ms": emote_row["bound_ms"],
+        "bound_by": emote_row["bound_by"],
+        "library_ms": emote_row["library_ms"],
+        "shape": emote_row["shape"],
+        "peaks": peaks_line,
+    }, {
+        "name": "keybias_attention",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/bias_attention.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:114",
+        "path": "train-faceformer --root (MEAD windows and crops read from disk, FAN "
+                "conditioning)",
+        "launches": data["ff_launches"]["keybias_attention"],  # the command's run
+        "max_abs_err": ff_k1["max_abs_err"],
+        "ms": ff_k1["ms"],
+        "device_ms": ff_k1["device_ms"],
+        "library_device_ms": ff_k1["library_device_ms"],
+        "plain_ms": ff_k1["plain_ms"],
+        "bound_ms": ff_k1["bound_ms"],
+        "bound_by": ff_k1["bound_by"],
+        "library_ms": ff_k1["library_ms"],
+        "shape": ff_k1["shape"],
+        "peaks": peaks_line,
+    }, {
+        "name": "fused_bias_attention",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/bias_attention.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:185",
+        "path": "train-faceformer --root (MEAD windows and crops read from disk, FAN "
+                "conditioning)",
+        "launches": data["ff_launches"]["fused_bias_attention"],  # the command's run
+        "max_abs_err": ff_k3["max_abs_err"],
+        "ms": ff_k3["ms"],
+        "device_ms": ff_k3["device_ms"],
+        "library_device_ms": ff_k3["library_device_ms"],
+        "plain_ms": ff_k3["plain_ms"],
+        "bound_ms": ff_k3["bound_ms"],
+        "bound_by": ff_k3["bound_by"],
+        "library_ms": ff_k3["library_ms"],
+        "shape": ff_k3["shape"],
+        "bias_shape": ff_k3["bias_shape"],
         "peaks": peaks_line,
     }], "keybias_attention_backward": {k: v for k, v in grad_rows[0].items() if k != "kernel"},
         "total_s": time.perf_counter() - t_start})

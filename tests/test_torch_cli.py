@@ -132,10 +132,14 @@ def test_train_prior_runs_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cmd,flag", [
-    ("train-emote", ["--root", "/data"]), ("train-emote", ["--neural", "--bf16"]),
+    # --root, --json-dir and --captions are ported: what is still refused is
+    # refused beside them too, before any data is read
+    ("train-emote", ["--root", "/data", "--bf16"]), ("train-emote", ["--neural", "--bf16"]),
     ("train-emote", ["--bf16"]),
-    ("train-prior", ["--json-dir", "experiments/json_dir"]), ("train-prior", ["--root", "/d"]),
-    ("train-prior", ["--captions", "c.json"]), ("train-prior", ["--pipeline-checkpoint", "p"]),
+    ("train-prior", ["--json-dir", "experiments/json_dir", "--dp"]),
+    ("train-prior", ["--root", "/d", "--pipeline-checkpoint", "p"]),
+    ("train-prior", ["--captions", "c.json", "--emote-checkpoint", "e"]),
+    ("train-prior", ["--pipeline-checkpoint", "p"]),
     ("train-prior", ["--emote-checkpoint", "e"]), ("train-prior", ["--dp"]),
 ])
 def test_training_commands_refuse_what_is_not_ported(cmd, flag):

@@ -99,9 +99,12 @@ def test_cli_train_faceformer_runs_on_cpu(capsys):
     assert np.isfinite(float(final[0].split("'loss': ")[1].rstrip("}")))
 
 
-@pytest.mark.parametrize("flag", [["--root", "/data"], ["--render-loss"], ["--emo-loss"],
-                                  ["--fan-checkpoint", "f.pt"], ["--emonet-checkpoint", "e.pt"],
-                                  ["--bf16"], ["--checkpoint", "ck"]])
+# --root and --fan-checkpoint are ported: the flags still refused are refused
+# beside them too, before any data or weights are read
+@pytest.mark.parametrize("flag", [["--root", "/data", "--render-loss"], ["--render-loss"],
+                                  ["--emo-loss"], ["--fan-checkpoint", "f.pt", "--bf16"],
+                                  ["--emonet-checkpoint", "e.pt"], ["--bf16"],
+                                  ["--checkpoint", "ck"]])
 def test_cli_train_faceformer_refuses_what_is_not_ported(flag):
     with pytest.raises(SystemExit, match="not ported"):
         cli_main(["train-faceformer", "--tiny", "--device", "cpu", "--steps", "1", *flag])

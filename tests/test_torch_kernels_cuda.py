@@ -586,6 +586,33 @@ def test_fan_encoder_card_matches_cpu(no_tf32):
 
 
 @pytest.mark.cuda
+def test_fan_conditioner_card_matches_cpu(no_tf32):
+    """``FanConditioner.condition`` (train-faceformer --root's conditioning)
+    on identical 64^2 crops at B=2, T=6 with the same seed, the FAN on the
+    card and on the CPU: the draws equal, ``ref_coeff`` equal, the eye and
+    emotion embeddings within 1e-4 of their largest."""
+    from avi_talking_tpu_torch.data.train_batches import FanConditioner
+    from avi_talking_tpu_torch.models.fan_encoder import FanEncoder
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(6)
+    img = (rng.random((2, 6, 64, 64, 3)) * 2 - 1).astype(np.float32)
+    coeff = rng.standard_normal((2, 6, 9)).astype(np.float32)
+    out, states = {}, {}
+    for dev in ("cuda", "cpu"):
+        cond = FanConditioner(FanEncoder.random_init(64, seed=1, device=dev), seed=0)
+        out[dev] = {k: v.cpu() for k, v in cond.condition(img, coeff).items()}
+        states[dev] = cond._rng.bit_generator.state
+    assert states["cuda"] == states["cpu"]
+    assert torch.equal(out["cuda"]["ref_coeff"], out["cpu"]["ref_coeff"])
+    for k in ("eye_embed", "emo_embed"):
+        got, ref = out["cuda"][k], out["cpu"][k]
+        scale = float(ref.abs().max())
+        assert scale > 0 and float((got - ref).abs().max()) <= 1e-4 * scale, k
+
+
+@pytest.mark.cuda
 def test_flame_landmarks_card_match_cpu():
     """A synthetic full-size FLAME with the 68-point tables, global y
     rotations from -60 to 60 degrees (past the contour table's +-39) plus

@@ -127,11 +127,17 @@ def test_identity_split_matches_jax():
 
 
 def test_load_images_is_refused(mead_root):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TMead(root=mead_root, load_images=True)[0]
-    b = TBuilder(TMead(root=mead_root), frames=6)  # JAX's default: load_images=True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b[0]
+    """Images are ported (``tests/test_torch_train_data.py`` holds them):
+    on a tree without crops, ``load_images=True`` items and
+    ``FaceFormerBatchBuilder``'s (JAX's default, load_images=True) are
+    JAX's, with no ``img``."""
+    j, t = JMead(root=mead_root, load_images=True), TMead(root=mead_root, load_images=True)
+    for i in range(len(j)):
+        _same_item(t[i], j[i], f"item {i}")
+        assert "img" not in t[i] and t.image_paths(i) == []
+    jb, tb = JBuilder(JMead(root=mead_root), frames=6), TBuilder(TMead(root=mead_root), frames=6)
+    for k in range(len(jb)):
+        _same_item(tb[k], jb[k], f"builder item {k}")
 
 
 @pytest.mark.parametrize("frames,coeff_dim", [(6, 9), (32, 53)])  # 32 frames: edge padding
