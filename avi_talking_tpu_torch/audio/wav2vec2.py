@@ -20,18 +20,25 @@ Points kept from the JAX module:
   ``keybias_attention`` (the CUDA kernel K1 on the card) in every layer.
   The JAX ``use_pallas_attention`` gate is a TPU measurement and has no
   counterpart here.
+
+``dtype`` is the compute dtype (``ops.layers``, flax's ``dtype``): under
+bfloat16 the convolutions, projections and K1's q, k, v and key bias are
+bfloat16 (-1e9 rounds to -999,817,216, as JAX's bias cast does), the norms
+compute in float32 and return bfloat16. ``wav2vec2_state_from_torch`` reads
+an HF ``Wav2Vec2Model`` state dict.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.keybias_attention import keybias_attention
+from ..ops.layers import Conv1d, GroupNorm, LayerNorm, Linear, gelu, scalar, set_compute_dtype
 from ..ops.resample import linear_interpolate
 
 
@@ -69,8 +76,7 @@ class Wav2Vec2Config:
         )
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="none")
+_gelu = gelu
 
 
 class _ConvLayer(nn.Module):
@@ -78,15 +84,15 @@ class _ConvLayer(nn.Module):
         super().__init__()
         c_in = 1 if layer_id == 0 else cfg.conv_dim[layer_id - 1]
         c_out = cfg.conv_dim[layer_id]
-        self.conv = nn.Conv1d(c_in, c_out, cfg.conv_kernel[layer_id],
+        self.conv = Conv1d(c_in, c_out, cfg.conv_kernel[layer_id],
                               stride=cfg.conv_stride[layer_id], bias=cfg.conv_bias)
         self.norm_kind = None
         if layer_id == 0 and cfg.feat_extract_norm == "group":
             # HF GroupNorm(num_groups=C, num_channels=C): per-channel over time
-            self.layer_norm = nn.GroupNorm(c_out, c_out, eps=cfg.layer_norm_eps)
+            self.layer_norm = GroupNorm(c_out, c_out, eps=cfg.layer_norm_eps)
             self.norm_kind = "group"
         elif cfg.feat_extract_norm == "layer":
-            self.layer_norm = nn.LayerNorm(c_out, eps=cfg.layer_norm_eps)
+            self.layer_norm = LayerNorm(c_out, eps=cfg.layer_norm_eps)
             self.norm_kind = "layer"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, C, L)
@@ -113,8 +119,8 @@ class FeatureExtractor(nn.Module):
 class FeatureProjection(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
-        self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
-        self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+        self.layer_norm = LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
+        self.projection = Linear(cfg.conv_dim[-1], cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.projection(self.layer_norm(x))
@@ -124,7 +130,7 @@ class PositionalConvEmbedding(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         k = cfg.num_conv_pos_embeddings
-        self.conv = nn.Conv1d(cfg.hidden_size, cfg.hidden_size, k, padding=k // 2,
+        self.conv = Conv1d(cfg.hidden_size, cfg.hidden_size, k, padding=k // 2,
                               groups=cfg.num_conv_pos_embedding_groups)
         self.trim = k % 2 == 0  # HF Wav2Vec2SamePadLayer drops one for even kernels
 
@@ -138,17 +144,17 @@ class PositionalConvEmbedding(nn.Module):
 class _Attention(nn.Module):
     def __init__(self, d: int):
         super().__init__()
-        self.q_proj = nn.Linear(d, d)
-        self.k_proj = nn.Linear(d, d)
-        self.v_proj = nn.Linear(d, d)
-        self.out_proj = nn.Linear(d, d)
+        self.q_proj = Linear(d, d)
+        self.k_proj = Linear(d, d)
+        self.v_proj = Linear(d, d)
+        self.out_proj = Linear(d, d)
 
 
 class _FeedForward(nn.Module):
     def __init__(self, d: int, inner: int):
         super().__init__()
-        self.intermediate_dense = nn.Linear(d, inner)
-        self.output_dense = nn.Linear(inner, d)
+        self.intermediate_dense = Linear(d, inner)
+        self.output_dense = Linear(inner, d)
 
 
 class EncoderLayer(nn.Module):
@@ -159,9 +165,9 @@ class EncoderLayer(nn.Module):
         d = cfg.hidden_size
         self.heads = cfg.num_attention_heads
         self.attention = _Attention(d)
-        self.layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.layer_norm = LayerNorm(d, eps=cfg.layer_norm_eps)
         self.feed_forward = _FeedForward(d, cfg.intermediate_size)
-        self.final_layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.final_layer_norm = LayerNorm(d, eps=cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
         B, T, d = x.shape
@@ -172,7 +178,7 @@ class EncoderLayer(nn.Module):
         def heads(t):
             return t.reshape(B, T, h, hd).transpose(1, 2).contiguous()
 
-        q = heads(a.q_proj(x) * (hd ** -0.5))
+        q = heads(a.q_proj(x) * scalar(hd ** -0.5, x.dtype))
         ctx = keybias_attention(q, heads(a.k_proj(x)), heads(a.v_proj(x)), key_bias)
         ctx = a.out_proj(ctx.transpose(1, 2).reshape(B, T, d))
         x = self.layer_norm(x + ctx)
@@ -185,7 +191,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.pos_conv_embed = PositionalConvEmbedding(cfg)
-        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.layer_norm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
@@ -203,7 +209,7 @@ class Wav2Vec2Model(nn.Module):
     """
 
     def __init__(self, cfg: Wav2Vec2Config, model_expected_fps: int = 50,
-                 target_fps: int = 25):
+                 target_fps: int = 25, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         self.model_expected_fps = model_expected_fps
@@ -211,6 +217,7 @@ class Wav2Vec2Model(nn.Module):
         self.feature_extractor = FeatureExtractor(cfg)
         self.feature_projection = FeatureProjection(cfg)
         self.encoder = Encoder(cfg)
+        set_compute_dtype(self, dtype)
 
     def forward(
         self,
@@ -234,3 +241,58 @@ class Wav2Vec2Model(nn.Module):
             x = torch.where(key_valid[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
             key_bias = torch.where(key_valid, 0.0, -1e9).to(x.dtype)
         return self.encoder(x, key_bias)
+
+
+def _pos_conv_weight(sd: Mapping[str, Any], prefix: str) -> torch.Tensor:
+    """The positional conv's (O, I/groups, K) weight: as stored, or from
+    its weight norm ``w = g * v / ||v||`` over dims (0, 1), under either
+    spelling (``weight_g`` / ``weight_v``, or
+    ``parametrizations.weight.original0`` / ``original1``), computed in
+    numpy float32 as JAX's ``audio/import_hf.py::_pos_conv_kernel`` does."""
+    if f"{prefix}weight" in sd:
+        return torch.as_tensor(sd[f"{prefix}weight"])
+    for gk, vk in ((f"{prefix}weight_g", f"{prefix}weight_v"),
+                   (f"{prefix}parametrizations.weight.original0",
+                    f"{prefix}parametrizations.weight.original1")):
+        if gk in sd:
+            g, v = (np.asarray(torch.as_tensor(sd[x]).numpy()) for x in (gk, vk))
+            norm = np.sqrt((v ** 2).sum(axis=(0, 1), keepdims=True))
+            return torch.from_numpy(np.ascontiguousarray(g * v / norm))
+    raise KeyError(f"no pos-conv weight under {prefix!r}")
+
+
+def wav2vec2_state_from_torch(sd: Mapping[str, Any], cfg: Wav2Vec2Config,
+                              prefix: str = "") -> Dict[str, torch.Tensor]:
+    """An HF ``Wav2Vec2Model`` state dict -> ``Wav2Vec2Model`` state. The
+    names are already the port's (less ``prefix``, e.g. ``wav2vec2.``); the
+    positional conv's weight norm is materialised (``_pos_conv_weight``).
+    Reads the keys JAX's ``wav2vec2_params_from_torch`` reads: optional conv
+    biases and extractor norms where the checkpoint has them; a missing key
+    raises ``KeyError``."""
+    p = prefix
+    out: Dict[str, torch.Tensor] = {}
+
+    def take(name):
+        out[name] = torch.as_tensor(sd[p + name])
+
+    for i in range(len(cfg.conv_dim)):
+        cl = f"feature_extractor.conv_layers.{i}."
+        take(cl + "conv.weight")
+        for opt in ("conv.bias", "layer_norm.weight", "layer_norm.bias"):
+            if p + cl + opt in sd:
+                take(cl + opt)
+    for name in ("feature_projection.layer_norm", "feature_projection.projection",
+                 "encoder.layer_norm"):
+        take(name + ".weight")
+        take(name + ".bias")
+    out["encoder.pos_conv_embed.conv.weight"] = _pos_conv_weight(
+        sd, f"{p}encoder.pos_conv_embed.conv.")
+    take("encoder.pos_conv_embed.conv.bias")
+    for i in range(cfg.num_hidden_layers):
+        lp = f"encoder.layers.{i}."
+        for m in ("attention.q_proj", "attention.k_proj", "attention.v_proj",
+                  "attention.out_proj", "layer_norm", "feed_forward.intermediate_dense",
+                  "feed_forward.output_dense", "final_layer_norm"):
+            take(f"{lp}{m}.weight")
+            take(f"{lp}{m}.bias")
+    return out

@@ -27,14 +27,24 @@ Subcommands:
              on the structured synthetic stream or a caption corpus
              (--json-dir / --root through the frozen CLIP text tower and
              style encoder), with validation, best / last checkpoints and
-             --resume
+             --resume (--pipeline-checkpoint / --emote-checkpoint: the frozen
+             towers' weights)
+  import-prior / import-emote / import-clip
+             the reference's published prior .pth, EMOTE .ckpt and CLIP
+             vocab (+ HF text weights) -> checkpoints --checkpoint reads
+  convert-flame
+             FLAME generic_model.pkl (+ landmark embeddings) -> the npz
+             --flame-npz reads
+  stats      MEAD coefficient mean / std
 
 Everything runs on the CUDA card unless ``--device cpu`` is given; without
 a card and without ``--device`` the commands raise. Weights are seeded
-random (``--checkpoint`` and ``--bf16`` are not ported yet and exit with an
-error); ``--flame-npz`` gives real FLAME assets. The JAX package's other
-subcommands (portrait, bench, diversity, the other trainers and importers)
-are still to port.
+random unless ``--checkpoint`` gives them (repeatable: each checkpoint's
+parts overwrite the seeded ones); ``--bf16`` computes in bfloat16 over
+float32 weights, as the JAX package's ``--bf16`` does; ``--flame-npz``
+gives real FLAME assets. The JAX package's other subcommands (portrait,
+bench, diversity, reconstruct, translate-captions, the other trainers) are
+still to port.
 """
 
 from __future__ import annotations
@@ -43,14 +53,15 @@ import argparse
 
 
 def main(argv=None) -> int:
-    from . import run, train, train_emote, train_faceformer_vert, train_prior
+    from . import (importers, reconstruct, run, train, train_emote, train_faceformer_vert,
+                   train_prior)
     from ._common import common_args
 
     p = argparse.ArgumentParser(prog="avi-talking-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
     run.register(sub, common_args)
-    for mod in (train, train_faceformer_vert, train_emote, train_prior):
+    for mod in (train, train_faceformer_vert, train_emote, train_prior, importers, reconstruct):
         mod.register(sub, common_args)
     args = p.parse_args(argv)
     return args.fn(args)

@@ -7,15 +7,20 @@ import sys
 
 
 def _build_pipeline(args):
+    """The pipeline of the product commands: ``--tiny`` or full width,
+    bfloat16 compute under ``--bf16`` (float32 parameters), seeded weights
+    overwritten by each ``--checkpoint`` in turn (a pipeline checkpoint or
+    an importer's: the parts it holds)."""
+    import torch
+
     from ..core.assets import default_assets_path, load_flame_assets, synthetic_assets
+    from ..infra.checkpoint import FILE
     from ..pipeline import AviTalkingPipeline, PipelineConfig
 
-    if args.bf16:
-        raise SystemExit("--bf16 is not ported to avi_talking_tpu_torch yet: "
-                         "the port computes in float32")
-    if args.checkpoint:
-        raise SystemExit("--checkpoint is not ported to avi_talking_tpu_torch yet: "
-                         "the port runs seeded random weights")
+    for path in args.checkpoint or ():
+        if not os.path.isfile(os.path.join(path, FILE)):
+            raise SystemExit(f"--checkpoint {path}: no {FILE} there (write one with an "
+                             "importer or AviTalkingPipeline.save)")
     if args.tiny:
         cfg = PipelineConfig.tiny()
         assets = synthetic_assets(n_shape=cfg.emote.n_shape, n_exp=cfg.emote.n_exp)
@@ -29,7 +34,12 @@ def _build_pipeline(args):
                 "emitting exp/jaw coefficients only",
                 file=sys.stderr,
             )
-    return AviTalkingPipeline.random_init(cfg, flame_assets=assets, device=args.device)
+    pipe = AviTalkingPipeline.random_init(
+        cfg, flame_assets=assets, device=args.device,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32)
+    for path in args.checkpoint or ():
+        pipe.load(path)
+    return pipe
 
 
 def _save_outputs(out, out_dir: str, name: str, pipe, args) -> None:
@@ -54,9 +64,12 @@ def _save_outputs(out, out_dir: str, name: str, pipe, args) -> None:
 def common_args(sp):
     """Flags shared by the product-pipeline commands."""
     sp.add_argument("--tiny", action="store_true", help="tiny test config")
-    sp.add_argument("--bf16", action="store_true", help="bfloat16 compute (not ported yet)")
+    sp.add_argument("--bf16", action="store_true",
+                    help="bfloat16 compute over float32 weights")
     sp.add_argument("--flame-npz", default=None)
-    sp.add_argument("--checkpoint", default=None, help="(not ported yet)")
+    sp.add_argument("--checkpoint", action="append", default=None,
+                    help="a checkpoint directory (AviTalkingPipeline.save, import-prior, "
+                         "import-emote, import-clip --weights); repeat to load several")
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--cond-scale", type=float, default=1.0)
     sp.add_argument("--out", default="outputs")

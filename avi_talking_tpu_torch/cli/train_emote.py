@@ -12,7 +12,8 @@ import itertools
 import sys
 
 REFUSED = {
-    "bf16": "--bf16 needs K1 / K3 on bf16 inputs (ROADMAP Queue 1, item 4d)",
+    "bf16": "--bf16 trains the towers at bfloat16 through K1's bfloat16 backward (ROADMAP "
+            "Queue 2, train-emote --bf16; generate / instruct / serve take --bf16)",
 }
 
 

@@ -2,27 +2,40 @@
 synthetic stream or, with ``--json-dir`` (+ ``--wav-dir``) or ``--root``
 (+ ``--captions``), on a caption corpus featurized by the frozen CLIP text
 tower and style encoder (``data.prior_corpus``), split into train and val
-by clip (``--val-fraction``, read when ``--val-every`` is set)."""
+by clip (``--val-fraction``, read when ``--val-every`` is set). The towers'
+weights come from ``--pipeline-checkpoint`` (its ``clip`` part, with the
+real CLIP tokenizer required) and ``--emote-checkpoint`` (the style
+encoder of an ``import-emote`` or pipeline checkpoint's ``head``, or of a
+``train-emote`` run checkpoint's ``params``), else from a seed."""
 
 from __future__ import annotations
 
 import sys
 
 REFUSED = {
-    "pipeline_checkpoint": "--pipeline-checkpoint needs checkpoint import (ROADMAP Queue 1, "
-                           "item 4b)",
-    "emote_checkpoint": "--emote-checkpoint needs checkpoint import (ROADMAP Queue 1, item 4b)",
     "dp": "--dp needs the data-parallel port (ROADMAP Queue 1, item 7)",
 }
 
 
-def build_featurizer(tiny: bool, clip_size: int, device):
-    """The frozen towers at seeded random init, from one generator seeded
-    0: the CLIP text tower (``ClipTextConfig()``, or ``.tiny()``), then the
-    style encoder over 9 + 3 + 32 + n_shape conditions (n_shape 300, tiny 8)."""
+def _style_encoder_state(ckpt) -> dict:
+    """The style encoder's ``map`` of a checkpoint's EMOTE head: its
+    ``head`` part (``import-emote``, a pipeline checkpoint) or its
+    ``params`` (a ``train-emote`` run checkpoint)."""
+    head = ckpt["head"] if "head" in ckpt else ckpt["params"]
+    return {k[len("style_encoder."):]: v for k, v in head.items()
+            if k.startswith("style_encoder.")}
+
+
+def build_featurizer(tiny: bool, clip_size: int, device, pipeline_checkpoint=None,
+                     emote_checkpoint=None):
+    """The frozen towers, from one generator seeded 0: the CLIP text tower
+    (``ClipTextConfig()``, or ``.tiny()``), then the style encoder over
+    9 + 3 + 32 + n_shape conditions (n_shape 300, tiny 8); each then loaded
+    from its checkpoint where one is given (JAX's ``_build_prior_corpus``)."""
     import torch
 
     from ..data.prior_corpus import PriorCorpusFeaturizer
+    from ..infra.checkpoint import restore_checkpoint
     from ..infra.init import random_module
     from ..models.clip_text import ClipTextConfig, ClipTextModel
     from ..models.conditioning import EmotionStyleEncoder
@@ -33,9 +46,14 @@ def build_featurizer(tiny: bool, clip_size: int, device):
     g = torch.Generator().manual_seed(0)
     clip = random_module(lambda: ClipTextModel(clip_cfg), device, g)
     enc = random_module(lambda: EmotionStyleEncoder(9 + 3 + 32 + n_shape, clip_size), device, g)
-    return PriorCorpusFeaturizer(
-        clip_model=clip, style_encoder=enc, shape_dim=n_shape,
-        tokenizer=load_tokenizer(clip_cfg.vocab_size, clip_cfg.max_position_embeddings))
+    tokenizer = load_tokenizer(clip_cfg.vocab_size, clip_cfg.max_position_embeddings,
+                               require_real=bool(pipeline_checkpoint))
+    if pipeline_checkpoint:
+        clip.load_state_dict(restore_checkpoint(pipeline_checkpoint)["clip"])
+    if emote_checkpoint:
+        enc.load_state_dict(_style_encoder_state(restore_checkpoint(emote_checkpoint)))
+    return PriorCorpusFeaturizer(clip_model=clip, style_encoder=enc, shape_dim=n_shape,
+                                 tokenizer=tokenizer)
 
 
 def build_prior_corpus(args, cfg, device):
@@ -49,10 +67,12 @@ def build_prior_corpus(args, cfg, device):
     if not items:
         raise SystemExit("no (caption, condition) pairs found in the corpus")
     print(f"corpus: {len(items)} caption pairs")
-    feat = build_featurizer(args.tiny, cfg.clip_size, device)
-    for tower, flag in (("CLIP", "--pipeline-checkpoint"), ("style", "--emote-checkpoint")):
-        print(f"train-prior: no {flag}; the frozen {tower} tower is RANDOM-init (smoke semantics)",
-              file=sys.stderr)
+    feat = build_featurizer(args.tiny, cfg.clip_size, device, args.pipeline_checkpoint,
+                            args.emote_checkpoint)
+    for tower, flag in (("CLIP", "pipeline_checkpoint"), ("style", "emote_checkpoint")):
+        if not getattr(args, flag):
+            print(f"train-prior: no --{flag.replace('_', '-')}; the frozen {tower} tower is "
+                  "RANDOM-init (smoke semantics)", file=sys.stderr)
     val_fraction = args.val_fraction if cfg.val_every else 0.0
     train_items, val_items = split_items(items, val_fraction)
     if cfg.val_every and not val_items:
@@ -111,8 +131,11 @@ def register(sub, common):
     t.add_argument("--val-fraction", type=float, default=0.1,
                    help="held-out clip fraction of the corpus")
     t.add_argument("--tiny", action="store_true", help="test-sized CLIP and prior dims")
-    for flag in ("--pipeline-checkpoint", "--emote-checkpoint"):
-        t.add_argument(flag, default=None, help="(not ported yet)")
+    t.add_argument("--pipeline-checkpoint", default=None,
+                   help="checkpoint with the CLIP tower (its clip part) for --json-dir / --root")
+    t.add_argument("--emote-checkpoint", default=None,
+                   help="checkpoint with the EMOTE head (its style encoder) for --json-dir / "
+                        "--root")
     t.add_argument("--dp", action="store_true", help="(not ported yet)")
     t.add_argument("--device", default=None,
                    help="torch device; the default is the CUDA card, and no card is an error")

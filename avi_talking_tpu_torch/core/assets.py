@@ -1,5 +1,10 @@
-"""FLAME asset loading (host side; port of ``avi_talking_tpu/core/assets.py``
+"""FLAME asset conversion and loading (host side; port of
+``avi_talking_tpu/core/assets.py``: ``convert_flame_pickle``,
 ``default_assets_path``, ``load_flame_assets`` and ``synthetic_assets``).
+
+``convert_flame_pickle`` turns the user's FLAME ``generic_model.pkl`` (and
+the landmark embeddings) into the npz that ``load_flame_assets`` and
+``--flame-npz`` read, once, with numpy only.
 
 ``synthetic_assets`` makes the same numpy draws in the same order as the
 JAX version, so one seed gives the same arrays in both packages. Assets come
@@ -9,6 +14,7 @@ back as CPU tensors; the head moves them to its device.
 from __future__ import annotations
 
 import os
+import pickle
 from typing import Optional
 
 import numpy as np
@@ -26,6 +32,58 @@ _LANDMARK_FIELDS = (
     "mediapipe_lmk_faces_idx",
     "mediapipe_lmk_bary_coords",
 )
+
+
+def _to_np(x) -> np.ndarray:
+    """numpy of an array-like: scipy sparse (``toarray``), chumpy (``.r``)
+    or plain."""
+    if hasattr(x, "toarray"):
+        return np.asarray(x.toarray())
+    if hasattr(x, "r"):
+        return np.asarray(x.r)
+    return np.asarray(x)
+
+
+def convert_flame_pickle(model_path: str, out_path: str,
+                         lmk_embedding_path: Optional[str] = None,
+                         mediapipe_lmk_embedding_path: Optional[str] = None) -> str:
+    """FLAME's ``generic_model.pkl`` (latin-1 pickle) and optional landmark
+    embedding npys -> one compressed npz: ``v_template``, ``shapedirs``,
+    ``posedirs`` as (n_pose_basis, V*3), ``j_regressor``, ``lbs_weights``,
+    ``faces`` and the landmark tables, in the dtypes and layouts JAX's
+    converter writes."""
+    with open(model_path, "rb") as f:
+        m = pickle.load(f, encoding="latin1")
+    posedirs = _to_np(m["posedirs"]).astype(np.float32)
+    num_pose_basis = posedirs.shape[-1]
+    arrays = {
+        "v_template": _to_np(m["v_template"]).astype(np.float32),
+        "shapedirs": _to_np(m["shapedirs"]).astype(np.float32),
+        "posedirs": posedirs.reshape(-1, num_pose_basis).T.copy(),
+        "j_regressor": _to_np(m["J_regressor"]).astype(np.float32),
+        "lbs_weights": _to_np(m["weights"]).astype(np.float32),
+        "faces": _to_np(m["f"]).astype(np.int32),
+    }
+    if lmk_embedding_path:
+        lmk = np.load(lmk_embedding_path, allow_pickle=True, encoding="latin1")[()]
+        arrays.update(
+            lmk_faces_idx=np.asarray(lmk["static_lmk_faces_idx"]).astype(np.int32),
+            lmk_bary_coords=np.asarray(lmk["static_lmk_bary_coords"]).astype(np.float32),
+            dynamic_lmk_faces_idx=np.asarray(lmk["dynamic_lmk_faces_idx"]).astype(np.int32),
+            dynamic_lmk_bary_coords=np.asarray(
+                lmk["dynamic_lmk_bary_coords"]).astype(np.float32),
+            full_lmk_faces_idx=np.asarray(lmk["full_lmk_faces_idx"]).reshape(-1).astype(np.int32),
+            full_lmk_bary_coords=np.asarray(
+                lmk["full_lmk_bary_coords"]).reshape(-1, 3).astype(np.float32),
+        )
+    if mediapipe_lmk_embedding_path:
+        mp = np.load(mediapipe_lmk_embedding_path, allow_pickle=True, encoding="latin1")
+        arrays.update(
+            mediapipe_lmk_faces_idx=np.asarray(mp["lmk_face_idx"]).astype(np.int32),
+            mediapipe_lmk_bary_coords=np.asarray(mp["lmk_b_coords"]).astype(np.float32),
+        )
+    np.savez_compressed(out_path, **arrays)
+    return out_path
 
 
 def default_assets_path() -> Optional[str]:

@@ -9,7 +9,8 @@ Dropout acts only where the caller passes keep masks (JAX's
 ``deterministic=False``): one (B, hidden) boolean mask after ``lin0``
 (rate 0.5) and one after each block (0.15), kept values scaled by
 1 / (1 - rate) as flax does; ``dropout_masks`` draws them from a
-``torch.Generator``. Without masks the network is deterministic."""
+``torch.Generator``. Without masks the network is deterministic. ``dtype`` is the compute
+dtype (``ops.layers``)."""
 
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops.layers import GELU, LayerNorm, Linear, set_compute_dtype
+
 FLAX_LN_EPS = 1e-6
 
 
@@ -25,30 +28,32 @@ def _block(d_in: int, d_out: int) -> nn.Sequential:
     """Linear, LayerNorm, GELU; the identity holds the reference's Dropout
     slot (``forward`` applies the masks)."""
     return nn.Sequential(
-        nn.Linear(d_in, d_out), nn.LayerNorm(d_out, eps=FLAX_LN_EPS), nn.GELU(), nn.Identity())
+        Linear(d_in, d_out), LayerNorm(d_out, eps=FLAX_LN_EPS), GELU(), nn.Identity())
 
 
 class BrainNetwork(nn.Module):
     def __init__(self, out_dim: int = 128, in_dim: int = 768, clip_size: int = 128,
                  hidden: int = 4096, n_blocks: int = 4, use_projector: bool = True,
-                 dropout_rate: float = 0.5, block_dropout_rate: float = 0.15):
+                 dropout_rate: float = 0.5, block_dropout_rate: float = 0.15,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.clip_size, self.hidden = clip_size, hidden
         self.rates = [dropout_rate] + [block_dropout_rate] * n_blocks
         self.lin0 = _block(in_dim, hidden)
         self.mlp = nn.ModuleList(
             _block(hidden, hidden) for _ in range(n_blocks))
-        self.lin1 = nn.Linear(hidden, out_dim)
+        self.lin1 = Linear(hidden, out_dim)
         self.projector = None
         if use_projector:
             self.projector = nn.Sequential(
-                nn.LayerNorm(clip_size, eps=FLAX_LN_EPS), nn.GELU(),
-                nn.Linear(clip_size, 2048),
-                nn.LayerNorm(2048, eps=FLAX_LN_EPS), nn.GELU(),
-                nn.Linear(2048, 2048),
-                nn.LayerNorm(2048, eps=FLAX_LN_EPS), nn.GELU(),
-                nn.Linear(2048, clip_size),
+                LayerNorm(clip_size, eps=FLAX_LN_EPS), GELU(),
+                Linear(clip_size, 2048),
+                LayerNorm(2048, eps=FLAX_LN_EPS), GELU(),
+                Linear(2048, 2048),
+                LayerNorm(2048, eps=FLAX_LN_EPS), GELU(),
+                Linear(2048, clip_size),
             )
+        set_compute_dtype(self, dtype)
 
     def dropout_masks(self, batch: int, generator: torch.Generator) -> List[torch.Tensor]:
         """Keep masks for ``forward``: Bernoulli(1 - rate), lin0's first."""

@@ -3,15 +3,20 @@
 embeddings, pre-LN layers with quick_gelu MLPs, a -1e9 causal bias, final
 LayerNorm, all LayerNorms at epsilon 1e-5. Returns the last hidden state
 (B, T, hidden); the pipeline means it over tokens. Parameter names are HF's
-without the ``text_model.`` prefix."""
+without the ``text_model.`` prefix. ``dtype`` is the compute dtype
+(``ops.layers``); the attention scores and softmax stay float32, as in JAX.
+``clip_text_state_from_torch`` reads an HF ``CLIPTextModel`` state dict."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict, Mapping
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from ..ops.layers import (Embedding, LayerNorm, Linear, gelu, scalar, set_compute_dtype,
+                          sigmoid)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,26 +40,26 @@ class ClipTextConfig:
 
 def _act(name: str):
     if name == "quick_gelu":
-        return lambda x: x * torch.sigmoid(1.702 * x)
+        return lambda x: x * sigmoid(scalar(1.702, x.dtype) * x)
     if name == "gelu":
-        return lambda x: F.gelu(x, approximate="none")
+        return gelu
     raise ValueError(name)
 
 
 class _SelfAttention(nn.Module):
     def __init__(self, d: int):
         super().__init__()
-        self.q_proj = nn.Linear(d, d)
-        self.k_proj = nn.Linear(d, d)
-        self.v_proj = nn.Linear(d, d)
-        self.out_proj = nn.Linear(d, d)
+        self.q_proj = Linear(d, d)
+        self.k_proj = Linear(d, d)
+        self.v_proj = Linear(d, d)
+        self.out_proj = Linear(d, d)
 
 
 class _Mlp(nn.Module):
     def __init__(self, d: int, inner: int):
         super().__init__()
-        self.fc1 = nn.Linear(d, inner)
-        self.fc2 = nn.Linear(inner, d)
+        self.fc1 = Linear(d, inner)
+        self.fc2 = Linear(inner, d)
 
 
 class ClipEncoderLayer(nn.Module):
@@ -62,9 +67,9 @@ class ClipEncoderLayer(nn.Module):
         super().__init__()
         d = cfg.hidden_size
         self.cfg = cfg
-        self.layer_norm1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.layer_norm1 = LayerNorm(d, eps=cfg.layer_norm_eps)
         self.self_attn = _SelfAttention(d)
-        self.layer_norm2 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.layer_norm2 = LayerNorm(d, eps=cfg.layer_norm_eps)
         self.mlp = _Mlp(d, cfg.intermediate_size)
 
     def forward(self, x: torch.Tensor, causal_bias: torch.Tensor) -> torch.Tensor:
@@ -78,10 +83,11 @@ class ClipEncoderLayer(nn.Module):
             return t.reshape(B, T, h, hd).transpose(1, 2)
 
         y = self.layer_norm1(x)
-        q = heads(a.q_proj(y) * (hd ** -0.5))
-        logits = torch.einsum("bhtd,bhsd->bhts", q, heads(a.k_proj(y))) + causal_bias
-        attn = torch.softmax(logits, dim=-1)
-        ctx = torch.einsum("bhts,bhsd->bhtd", attn, heads(a.v_proj(y)))
+        q = heads(a.q_proj(y) * scalar(hd ** -0.5, y.dtype))
+        v = heads(a.v_proj(y))
+        logits = torch.einsum("bhtd,bhsd->bhts", q.float(), heads(a.k_proj(y)).float())
+        attn = torch.softmax(logits + causal_bias, dim=-1).to(v.dtype)
+        ctx = torch.einsum("bhts,bhsd->bhtd", attn, v)
         x = x + a.out_proj(ctx.transpose(1, 2).reshape(B, T, d))
         y = self.mlp.fc2(_act(c.hidden_act)(self.mlp.fc1(self.layer_norm2(x))))
         return x + y
@@ -90,8 +96,8 @@ class ClipEncoderLayer(nn.Module):
 class _Embeddings(nn.Module):
     def __init__(self, cfg: ClipTextConfig):
         super().__init__()
-        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.position_embedding = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
+        self.token_embedding = Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embedding = Embedding(cfg.max_position_embeddings, cfg.hidden_size)
 
 
 class _Encoder(nn.Module):
@@ -101,19 +107,42 @@ class _Encoder(nn.Module):
 
 
 class ClipTextModel(nn.Module):
-    def __init__(self, cfg: ClipTextConfig):
+    def __init__(self, cfg: ClipTextConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         self.embeddings = _Embeddings(cfg)
         self.encoder = _Encoder(cfg)
-        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        set_compute_dtype(self, dtype)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:  # (B, T) int
         T = input_ids.shape[1]
         e = self.embeddings
-        x = e.token_embedding(input_ids) + e.position_embedding.weight[None, :T]
+        x = e.token_embedding(input_ids)
+        x = x + e.position_embedding.weight[None, :T].to(x.dtype)
         i = torch.arange(T, device=input_ids.device)
-        causal_bias = torch.where(i[None, :] > i[:, None], -1e9, 0.0).to(x.dtype)
+        causal_bias = torch.where(i[None, :] > i[:, None], -1e9, 0.0)  # float32
         for layer in self.encoder.layers:
             x = layer(x, causal_bias)
         return self.final_layer_norm(x)
+
+
+def clip_text_state_from_torch(sd: Mapping[str, Any],
+                               prefix: str = "text_model.") -> Dict[str, torch.Tensor]:
+    """An HF ``CLIPTextModel`` state dict -> ``ClipTextModel`` state: the
+    names are HF's less ``prefix``, for the embeddings, every encoder layer
+    the checkpoint has and the final LayerNorm (JAX:
+    ``models/clip_text.py::clip_text_params_from_torch``, which reads the
+    same keys). A missing key raises ``KeyError``; HF's ``position_ids``
+    buffer and anything else is not read."""
+    names = ["embeddings.token_embedding.weight", "embeddings.position_embedding.weight",
+             "final_layer_norm.weight", "final_layer_norm.bias"]
+    i = 0
+    while f"{prefix}encoder.layers.{i}.layer_norm1.weight" in sd:
+        lp = f"encoder.layers.{i}."
+        names += [f"{lp}{m}.{w}" for m in ("layer_norm1", "layer_norm2", "self_attn.q_proj",
+                                           "self_attn.k_proj", "self_attn.v_proj",
+                                           "self_attn.out_proj", "mlp.fc1", "mlp.fc2")
+                  for w in ("weight", "bias")]
+        i += 1
+    return {n: torch.as_tensor(sd[prefix + n]) for n in names}

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.layers import Linear
+
 # width of StyleCondition.make()'s concat: 8 + 3 + 32 + 300
 DEFAULT_CONDITION_DIM = 343
 
@@ -54,7 +56,7 @@ class EmotionStyleEncoder(nn.Module):
     def __init__(self, input_dim: int = DEFAULT_CONDITION_DIM, output_dim: int = 128,
                  use_bias: bool = True):
         super().__init__()
-        self.map = nn.Linear(input_dim, output_dim, bias=use_bias)
+        self.map = Linear(input_dim, output_dim, bias=use_bias)
 
     def forward(self, condition: torch.Tensor) -> torch.Tensor:
         return self.map(condition)

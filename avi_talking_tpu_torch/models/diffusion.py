@@ -9,7 +9,9 @@ DDPM, ``noise_steps`` (steps, B, n, D)), or draw it from the given
 ``torch.Generator`` on the text embedding's device: jax.random streams cannot
 be reproduced in torch, so the tests hand both packages the same draws.
 Schedule coefficients are read on the host as fp32 scalars, as the JAX
-version gathers them from fp32 tables.
+version gathers them from fp32 tables. Those tables promote a bfloat16
+prediction to float32 before it meets them, so the samplers take the
+network's prediction in float32 and carry x in float32 at any compute dtype.
 """
 
 from __future__ import annotations
@@ -153,7 +155,7 @@ class DiffusionPrior:
 
     def _predict_x_start(self, x, t: int, text_embed, cond_scale: float) -> torch.Tensor:
         tb = torch.full((x.shape[0],), t, dtype=torch.int32, device=x.device)
-        return self.net.forward_with_cond_scale(x, tb, text_embed, cond_scale)
+        return self.net.forward_with_cond_scale(x, tb, text_embed, cond_scale).float()
 
     def p_sample_loop(
         self,

@@ -7,6 +7,11 @@
     -> stack-linear squash: (B, T/8, 8*128) -> (B, T/8, 128) latents
     -> FLINT decoder -> (B, T, 53) -> exp (B, T, 50), jaw (B, T, 3)
     -> FLAME(zero shape, exp, [0, jaw]) over B*T frames -> (B, T, V, 3)
+
+``dtype`` is the compute dtype (``ops.layers``), as JAX's ``dtype``: the
+audio enters in it, exp / jaw come out in it, and FLAME runs in float32 on
+their values. The float32 style promotes the decoder's input to float32, as
+in JAX.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from torch import nn
 
 from ..audio.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from ..core.flame import FlameAssets, FlameModel
+from ..ops.layers import Conv1d, LeakyReLU, Linear, set_compute_dtype
 from ..ops.transformer import TransformerEncoder
 from .conditioning import DEFAULT_CONDITION_DIM, EmotionStyleEncoder, StyleCondition
 from .flint import FlintConfig, FlintDecoder, RunningStatsBatchNorm1d
@@ -34,9 +40,9 @@ class ConvSquasher(nn.Module):
         stages = []
         for i in range(quant_factor):
             layers = [
-                nn.Conv1d(in_dim if i == 0 else out_dim, out_dim, 5,
+                Conv1d(in_dim if i == 0 else out_dim, out_dim, 5,
                           stride=2 if i == 0 else 1, padding=2, padding_mode="replicate"),
-                nn.LeakyReLU(0.2),
+                LeakyReLU(0.2),
                 RunningStatsBatchNorm1d(out_dim, eps=1e-5),
             ]
             if i > 0:
@@ -93,31 +99,34 @@ class EmoteTalkingHead(nn.Module):
     head in ``eval()`` mode, as ``random_module`` leaves it."""
 
     def __init__(self, cfg: EmoteConfig, flame_assets: Optional[FlameAssets] = None,
-                 condition_dim: int = DEFAULT_CONDITION_DIM):
+                 condition_dim: int = DEFAULT_CONDITION_DIM,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         c = self.cfg = cfg
         self.flame_assets = flame_assets
         self.audio_encoder = Wav2Vec2Model(c.wav2vec2)
-        self.sequence_encoder = nn.Linear(c.wav2vec2.hidden_size, c.feature_dim)
+        self.sequence_encoder = Linear(c.wav2vec2.hidden_size, c.feature_dim)
         self.style_encoder = EmotionStyleEncoder(condition_dim, c.feature_dim)
         d = c.feature_dim * (2 if c.style_op == "cat" else 1)
         self.bert_decoder = (
             TransformerEncoder(c.num_layers, d, c.nhead, d, c.activation, c.dropout)
             if c.num_layers > 0 else None)
-        self.decoder = nn.Linear(d, c.flint.bottleneck_dim)
+        self.decoder = Linear(d, c.flint.bottleneck_dim)
         sq_dim = d if c.squash_before else c.flint.bottleneck_dim
         lfs = c.flint.latent_frame_size
         if c.squash_type == "stack_linear":
-            self.squasher = nn.Linear(lfs * sq_dim, sq_dim)
+            self.squasher = Linear(lfs * sq_dim, sq_dim)
         elif c.squash_type == "conv":
             self.squasher = ConvSquasher(sq_dim, sq_dim, c.flint.quant_factor)
         else:
             raise ValueError(c.squash_type)
         self.motion_prior = FlintDecoder(c.flint)
+        self.compute_dtype = dtype
+        set_compute_dtype(self, dtype)
 
     def style_embedding(self, condition: StyleCondition) -> torch.Tensor:
         """(B, 128) style from one-hot conditions."""
-        return self.style_encoder(condition.concat())
+        return self.style_encoder(condition.concat().to(self.compute_dtype))
 
     def _squash(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -142,7 +151,7 @@ class EmoteTalkingHead(nn.Module):
             raise ValueError(
                 f"frame count {T} must be a multiple of the FLINT latent frame "
                 f"size {lfs}; pad the audio (audio.frontend.frame_audio pad_to_multiple)")
-        flat = raw_audio.reshape(B, -1).float()
+        flat = raw_audio.reshape(B, -1).to(self.compute_dtype)
         feats = self.audio_encoder(flat, output_len=T, valid_len=valid_len)
         if not c.audio_trainable:  # JAX: stop_gradient at the features
             feats = feats.detach()
@@ -177,7 +186,7 @@ class EmoteTalkingHead(nn.Module):
             shape_bt = gt_shape[:, None].expand(B, T, c.n_shape)
             pose = torch.cat([torch.zeros_like(jaw), jaw], dim=-1)
             result["vertices"] = flame.vertices_only(
-                shape_bt.reshape(B * T, -1),
+                shape_bt.reshape(B * T, -1).float(),
                 exp.reshape(B * T, -1).float(),
                 pose.reshape(B * T, -1).float(),
             ).reshape(B, T, -1, 3)

@@ -17,6 +17,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..ops.layers import Conv1d, ConvTranspose1d, LeakyReLU, Linear
 from ..ops.positional import periodic_positional_encoding, sinusoidal_positional_encoding
 from ..ops.transformer import TransformerEncoder
 
@@ -50,14 +51,18 @@ class RunningStatsBatchNorm1d(nn.BatchNorm1d):
     not ``F.batch_norm``, so that autograd reaches the statistics when they
     require grad: the JAX training steps hand the whole variables tree,
     ``batch_stats`` included, to optax, and the statistics then train like
-    weights (``train.talking_head.emote_trainables``)."""
+    weights (``train.talking_head.emote_trainables``). Under a bfloat16
+    ``compute_dtype`` the input is promoted to the statistics' float32 and
+    the result rounded back, as flax's BatchNorm does."""
+
+    compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, C) or (B, C, T)
         def col(t):
             return t.reshape((1, -1) + (1,) * (x.dim() - 2))
 
         mul = torch.rsqrt(col(self.running_var) + self.eps) * col(self.weight)
-        return (x - col(self.running_mean)) * mul + col(self.bias)
+        return ((x - col(self.running_mean)) * mul + col(self.bias)).to(self.compute_dtype)
 
 
 class FlintDecoder(nn.Module):
@@ -66,25 +71,25 @@ class FlintDecoder(nn.Module):
         c = self.cfg = cfg
         f = c.feature_dim
         stages = [nn.Sequential(
-            nn.ConvTranspose1d(c.bottleneck_dim, f, 5, stride=2, padding=2, output_padding=1),
-            nn.LeakyReLU(0.2),
+            ConvTranspose1d(c.bottleneck_dim, f, 5, stride=2, padding=2, output_padding=1),
+            LeakyReLU(0.2),
             RunningStatsBatchNorm1d(f, eps=1e-5),
         )]
         for _ in range(1, c.quant_factor):
             stages.append(nn.Sequential(
-                nn.Conv1d(f, f, 5, padding=2, padding_mode="replicate"),
-                nn.LeakyReLU(0.2),
+                Conv1d(f, f, 5, padding=2, padding_mode="replicate"),
+                LeakyReLU(0.2),
                 RunningStatsBatchNorm1d(f, eps=1e-5),
             ))
         self.expander = nn.ModuleList(stages)
-        self.decoder_linear_embedding = nn.Linear(f, f)
+        self.decoder_linear_embedding = Linear(f, f)
         self.decoder_transformer = TransformerEncoder(
             c.num_layers, f, c.nhead, c.intermediate_size, c.activation)
         if c.post_transformer_proj:
-            self.post_transformer_linear = nn.Linear(f, f)
-        self.cross_smooth_layer = nn.Conv1d(f, c.out_dim, 5, padding=2)
+            self.post_transformer_linear = Linear(f, f)
+        self.cross_smooth_layer = Conv1d(f, c.out_dim, 5, padding=2)
         if c.post_conv_proj:
-            self.post_conv_proj = nn.Linear(c.out_dim, c.out_dim)
+            self.post_conv_proj = Linear(c.out_dim, c.out_dim)
 
     def forward(self, latents: torch.Tensor) -> torch.Tensor:
         """(B, T_latent, D) -> (B, T_latent * 2**q, out_dim)."""

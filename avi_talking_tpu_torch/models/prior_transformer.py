@@ -15,6 +15,11 @@
 
 Parameter names follow the reference's dalle2 state dict
 (``causal_transformer.layers.{i}.0.to_q``, ``to_time_embeds.0.1.net.0.0``).
+
+``dtype`` is the compute dtype (``ops.layers``), as in JAX: the projections
+run in it, the attention scores and softmax in float32, ``LucidLayerNorm``
+in its input's dtype; the residual stream stays float32 because the tokens
+concatenate a float32 image embedding, as JAX's promotion makes them.
 """
 
 from __future__ import annotations
@@ -23,15 +28,16 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..ops.layers import Linear, SiLU, gelu, scalar, set_compute_dtype
 from ..ops.positional import t5_relative_position_bucket
 
 
 def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    """``F.normalize`` semantics over the last axis: x / max(||x||, eps)."""
-    return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=eps)
+    """``F.normalize`` semantics over the last axis: x / max(||x||, eps),
+    the norm as JAX's ``jnp.linalg.norm`` forms it (squares in x's dtype)."""
+    return x / torch.clamp(torch.sqrt((x * x).sum(dim=-1, keepdim=True)), min=eps)
 
 
 class LucidLayerNorm(nn.Module):
@@ -47,7 +53,10 @@ class LucidLayerNorm(nn.Module):
             x = x / x.amax(dim=-1, keepdim=True).detach()
         mean = x.mean(dim=-1, keepdim=True)
         var = x.var(dim=-1, unbiased=False, keepdim=True)
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.g
+        # rsqrt in float32, rounded once: torch's bfloat16 rsqrt on the CPU
+        # is not correctly rounded (JAX's is)
+        inv = torch.rsqrt((var + scalar(self.eps, x.dtype)).float()).to(x.dtype)
+        return (x - mean) * inv * self.g.to(x.dtype)
 
 
 def sinusoidal_time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -75,9 +84,9 @@ class TimeEmbedMLP(nn.Module):
         super().__init__()
         hidden = 2 * dim_out
         self.net = nn.Sequential(
-            nn.Sequential(nn.Linear(dim, hidden), nn.SiLU()),
-            nn.Sequential(nn.Linear(hidden, hidden), nn.SiLU()),
-            nn.Linear(hidden, dim_out),
+            nn.Sequential(Linear(dim, hidden), SiLU()),
+            nn.Sequential(Linear(hidden, hidden), SiLU()),
+            Linear(hidden, dim_out),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -125,28 +134,30 @@ class PriorAttention(nn.Module):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         self.norm = LucidLayerNorm(dim)
-        self.to_q = nn.Linear(dim, heads * dim_head, bias=False)
-        self.to_kv = nn.Linear(dim, 2 * dim_head, bias=False)
+        self.to_q = Linear(dim, heads * dim_head, bias=False)
+        self.to_kv = Linear(dim, 2 * dim_head, bias=False)
         self.null_kv = nn.Parameter(torch.empty(2, dim_head))
-        self.to_out = nn.Sequential(nn.Linear(heads * dim_head, dim, bias=False), LucidLayerNorm(dim))
+        self.to_out = nn.Sequential(Linear(heads * dim_head, dim, bias=False), LucidLayerNorm(dim))
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, T, _ = x.shape
         h, dh = self.heads, self.dim_head
         x = self.norm(x)
-        q = self.to_q(x).reshape(B, T, h, dh).transpose(1, 2) * (dh ** -0.5)
+        q = self.to_q(x).reshape(B, T, h, dh).transpose(1, 2)
+        q = q * scalar(dh ** -0.5, q.dtype)
         k, v = self.to_kv(x).chunk(2, dim=-1)  # (B, T, dh) single head
-        pos = _rotary_freqs(T, min(32, dh), x.device).to(x.dtype)
+        pos = _rotary_freqs(T, min(32, dh), x.device).to(q.dtype)
         q = _apply_rotary(pos, q)
         k = _apply_rotary(pos, k)
-        k = torch.cat([self.null_kv[0].expand(B, 1, dh), k], dim=1)  # (B, T+1, dh)
-        v = torch.cat([self.null_kv[1].expand(B, 1, dh), v], dim=1)
+        null_kv = self.null_kv.to(k.dtype)
+        k = torch.cat([null_kv[0].expand(B, 1, dh), k], dim=1)  # (B, T+1, dh)
+        v = torch.cat([null_kv[1].expand(B, 1, dh), v], dim=1)
         q = l2norm(q) * math.sqrt(self.cosine_sim_scale)
         k = l2norm(k) * math.sqrt(self.cosine_sim_scale)
-        sim = torch.einsum("bhtd,bsd->bhts", q, k)
+        sim = torch.einsum("bhtd,bsd->bhts", q.float(), k.float())
         if attn_bias is not None:
             sim = sim + attn_bias[None].to(sim.dtype)
-        attn = torch.softmax(sim, dim=-1)
+        attn = torch.softmax(sim, dim=-1).to(v.dtype)
         out = torch.einsum("bhts,bsd->bhtd", attn, v).transpose(1, 2).reshape(B, T, h * dh)
         return self.to_out(out)
 
@@ -154,7 +165,7 @@ class PriorAttention(nn.Module):
 class _GEGLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a, gate = x.chunk(2, dim=-1)
-        return a * F.gelu(gate, approximate="none")
+        return a * gelu(gate)
 
 
 def prior_feed_forward(dim: int, mult: int = 4) -> nn.Sequential:
@@ -163,8 +174,8 @@ def prior_feed_forward(dim: int, mult: int = 4) -> nn.Sequential:
     Linear indices (1 and 5) line up."""
     inner = mult * dim
     return nn.Sequential(
-        LucidLayerNorm(dim), nn.Linear(dim, 2 * inner, bias=False), _GEGLU(),
-        nn.Identity(), nn.Identity(), nn.Linear(inner, dim, bias=False))
+        LucidLayerNorm(dim), Linear(dim, 2 * inner, bias=False), _GEGLU(),
+        nn.Identity(), nn.Identity(), Linear(inner, dim, bias=False))
 
 
 class PriorCausalTransformer(nn.Module):
@@ -180,7 +191,7 @@ class PriorCausalTransformer(nn.Module):
                            prior_feed_forward(dim)])
             for _ in range(depth))
         self.norm = LucidLayerNorm(dim, stable=True)
-        self.project_out = nn.Linear(dim, dim, bias=False)
+        self.project_out = Linear(dim, dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         T = x.shape[1]
@@ -201,7 +212,7 @@ class PriorTransformerNetwork(nn.Module):
     ``generator`` as ``uniform >= p``, the brain's first."""
 
     def __init__(self, dim: int = 128, num_tokens: int = 1, depth: int = 6, heads: int = 8,
-                 dim_head: int = 64):
+                 dim_head: int = 64, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dim, self.num_tokens = dim, num_tokens
         self.null_brain_embeds = nn.Parameter(torch.empty(num_tokens, dim))
@@ -210,6 +221,7 @@ class PriorTransformerNetwork(nn.Module):
         self.to_time_embeds = nn.Sequential(
             nn.Sequential(_SinusoidalPosEmb(dim), TimeEmbedMLP(dim, dim)))
         self.causal_transformer = PriorCausalTransformer(dim, depth, heads, dim_head)
+        set_compute_dtype(self, dtype)
 
     def forward(self, image_embed: torch.Tensor, diffusion_timesteps: torch.Tensor,
                 text_embed: torch.Tensor, brain_cond_drop_prob: float = 0.0,

@@ -11,6 +11,18 @@ asked for the CPU); the only hand-written kernel on the path is the wav2vec2
 key-bias attention. Host work: wav decode / framing and tokenization.
 Outputs are numpy arrays, as in the JAX package.
 
+``random_init(..., dtype=torch.bfloat16)`` is the product's ``--bf16``
+mode: the modules compute in bfloat16 over float32 parameters (flax's
+``dtype`` / ``param_dtype``, ``ops.layers``), the prior's sample is carried
+in float32 and FLAME runs in float32. The outputs are float32 numpy arrays
+holding the bfloat16 values (numpy has no bfloat16; JAX returns bfloat16
+arrays).
+
+Checkpoints (``save`` / ``load``) are the port's ``state.pt``
+(``infra.checkpoint``): a dict of the parts ``clip``, ``brain``, ``prior``,
+``head``, each a float32 state dict. The importers write the same layout
+with the parts they have; ``load`` takes whatever parts a checkpoint holds.
+
 Randomness: the prior's noise is drawn from a ``torch.Generator`` on the
 pipeline's device seeded by ``seed``, or passed explicitly as
 ``noise={"init": (B, 1, D), "steps": (timesteps, B, 1, D)}`` ("steps" only
@@ -32,15 +44,21 @@ import torch
 from ..audio.frontend import frame_audio, normalize_audio, read_wav
 from ..core.flame import FlameAssets, FlameModel
 from ..data.batching import pad_to_bucket
+from ..infra.checkpoint import restore_checkpoint, save_checkpoint
 from ..infra.device import resolve_device
 from ..infra.init import random_module
 from ..models.brain import BrainNetwork
 from ..models.clip_text import ClipTextConfig, ClipTextModel
 from ..models.diffusion import DiffusionPrior, NoiseScheduler
+from ..models.conditioning import EmotionStyleEncoder
 from ..models.emote import EmoteConfig, EmoteTalkingHead
 from ..models.prior_transformer import PriorTransformerNetwork
+from ..ops.layers import set_compute_dtype
 from ..text import ClipBpeTokenizer, find_tokenizer_assets
 from .postprocess import Intervals, apply_jaw_intervals
+
+
+PIPELINE_PARTS = ("clip", "brain", "prior", "head")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,23 +170,25 @@ class AviTalkingPipeline:
         flame_assets: Optional[FlameAssets] = None,
         seed: int = 0,
         device=None,
+        dtype: torch.dtype = torch.float32,
     ) -> "AviTalkingPipeline":
         """Seeded random weights (one CPU generator, so the same seed gives
-        the same weights on any device). ``device=None`` means CUDA and
-        raises without a card; pass ``device="cpu"`` for the CPU."""
+        the same weights on any device and at any ``dtype``, the compute
+        dtype). ``device=None`` means CUDA and raises without a card; pass
+        ``device="cpu"`` for the CPU."""
         device = resolve_device(device)
         cfg = cfg or PipelineConfig()
         g = torch.Generator().manual_seed(seed)
-        clip_model = random_module(lambda: ClipTextModel(cfg.clip), device, g)
+        clip_model = random_module(lambda: ClipTextModel(cfg.clip, dtype=dtype), device, g)
         brain = random_module(
             lambda: BrainNetwork(out_dim=cfg.clip_size, in_dim=cfg.clip.hidden_size,
-                                 clip_size=cfg.clip_size), device, g)
+                                 clip_size=cfg.clip_size, dtype=dtype), device, g)
         net = random_module(
             lambda: PriorTransformerNetwork(dim=cfg.clip_size, depth=cfg.prior_depth,
                                             heads=cfg.prior_heads,
-                                            dim_head=cfg.prior_dim_head), device, g)
+                                            dim_head=cfg.prior_dim_head, dtype=dtype), device, g)
         prior = DiffusionPrior(net=net, scheduler=NoiseScheduler.create(cfg.timesteps))
-        head = random_module(lambda: EmoteTalkingHead(cfg.emote), device, g)
+        head = random_module(lambda: EmoteTalkingHead(cfg.emote, dtype=dtype), device, g)
         head.flame_assets = None if flame_assets is None else flame_assets.to(device)
         return cls(cfg=cfg, clip_model=clip_model, brain=brain, prior=prior, head=head,
                    tokenizer=load_tokenizer(cfg.clip.vocab_size, cfg.max_tokens),
@@ -179,20 +199,60 @@ class AviTalkingPipeline:
                 "prior": self.prior.net.state_dict(), "head": self.head.state_dict()}
 
     def load_state_dict(self, state: Mapping[str, Mapping[str, Any]]) -> None:
-        """Load ``{"clip", "brain", "prior", "head"}`` state dicts (tensors or
-        numpy arrays, e.g. from ``infra.jax_params.pipeline_state_from_jax``).
-        The head's style encoder may be absent: the generate path never runs
-        it and a JAX head that never ran it has no weights for it."""
+        """Load the parts of ``{"clip", "brain", "prior", "head"}`` that
+        ``state`` holds (state dicts of tensors or numpy arrays, e.g. from
+        ``infra.jax_params.pipeline_state_from_jax`` or an importer), each
+        part whole; an unknown part raises. The head's style encoder may be
+        absent: the generate path never runs it and a JAX head that never
+        ran it has no weights for it."""
+        unknown = sorted(set(state) - set(PIPELINE_PARTS))
+        if unknown or not state:
+            raise KeyError(f"pipeline state has parts {sorted(state)}; expected some of "
+                           f"{list(PIPELINE_PARTS)}")
+
         def tensors(sd):
             return {k: torch.as_tensor(v) for k, v in sd.items()}
 
-        self.clip_model.load_state_dict(tensors(state["clip"]))
-        self.brain.load_state_dict(tensors(state["brain"]))
-        self.prior.net.load_state_dict(tensors(state["prior"]))
-        missing, unexpected = self.head.load_state_dict(tensors(state["head"]), strict=False)
-        missing = [k for k in missing if not k.startswith("style_encoder.")]
-        if missing or unexpected:
-            raise KeyError(f"head state: missing {missing}, unexpected {unexpected}")
+        for part, module in (("clip", self.clip_model), ("brain", self.brain),
+                             ("prior", self.prior.net)):
+            if part in state:
+                module.load_state_dict(tensors(state[part]))
+        if "head" in state:
+            self._fit_style_encoder(state["head"])
+            missing, unexpected = self.head.load_state_dict(tensors(state["head"]),
+                                                            strict=False)
+            missing = [k for k in missing if not k.startswith("style_encoder.")]
+            if missing or unexpected:
+                raise KeyError(f"head state: missing {missing}, unexpected {unexpected}")
+
+    def _fit_style_encoder(self, head_state: Mapping[str, Any]) -> None:
+        """Rebuild the head's style encoder at the condition width of
+        ``head_state`` when that differs (flax infers the width from the
+        condition it first sees; the generate path never runs the encoder,
+        but its weights are kept so ``save`` writes them back)."""
+        w = head_state.get("style_encoder.map.weight")
+        enc = self.head.style_encoder
+        if w is None or tuple(w.shape) == tuple(enc.map.weight.shape):
+            return
+        with torch.device("meta"):
+            new = EmotionStyleEncoder(w.shape[1], w.shape[0],
+                                      use_bias="style_encoder.map.bias" in head_state)
+        set_compute_dtype(new, self.head.compute_dtype)
+        self.head.style_encoder = new.to_empty(device=self.device).eval()
+
+    def save(self, path: str) -> None:
+        """Write every part's state to ``path/state.pt``."""
+        save_checkpoint(path, self.state_dict())
+
+    def load(self, path: str) -> None:
+        """Load what ``save`` or an importer wrote (the parts it holds)."""
+        self.load_state_dict(restore_checkpoint(path))
+
+    def load_prior_checkpoint(self, path: str) -> None:
+        """Graft a ``train-prior`` checkpoint (``{"params": {"brain",
+        "prior"}, "step"}``) into this pipeline (train -> serve)."""
+        params = restore_checkpoint(path)["params"]
+        self.load_state_dict({"brain": params["brain"], "prior": params["prior"]})
 
     # ------------------------------------------------------------------
 
@@ -297,7 +357,7 @@ class AviTalkingPipeline:
                             valid_len=vl)
             tf = time.perf_counter()
             st["prep_ms"] += (tf - tb) * 1e3
-            host = {k: v.cpu().numpy() for k, v in out.items()
+            host = {k: v.float().cpu().numpy() for k, v in out.items()
                     if return_vertices or k != "vertices"}
             st["device_fetch_ms"] += (time.perf_counter() - tf) * 1e3
             for j, i in enumerate(idxs):
@@ -341,10 +401,11 @@ class AviTalkingPipeline:
                 flame = FlameModel(self.head.flame_assets, n_shape=c.n_shape, n_exp=c.n_exp)
                 pose = torch.cat([torch.zeros_like(jaw), jaw], dim=-1)
                 out["vertices"] = flame.vertices_only(
-                    exp.new_zeros(B * T, c.n_shape), exp.reshape(B * T, -1),
-                    pose.reshape(B * T, -1)).reshape(B, T, -1, 3)
-        result = {"exp": exp[0].cpu().numpy(), "jaw": jaw[0].cpu().numpy(),
-                  "style_emb": out["style_emb"][0].cpu().numpy(), "frames": frames}
+                    exp.new_zeros(B * T, c.n_shape, dtype=torch.float32),
+                    exp.reshape(B * T, -1).float(),
+                    pose.reshape(B * T, -1).float()).reshape(B, T, -1, 3)
+        result = {"exp": exp[0].float().cpu().numpy(), "jaw": jaw[0].float().cpu().numpy(),
+                  "style_emb": out["style_emb"][0].float().cpu().numpy(), "frames": frames}
         if "vertices" in out:
-            result["vertices"] = out["vertices"][0].cpu().numpy()
+            result["vertices"] = out["vertices"][0].float().cpu().numpy()
         return result

@@ -1,6 +1,7 @@
-"""Offline CLIP byte-level BPE tokenizer (pure Python; port of the encoder
-half of ``avi_talking_tpu/text/clip_bpe.py``: ``ClipBpeTokenizer`` and
-``find_tokenizer_assets``).
+"""Offline CLIP byte-level BPE tokenizer (pure Python; port of
+``avi_talking_tpu/text/clip_bpe.py`` but ``learn_bpe``: ``ClipBpeTokenizer``,
+``find_tokenizer_assets`` and the vocab files' ``validate_tokenizer_assets``,
+``import_tokenizer_assets`` and ``save_vocab_files``).
 
 It implements HF ``CLIPTokenizer``'s algorithm over a local
 ``vocab.json`` + ``merges.txt`` pair, so token ids match HF and the JAX
@@ -304,3 +305,76 @@ def find_tokenizer_assets(explicit: Optional[os.PathLike] = None) -> Optional[Pa
         if (c / "vocab.json").is_file() and (c / "merges.txt").is_file():
             return c
     return None
+
+
+def validate_tokenizer_assets(path: os.PathLike) -> "ClipBpeTokenizer":
+    """Load and check a vocab / merges pair; raises ``ValueError`` on a bad
+    layout. The layout rules of the real CLIP vocab: both specials at ids
+    V-2 (``<|startoftext|>``) and V-1 (``<|endoftext|>``), 49406 / 49407 for
+    the real 49408-token vocab; all 256 byte symbols and their ``</w>``
+    variants present; ids exactly 0..V-1; a pinned sample round-trips."""
+    path = Path(path)
+    tok = ClipBpeTokenizer.from_dir(path)
+    v = tok.vocab
+    V = len(v)
+    if v.get("<|startoftext|>") != V - 2 or v.get("<|endoftext|>") != V - 1:
+        raise ValueError(
+            f"{path}: specials misplaced (start={v.get('<|startoftext|>')}, "
+            f"end={v.get('<|endoftext|>')}, vocab={V}); expected V-2/V-1")
+    missing = [s for s in _BYTE_ENC.values() if s not in v or s + "</w>" not in v]
+    if missing:
+        raise ValueError(f"{path}: {len(missing)} byte symbols missing (e.g. {missing[:3]})")
+    if sorted(v.values()) != list(range(V)):
+        raise ValueError(f"{path}: vocab ids are not a dense 0..{V - 1} range")
+    # no punctuation: decode joins word pieces with single spaces
+    sample = "a joyful person speaks with lifted cheek and parted lips"
+    if tok.decode(tok.encode(sample)) != sample:
+        raise ValueError(f"{path}: pinned sample does not round-trip")
+    return tok
+
+
+def import_tokenizer_assets(src: os.PathLike, dest: Optional[os.PathLike] = None) -> Path:
+    """Validate vocab.json / merges.txt and copy them into ``dest`` (default
+    the repository's ``assets/clip_tokenizer/``, which
+    ``find_tokenizer_assets`` probes after the env var), then validate the
+    copy. ``src`` may be the pair's directory, an HF hub cache root (its
+    ``models--*clip*/snapshots/*``) or any tree holding the pair."""
+    import shutil
+
+    src = Path(src)
+    found: Optional[Path] = None
+    if (src / "vocab.json").is_file() and (src / "merges.txt").is_file():
+        found = src
+    else:
+        for pat in ("models--*clip*/snapshots/*", "hub/models--*clip*/snapshots/*", "**/"):
+            found = next((c for c in sorted(src.glob(pat))
+                          if (c / "vocab.json").is_file() and (c / "merges.txt").is_file()),
+                         None)
+            if found:
+                break
+    if found is None:
+        raise FileNotFoundError(
+            f"no vocab.json+merges.txt pair under {src} (pass the snapshot dir of a "
+            "cached openai/clip model, or any dir holding the pair)")
+    validate_tokenizer_assets(found)
+    dest = Path(dest) if dest is not None else (
+        Path(__file__).resolve().parents[2] / "assets" / "clip_tokenizer")
+    dest.mkdir(parents=True, exist_ok=True)
+    for fn in ("vocab.json", "merges.txt"):
+        shutil.copyfile(found / fn, dest / fn)
+    validate_tokenizer_assets(dest)
+    return dest
+
+
+def save_vocab_files(vocab: Dict[str, int], merges: Sequence[Tuple[str, str]],
+                     out_dir: os.PathLike) -> Tuple[Path, Path]:
+    """Write HF-format vocab.json + merges.txt (loadable by CLIPTokenizer)."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    vocab_file, merges_file = out / "vocab.json", out / "merges.txt"
+    vocab_file.write_text(json.dumps(vocab, ensure_ascii=False, sort_keys=True),
+                          encoding="utf-8")
+    merges_file.write_text(
+        "#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges) + "\n",
+        encoding="utf-8")
+    return vocab_file, merges_file

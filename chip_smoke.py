@@ -8,7 +8,7 @@
                                        # each
     python3 chip_smoke.py --phases train [--profile]
                                        # the build, K1's rows, the gradient
-                                       # rows and phases 12-16 alone; its
+                                       # rows and phases 15-19 alone; its
                                        # result line says "phases": "train"
 
 Run it from the root of a checkout: it builds the port's CUDA kernels from
@@ -49,25 +49,39 @@ the checkout's sources into build/, then
 9. serve:   the fixture caption corpus (experiments/) through InferenceServer
             at max_batch 4, driven as `cli serve` drives it, each result held
             to generate_batch on the same padded micro-batch; p50 / p99;
-10. faceformer: full-width FaceFormerConfig() (wav2vec2-base, decoder 128
+10. kernel_check bf16: K1's bfloat16 entry against its plain version at
+            the generate shapes (B=1 H=12 T=S=200, 333, 600; B=2 T=S=512),
+            with its times, SDPA's at bfloat16 and the bf16-peak bound;
+11. generate_bf16: `--bf16` at full width on the fp32 pipeline's weights:
+            K1 bf16 12 launches a generate and fp32 0, finite outputs, the
+            distance to the fp32 run on the same weights and noise, the six
+            requests, generate's seconds at bf16 and fp32 in turns; then
+            `cli serve --bf16` over the fixture corpus;
+12. checkpoint: full-width synthetic reference checkpoints (EMOTE, the
+            prior's .pth, HF CLIP text) through `import-emote`,
+            `import-prior`, `import-clip --weights`; `generate --checkpoint`
+            bit-equal to load_state_dict; `convert-flame` on a
+            FLAME-2020-shaped pickle, then `--flame-npz --save-video` on it
+            with K2's launches;
+13. faceformer: full-width FaceFormerConfig() (wav2vec2-base, decoder 128
             wide) on 24 s of audio: the teacher-forced forward and the
             KV-cached predict, with K1 / K3 launches, AR vs teacher-forced
             consistency, the card against the CPU, repeatability and times;
-11. train_faceformer: `cli train-faceformer` at its defaults (B=16, T=25)
+14. train_faceformer: `cli train-faceformer` at its defaults (B=16, T=25)
             for 5 steps, launches per step, step time; one step on the card
             against the same step on the CPU;
-12. train_emote: the EMOTE head at full width and `train-emote`'s defaults
+15. train_emote: the EMOTE head at full width and `train-emote`'s defaults
             (B=8, 64 frames): the shape K1 sees, K1 launches per step, step
             time; one step card vs CPU; the `train-emote` command for two
             stages of 3 steps with a run directory, and `last` restored;
-13. train_emote_neural: EMOTE's neural-loss stage at full width (renders
+16. train_emote_neural: EMOTE's neural-loss stage at full width (renders
             at 224^2, the three towers at seeded random init): `train-emote
             --neural` at B=2, 32 frames; one neural step card vs CPU and
             the render and towers on identical vertices; the step's time,
             frames per second, K2 launches and device ms, peak memory; K2
             at the predicted video's launch (2048 tiles) against its plain
             version;
-14. train_faceformer_vert: `train-faceformer-vert` at full width
+17. train_faceformer_vert: `train-faceformer-vert` at full width
             (FaceFormerVertConfig(), B=4, 100 frames) on a synthetic MEAD
             tree and a synthetic full-size FLAME: synthetic and
             --disentangle runs with checkpoints loaded back; the main path
@@ -77,10 +91,10 @@ the checkout's sources into build/, then
             with the landmark terms; the step's time, launches and peak
             memory; K3 at the decoder's shape forward and backward, K2 at
             the emotion loss's launch;
-15. train_prior: the prior trainer at full width (B=256): step time; one
+18. train_prior: the prior trainer at full width (B=256): step time; one
             step card vs CPU with the same draws; `train-prior` for 4 steps
             with validation and checkpoints, then --resume from step 4;
-16. train_data: the data-backed commands on a synthetic MEAD tree of 18
+19. train_data: the data-backed commands on a synthetic MEAD tree of 18
             clips x 100 frames with 224^2 crops, at full width and their
             defaults: `train-emote --root` (the split, K1 12 a step, the head
             moved), `train-faceformer --root` with FAN conditioning (K1 12
@@ -91,13 +105,14 @@ the checkout's sources into build/, then
             featurize card vs CPU (limits in its docstring; the crops are
             unfiltered PNGs, so their decode is a lower bound of a real
             crop's, which the phase also times per row filter);
-17. the kernels summary line (K1 at the generate path's, the EMOTE step's,
-            the vertex step's and the FaceFormer step's shapes; K2 at the
-            render path's, the neural step's and the emotion loss's
-            launches; K3 at the FaceFormer decoder's and the vertex
-            decoder's; with the launches of each path that runs them) and
-            the card's name and power limit;
-18. the result line.
+20. the kernels summary line (K1 at the generate path's, the EMOTE step's,
+            the vertex step's and the FaceFormer step's shapes, and its
+            bf16 entry at generate --bf16's; K2 at the render path's (under
+            the plain and the --flame-npz generate), the neural step's and
+            the emotion loss's launches; K3 at the FaceFormer decoder's and
+            the vertex decoder's; with the launches of each path that runs
+            them) and the card's name and power limit;
+21. the result line.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without the result line. It imports nothing of JAX.
@@ -118,13 +133,13 @@ import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# fp32 vector (non tensor core) peak, memory rate and dense TF32 tensor-core
-# peak by H100 variant (NVIDIA data sheets, rates without sparsity); the SXM
-# part is the default.
+# fp32 vector (non tensor core) peak, memory rate, and the dense TF32 and
+# bf16 tensor-core peaks by H100 variant (NVIDIA data sheets, rates without
+# sparsity); the SXM part is the default.
 PEAKS = {
-    "PCIe": (51e12, 2.0e12, 378e12),
-    "NVL": (60e12, 3.9e12, 417.5e12),
-    "SXM": (67e12, 3.35e12, 495e12),
+    "PCIe": (51e12, 2.0e12, 378e12, 756e12),
+    "NVL": (60e12, 3.9e12, 417.5e12, 835e12),
+    "SXM": (67e12, 3.35e12, 495e12, 989e12),
 }
 
 
@@ -373,7 +388,7 @@ def phase_build():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    names = ["bias_attention", "rasterize_visibility"]
+    names = ["bias_attention", "keybias_attention_bf16", "rasterize_visibility"]
     built = build.build(names)
     for name in names:
         build.load(name)
@@ -2626,6 +2641,426 @@ def phase_serve(pipe, kb):
           "max_abs_err_vs_generate_batch": worst, "tol": 1e-4, "keybias_launches": launches})
 
 
+def attention_bound_bf16(B, H, T, S, d, peaks):
+    """K1's least time on bfloat16 inputs: 4*B*H*T*S*d operations (q.k^T and
+    p.v) over the dense bf16 tensor-core peak, or q, k, v, out and the (B, S)
+    key bias read or written once in bfloat16 over the memory rate, whichever
+    is larger."""
+    ops = 4 * B * H * T * S * d
+    nbytes = 2 * B * H * (2 * T + 2 * S) * d + 2 * B * S
+    t_ops, t_bytes = ops / peaks[3], nbytes / peaks[1]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
+def phase_kernels_bf16(peaks):
+    """K1's bfloat16 entry against its plain version on the card at the
+    generate path's shapes (bfloat16 q, k, v and key bias, as wav2vec2 sends
+    them under --bf16). Limit (``kb.bf16_disagreement``, which derives it):
+    each element within 2^-7 |ref| + 2^-9 max|ref| (one bfloat16 step of the
+    output, since both sides round P and the output from float32 values that
+    differ only in summation order and expf's last bits, plus a share for
+    flipped P), and rms(out - ref) within 2^-11 rms(ref) plus one element's
+    step over the N elements (few elements flip; a kernel that mis-normalises
+    P by 0.4% or rounds the unnormalised exponentials reads 2^-7.6 or 2^-8.4
+    rms(ref)). With its time (CUDA events around the
+    wrapper, the kernel's device time under torch.profiler), the plain
+    version's, scaled_dot_product_attention's at bfloat16 with the same
+    float mask, and the bound at the bf16 peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cases = [
+        ("generate", 1, 12, 200, 200, 64, (200,)),
+        ("batch_512", 2, 12, 512, 512, 64, (512, 300)),
+        ("ragged_333", 1, 12, 333, 333, 64, (333,)),
+        ("generate_600", 1, 12, 600, 600, 64, (600,)),
+    ]
+    rows = []
+    for name, B, H, T, S, d, lens in cases:
+        q = (torch.randn(B, H, T, d, device="cuda", generator=g) * d ** -0.5).bfloat16()
+        k = torch.randn(B, H, S, d, device="cuda", generator=g).bfloat16()
+        v = torch.randn(B, H, S, d, device="cuda", generator=g).bfloat16()
+        valid = torch.tensor(lens, device="cuda")
+        bias = torch.where(torch.arange(S, device="cuda")[None] < valid[:, None], 0.0,
+                           -1e9).bfloat16()
+        before = kb.launches
+        out = kb.keybias_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        check(out.dtype == torch.bfloat16 and kb.launches == before,
+              "the bfloat16 inputs took the float32 kernel")
+        ref = kb.keybias_attention_reference(q, k, v, bias)
+        dis = kb.bf16_disagreement(out, ref)
+        check(math.isfinite(dis["max_abs"]) and dis["worst"] <= 1.0 and dis["rms_worst"] <= 1.0,
+              f"keybias_attention bf16 {name}: {dis} past the limit")
+        mask = bias[:, None, None, :]
+
+        def kernel():
+            return kb.keybias_attention(q, k, v, bias)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+
+        row = {
+            "case": name, "shape": [B, H, T, S, d], "dtype": "bfloat16",
+            "max_abs_err": dis["max_abs"], "limit_share": dis["worst"],
+            "rms_limit_share": dis["rms_worst"], "rms_rel": dis["rms_rel"],
+            "flipped": dis["flipped"], "ms": time_ms(kernel),
+            "device_ms": device_ms(kernel, "keybias_attention_bf16_kernel"),
+            "plain_ms": time_ms(lambda: kb.keybias_attention_reference(q, k, v, bias)),
+            "library_ms": time_ms(library),
+            "library_device_ms": device_ms(library),
+        }
+        row["bound_ms"], row["bound_by"], row["bf16_ops"], row["bytes"] = attention_bound_bf16(
+            B, H, T, S, d, peaks)
+        rows.append(row)
+        emit({"phase": "kernel_check", "kernel": "keybias_attention_bf16", **row})
+    return rows
+
+
+def _rms(a, b=0.0) -> float:
+    import numpy as np
+
+    return float(np.sqrt(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)))
+
+
+def phase_generate_bf16(pipe, kb):
+    """`generate --bf16`: PipelineConfig() at bfloat16 compute on ``pipe``'s
+    weights (the same seed): on the 8 s clip K1's bfloat16 entry runs 12
+    times a generate and the float32 one never; outputs finite; exp / jaw /
+    style / vertices against ``pipe``'s float32 run on the same weights and
+    prior noise (rms, and rms over the float32 output's rms: held below 0.1,
+    bfloat16's 8 bits give about 0.01, more is a fault); the six requests
+    through generate_batch (36 bfloat16 launches); generate's seconds at
+    bfloat16 and float32 in turns."""
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.pipeline import AviTalkingPipeline
+
+    bf = AviTalkingPipeline.random_init(pipe.cfg, pipe.head.flame_assets, seed=0,
+                                        dtype=torch.bfloat16)
+    same = all(torch.equal(a, b) for part in ("clip", "brain", "prior", "head")
+               for a, b in zip(bf.state_dict()[part].values(), pipe.state_dict()[part].values()))
+    check(same, "the bf16 pipeline's weights differ from the fp32 one's")
+    wav = synthetic_wav(8.0, seed=1)
+    instruction = "A fairly angry man speaks with brow fairly down"
+    rng = np.random.default_rng(3)
+    D, steps = pipe.cfg.clip_size, pipe.cfg.timesteps
+    noise = {"init": rng.standard_normal((1, 1, D)).astype(np.float32),
+             "steps": rng.standard_normal((steps, 1, 1, D)).astype(np.float32)}
+    kb.launches = kb.launches_bf16 = 0
+    out = bf.generate(wav, instruction, noise=noise)
+    launches = {"fp32": kb.launches, "bf16": kb.launches_bf16}
+    check(launches == {"fp32": 0, "bf16": 12},
+          f"generate --bf16 launched K1 {launches}, not bf16 12 and fp32 0")
+    check(out["exp"].shape == (200, pipe.cfg.emote.n_exp)
+          and out["vertices"].shape == (200,) + tuple(pipe.head.flame_assets.v_template.shape),
+          "generate --bf16 shapes")
+    check(all(np.isfinite(v).all() for v in out.values()), "generate --bf16: non-finite output")
+    ref = pipe.generate(wav, instruction, noise=noise)
+    dist = {}
+    for key in ("exp", "jaw", "style_emb", "vertices"):
+        d = _rms(out[key], ref[key])
+        dist[key] = {"rms": d, "rms_rel": d / _rms(ref[key]),
+                     "max_abs": float(np.abs(out[key] - ref[key]).max())}
+        check(dist[key]["rms_rel"] < 0.1, f"generate --bf16 {key}: {dist[key]} from fp32")
+    wavs = [synthetic_wav(s, seed=10 + i) for i, s in enumerate([3.0, 3.5, 8.0, 9.0, 16.0, 19.0])]
+    kb.launches = kb.launches_bf16 = 0
+    outs = bf.generate_batch(wavs, ["a happy person speaks", "a sad person", "an angry man shouts",
+                                    "calm and neutral", "surprised woman", "a fearful voice"])
+    batch_launches = {"fp32": kb.launches, "bf16": kb.launches_bf16}
+    check(batch_launches == {"fp32": 0, "bf16": 36},
+          f"generate_batch --bf16 launched K1 {batch_launches}")
+    check(all(np.isfinite(v).all() for o in outs for v in o.values()), "batch --bf16 non-finite")
+    walls = {"fp32": [], "bf16": []}
+    for order in (("fp32", "bf16"), ("bf16", "fp32")) * 3:
+        for which in order:
+            p = pipe if which == "fp32" else bf
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.generate(wav, instruction, seed=0)
+            walls[which].append(time.perf_counter() - t0)
+    emit({"phase": "generate_bf16", "audio_s": 8.0, "k1_launches": launches,
+          "generate_batch_k1_launches": batch_launches, "distance_to_fp32": dist,
+          "wall_s_median": {k: statistics.median(v[1:]) for k, v in walls.items()},
+          "wall_s_all": walls, "order": "fp32, bf16, bf16, fp32, x3 (the first of each a warm-up)"})
+    return launches["bf16"], bf
+
+
+def phase_serve_bf16(kb):
+    """`cli serve --bf16` over the fixture corpus (max_batch 4): every
+    request answered, finite, K1 launched in bfloat16 only."""
+    import glob
+
+    import numpy as np
+
+    from avi_talking_tpu_torch.cli import main as cli_main
+
+    out_dir = os.path.join(HERE, "build", "chip_smoke", "serve_bf16")
+    kb.launches = kb.launches_bf16 = 0
+    t0 = time.perf_counter()
+    rc = cli_main(["serve", "--json-dir", os.path.join(HERE, "experiments", "json_dir"),
+                   "--wav-dir", os.path.join(HERE, "experiments", "wav_dir"), "--bf16",
+                   "--max-batch", "4", "--out", out_dir])
+    wall = time.perf_counter() - t0
+    launches = {"fp32": kb.launches, "bf16": kb.launches_bf16}
+    files = sorted(glob.glob(os.path.join(out_dir, "*_coeffs.npz")))
+    check(rc == 0 and len(files) >= 4, f"serve --bf16: rc {rc}, {len(files)} outputs")
+    check(launches["fp32"] == 0 and launches["bf16"] >= 12 and launches["bf16"] % 12 == 0,
+          f"serve --bf16 launched K1 {launches}")
+    for f in files:
+        z = np.load(f)
+        check(all(np.isfinite(z[k]).all() for k in ("exp", "jaw", "style_emb")), f"{f} not finite")
+    emit({"phase": "serve_bf16", "requests": len(files), "k1_launches": launches,
+          "wall_s": wall})
+
+
+REFERENCE_EMOTE_NAMES = (  # port prefix -> inferno EMOTE checkpoint prefix
+    ("audio_encoder.", "audio_model.model."),
+    ("sequence_encoder.", "sequence_encoder.linear."),
+    ("style_encoder.map.", "sequence_decoder.obj_vector.map."),
+    ("bert_decoder.", "sequence_decoder.bert_decoder."),
+    ("decoder.", "sequence_decoder.decoder."),
+    ("squasher.", "sequence_decoder.squasher_2.linear."),
+    ("motion_prior.", "sequence_decoder.motion_prior.motion_decoder."),
+)
+
+
+def _seeded_state(module, rng):
+    """Seeded numpy values for every tensor of ``module``'s state dict, at
+    scales that keep the full-width pipeline's activations finite: matrices
+    and kernels N(0, 1/fan_in), norm gains 1 + N(0, 0.1^2), other vectors
+    N(0, 0.1^2), running variances in [0.5, 1.5)."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for k, v in module.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("num_batches_tracked"):
+            out[k] = torch.zeros((), dtype=torch.int64)
+            continue
+        if k.endswith("running_var"):
+            a = 0.5 + rng.random(shape, dtype=np.float32)
+        elif len(shape) >= 2:
+            a = rng.standard_normal(shape, dtype=np.float32) / np.float32(
+                math.sqrt(math.prod(shape[1:])))
+        elif k.endswith(".weight") or k.endswith(".g"):  # 1-D: a norm's gain
+            a = 1 + 0.1 * rng.standard_normal(shape, dtype=np.float32)
+        else:
+            a = 0.1 * rng.standard_normal(shape, dtype=np.float32)
+        out[k] = torch.from_numpy(a)
+    return out
+
+
+def _flame_2020_pickle(path, lmk_path, mp_path):
+    """A FLAME 2020 ``generic_model.pkl``'s arrays at their shapes (5023
+    vertices, 9976 faces, 400 shape + expression and 36 pose directions, 5
+    joints; J_regressor scipy-sparse, float64 arrays, uint32 faces) and the
+    landmark embeddings, from ``synthetic_assets`` at those sizes; returns
+    those assets."""
+    import pickle
+
+    import numpy as np
+    import scipy.sparse
+
+    from avi_talking_tpu_torch.core.assets import synthetic_assets
+
+    a = synthetic_assets(num_vertices=5023, n_shape=300, n_exp=100, num_faces=9976, seed=5,
+                         n_static_landmarks=51)
+    V = 5023
+    m = {"v_template": a.v_template.numpy().astype(np.float64),
+         "shapedirs": a.shapedirs.numpy().astype(np.float64),
+         "posedirs": a.posedirs.numpy().T.reshape(V, 3, 36).astype(np.float64),
+         "J_regressor": scipy.sparse.csc_matrix(a.j_regressor.numpy().astype(np.float64)),
+         "weights": a.lbs_weights.numpy().astype(np.float64),
+         "f": a.faces.numpy().astype(np.uint32),
+         "kintree_table": np.array([[4294967295, 0, 1, 1, 1], [0, 1, 2, 3, 4]], np.int64),
+         "bs_style": "lbs", "bs_type": "lrotmin"}
+    with open(path, "wb") as f:
+        pickle.dump(m, f, protocol=2)
+    np.save(lmk_path, {
+        "static_lmk_faces_idx": a.lmk_faces_idx.numpy(),
+        "static_lmk_bary_coords": a.lmk_bary_coords.numpy(),
+        "dynamic_lmk_faces_idx": a.dynamic_lmk_faces_idx.numpy(),
+        "dynamic_lmk_bary_coords": a.dynamic_lmk_bary_coords.numpy(),
+        "full_lmk_faces_idx": a.full_lmk_faces_idx.numpy()[None],
+        "full_lmk_bary_coords": a.full_lmk_bary_coords.numpy()[None]}, allow_pickle=True)
+    np.savez(mp_path, lmk_face_idx=a.mediapipe_lmk_faces_idx.numpy(),
+             lmk_b_coords=a.mediapipe_lmk_bary_coords.numpy())
+    return a
+
+
+def phase_checkpoint(kb, kras):
+    """The user's own weights and FLAME, through the commands a user runs.
+    Full-width synthetic reference checkpoints from seeded numpy (an EMOTE
+    .ckpt at EmoteConfig() in the inferno layout, the positional conv as
+    weight_g / weight_v; the prior trainer's .pth at depth 6 with the
+    feed-forward spelled net.{0,1,5}; HF CLIP ViT-L/14 text weights) go
+    through `import-emote`, `import-prior` and `import-clip --weights`;
+    `generate --checkpoint` (all three) on the card is bit-equal to the same
+    pipeline given the same state dicts with load_state_dict (weight norm
+    materialised as g * v / ||v||). Then `convert-flame` on a FLAME-2020-
+    shaped pickle, `load_flame_assets` on its npz equal to the arrays it was
+    made from, and `generate --flame-npz --save-video` on it with K2's 13
+    launches."""
+    import wave
+
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.cli import main as cli_main
+    from avi_talking_tpu_torch.models.brain import BrainNetwork
+    from avi_talking_tpu_torch.models.clip_text import ClipTextModel
+    from avi_talking_tpu_torch.models.emote import EmoteTalkingHead
+    from avi_talking_tpu_torch.models.prior_transformer import PriorTransformerNetwork
+    from avi_talking_tpu_torch.pipeline import AviTalkingPipeline, PipelineConfig
+
+    root = os.path.join(HERE, "build", "chip_smoke", "checkpoint")
+    os.makedirs(root, exist_ok=True)
+    os.environ["AVI_TALKING_CLIP_TOKENIZER"] = os.path.join(
+        HERE, "avi_talking_tpu_torch", "text", "default_vocab")
+    cfg = PipelineConfig()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    with torch.device("meta"):
+        mods = {"clip": ClipTextModel(cfg.clip),
+                "brain": BrainNetwork(out_dim=cfg.clip_size, in_dim=cfg.clip.hidden_size,
+                                      clip_size=cfg.clip_size),
+                "prior": PriorTransformerNetwork(dim=cfg.clip_size, depth=cfg.prior_depth,
+                                                 heads=cfg.prior_heads,
+                                                 dim_head=cfg.prior_dim_head),
+                "head": EmoteTalkingHead(cfg.emote)}
+    states = {part: _seeded_state(m, rng) for part, m in mods.items()}
+    # the EMOTE .ckpt, the positional conv as a weight norm (w = g v / ||v||)
+    pc = "audio_encoder.encoder.pos_conv_embed.conv."
+    v_np = states["head"].pop(pc + "weight").numpy()
+    g_np = (0.5 + rng.random((1, 1, v_np.shape[2]), dtype=np.float32))
+    states["head"][pc + "weight"] = torch.from_numpy(np.ascontiguousarray(
+        g_np * v_np / np.sqrt((v_np ** 2).sum(axis=(0, 1), keepdims=True))))
+    emote_sd = {}
+    for k, t in states["head"].items():
+        if k == pc + "weight":
+            continue
+        src, dst = next((s, d) for s, d in REFERENCE_EMOTE_NAMES if k.startswith(s))
+        emote_sd["talking_head_model." + dst + k[len(src):]] = t
+    wn = "talking_head_model.audio_model.model.encoder.pos_conv_embed.conv."
+    emote_sd[wn + "weight_g"] = torch.from_numpy(g_np)
+    emote_sd[wn + "weight_v"] = torch.from_numpy(v_np)
+    torch.save({"state_dict": emote_sd}, os.path.join(root, "emote.ckpt"))
+    prior_sd = {"voxel2clip." + k: t for k, t in states["brain"].items()}
+    for k, t in states["prior"].items():
+        p = k.split(".")
+        if k.startswith("causal_transformer.layers.") and p[3] == "1":
+            k = ".".join(p[:4] + ["net"] + p[4:])
+        prior_sd["net." + k] = t
+    torch.save({"epoch": 1, "model_state_dict": prior_sd}, os.path.join(root, "last.pth"))
+    clip_sd = {"text_model." + k: t for k, t in states["clip"].items()}
+    clip_sd["text_model.embeddings.position_ids"] = torch.arange(77)[None]
+    torch.save(clip_sd, os.path.join(root, "clip.bin"))
+    write_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cks = {name: os.path.join(root, f"ck_{name}") for name in ("emote", "prior", "clip")}
+    check(cli_main(["import-emote", "--ckpt", os.path.join(root, "emote.ckpt"),
+                    "--out", cks["emote"]]) == 0, "import-emote failed")
+    check(cli_main(["import-prior", "--pth", os.path.join(root, "last.pth"),
+                    "--out", cks["prior"]]) == 0, "import-prior failed")
+    check(cli_main(["import-clip", "--src", os.environ["AVI_TALKING_CLIP_TOKENIZER"],
+                    "--dest", os.path.join(root, "clip_tokenizer"),
+                    "--weights", os.path.join(root, "clip.bin"), "--out", cks["clip"]]) == 0,
+          "import-clip failed")
+    import_s = time.perf_counter() - t0
+
+    wav = os.path.join(root, "clip.wav")
+    pcm = (np.clip(synthetic_wav(8.0, seed=1), -1, 1) * 32767).astype("<i2")
+    with wave.open(wav, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    text = "a fairly angry man speaks with brow fairly down"
+    ck_args = [a for name in ("clip", "prior", "emote") for a in ("--checkpoint", cks[name])]
+    # bit-equality across pipelines: cuDNN's default algorithms may reorder sums
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        kb.launches = 0
+        t0 = time.perf_counter()
+        check(cli_main(["generate", "--wav", wav, "--text", text, "--seed", "0",
+                        "--out", os.path.join(root, "out"), *ck_args]) == 0, "generate failed")
+        cli_s = time.perf_counter() - t0
+        check(kb.launches == 12, f"generate --checkpoint launched K1 {kb.launches} times")
+        got = np.load(os.path.join(root, "out", "clip_coeffs.npz"))
+        direct = AviTalkingPipeline.random_init(cfg, None, seed=1)
+        direct.load_state_dict(states)
+        ref = direct.generate(wav, text, seed=0)
+        diffs = {k: float(np.abs(got[k] - ref[k]).max()) for k in ("exp", "jaw", "style_emb")}
+        check(all(np.array_equal(got[k], ref[k]) for k in diffs),
+              f"generate --checkpoint vs load_state_dict: max |d| {diffs}")
+        k2, video, video_s, expect = _checkpoint_flame(root, wav, text, ck_args, got, kb, kras)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    emit({"phase": "checkpoint", "params": {p: sum(t.numel() for t in s.values())
+                                            for p, s in states.items()},
+          "write_s": write_s, "import_s": import_s, "generate_checkpoint_s": cli_s,
+          "bit_equal_to_load_state_dict": True, "k1_launches": 12,
+          "flame_npz_fields_equal": sorted(expect), "k2_launches_save_video": k2,
+          "video_outputs": len(video), "generate_flame_video_s": video_s,
+          "cudnn_deterministic": True})
+    return k2
+
+
+def _checkpoint_flame(root, wav, text, ck_args, got, kb, kras):
+    """phase_checkpoint's FLAME half: convert-flame, load_flame_assets
+    against the arrays the pickle was made from, then generate --flame-npz
+    --save-video with K1's and K2's launches; the coefficients equal the
+    run without FLAME (``got``)."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.cli import main as cli_main
+    from avi_talking_tpu_torch.core.assets import load_flame_assets
+
+    pkl = os.path.join(root, "generic_model.pkl")
+    lmk, mp = os.path.join(root, "landmark_embedding.npy"), os.path.join(root, "mediapipe.npz")
+    made = _flame_2020_pickle(pkl, lmk, mp)
+    npz = os.path.join(root, "flame.npz")
+    check(cli_main(["convert-flame", "--pkl", pkl, "--out", npz, "--lmk-embedding", lmk,
+                    "--mediapipe-lmk-embedding", mp]) == 0, "convert-flame failed")
+    loaded = load_flame_assets(npz, 300, 50)
+    expect = {"v_template": made.v_template, "posedirs": made.posedirs,
+              "j_regressor": made.j_regressor, "lbs_weights": made.lbs_weights,
+              "faces": made.faces,
+              "shapedirs": torch.cat([made.shapedirs[..., :300], made.shapedirs[..., 300:350]], -1),
+              "lmk_faces_idx": made.lmk_faces_idx, "dynamic_lmk_bary_coords":
+                  made.dynamic_lmk_bary_coords, "mediapipe_lmk_faces_idx":
+                  made.mediapipe_lmk_faces_idx}
+    for k, t in expect.items():
+        check(torch.equal(getattr(loaded, k), t), f"convert-flame -> load_flame_assets: {k}")
+    kras.launches = kb.launches = 0
+    t0 = time.perf_counter()
+    check(cli_main(["generate", "--wav", wav, "--text", text, "--seed", "0", "--flame-npz", npz,
+                    "--save-video", "--out", os.path.join(root, "out_flame"), *ck_args]) == 0,
+          "generate --flame-npz --save-video failed")
+    video_s = time.perf_counter() - t0
+    k2 = kras.launches
+    check(k2 == 13 and kb.launches == 12,
+          f"--flame-npz --save-video launched K2 {k2} (not 13), K1 {kb.launches}")
+    video = glob.glob(os.path.join(root, "out_flame", "clip.mp4")) + glob.glob(
+        os.path.join(root, "out_flame", "clip_frames", "*.png"))
+    check(len(video) >= 1, "no video written")
+    again = np.load(os.path.join(root, "out_flame", "clip_coeffs.npz"))
+    check(all(np.array_equal(again[k], got[k]) for k in ("exp", "jaw")),
+          "FLAME changed the coefficients")
+    return k2, video, video_s, expect
+
+
 def profile_call(fn) -> dict:
     """One call of ``fn`` under torch.profiler: wall time, device time by
     kernel and the device's busy share of the wall time."""
@@ -2837,6 +3272,10 @@ def main() -> int:
     render_launches = phase_render(gen_out["vertices"], faces)
     phase_render_gpu_vs_cpu()
     phase_serve(pipe, kb)
+    bf16_rows = phase_kernels_bf16(peaks)
+    bf16_launches, _ = phase_generate_bf16(pipe, kb)
+    phase_serve_bf16(kb)
+    ckpt_k2 = phase_checkpoint(kb, kras)
     ff_launches = phase_faceformer(kb, kba)
     phase_train_faceformer(kb, kba)
     emote = phase_train_emote(kb)
@@ -2848,7 +3287,8 @@ def main() -> int:
         phase_profile(pipe, gen_out["vertices"], faces)
 
     peaks_line = {"variant": variant, "fp32_flops": peaks[0], "bytes_per_s": peaks[1],
-                  "tf32_flops": peaks[2]}
+                  "tf32_flops": peaks[2], "bf16_flops": peaks[3]}
+    bf16_main = bf16_rows[0]  # generate --bf16's shape: B=1, H=12, T=S=200, d=64
     main_row = rows[0]  # the generate path's shape: B=1, H=12, T=S=200, d=64
     vis_row = vis_rows[0]  # the render path's launch: 16 frames x 64 tiles
     k3_main = k3_rows[1]  # the forward's self-attention: B=1 H=4 T=S=600 d=32, (H, T, T) bias
@@ -2874,6 +3314,42 @@ def main() -> int:
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": main_row["shape"],
+        "peaks": peaks_line,
+    }, {
+        "name": "keybias_attention_bf16",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/keybias_attention_bf16.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:114",
+        "path": "generate --bf16 (bfloat16 q, k, v in every wav2vec2 layer)",
+        "launches": bf16_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in bf16_rows),
+        "limit_share": max(max(r["limit_share"], r["rms_limit_share"]) for r in bf16_rows),
+        "ms": bf16_main["ms"],
+        "device_ms": bf16_main["device_ms"],
+        "library_device_ms": bf16_main["library_device_ms"],
+        "plain_ms": bf16_main["plain_ms"],
+        "bound_ms": bf16_main["bound_ms"],
+        "bound_by": bf16_main["bound_by"],
+        "library_ms": bf16_main["library_ms"],
+        "shape": bf16_main["shape"],
+        "dtype": "bfloat16",
+        "peaks": peaks_line,
+    }, {
+        "name": "rasterize_tiles_visibility",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/rasterize_visibility.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/rasterize.py:111",
+        "path": "generate --checkpoint --flame-npz --save-video (convert-flame's npz)",
+        "launches": ckpt_k2,
+        "max_abs_err": max(r["max_abs_err"] for r in vis_rows),
+        "ms": vis_row["ms"],
+        "device_ms": vis_row["device_ms"],
+        "plain_ms": vis_row["plain_ms"],
+        "bound_ms": vis_row["bound_ms"],
+        "bound_by": vis_row["bound_by"],
+        "bound_ms_no_fma": vis_row["bound_ms_no_fma"],
+        "library_ms": None,  # no PyTorch call computes z-buffer visibility
+        "shape": vis_row["shape"],
         "peaks": peaks_line,
     }, {
         "name": "rasterize_tiles_visibility",

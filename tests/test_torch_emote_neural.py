@@ -52,6 +52,8 @@ from avi_talking_tpu_torch.train.talking_head import (
 )
 from avi_talking_tpu_torch.viz.visualizer import FixedViewRenderer
 from test_torch_emote_train import _assert_state_matches, _port
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 NEURAL_TERMS = ("loss_lipread", "loss_emotion", "loss_video_emotion",
                 "loss_lipread_disentangled", "loss_emotion_disentangled",

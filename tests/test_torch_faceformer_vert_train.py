@@ -50,6 +50,8 @@ from avi_talking_tpu_torch.train.faceformer_vert_trainer import (
     FaceFormerVertTrainer,
 )
 from avi_talking_tpu_torch.train.optim import adam
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 B, T, LR = 2, 8, 1e-4
 

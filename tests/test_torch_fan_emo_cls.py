@@ -24,6 +24,7 @@ from avi_talking_tpu_torch.infra.jax_params import (
 )
 from avi_talking_tpu_torch.models.fan_encoder import FanEncoder
 from avi_talking_tpu_torch.train import emo_cls as temo
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rel(got, ref) -> float:

@@ -115,6 +115,59 @@ def test_keybias_kernel_refuses_what_it_does_not_take():
         kb.keybias_attention(q.transpose(2, 3), k, v, bias)
 
 
+BF16_CASES = [
+    # B, H, T, S, d, valid key lengths per batch; d a multiple of 16
+    (3, 4, 24, 24, 16, (8, 16, 24)),
+    (1, 12, 200, 200, 64, (200,)),  # generate's shape
+    (2, 12, 512, 512, 64, (512, 300)),  # largest length bucket
+    (1, 12, 333, 333, 64, (333,)),  # a ragged 64-query tile
+    (1, 2, 70, 130, 128, (97,)),  # widest head taken, S past a 64-key tile
+    (2, 3, 1, 40, 48, (40, 33)),  # T=1
+    (2, 2, 12, 1, 32, (1, 1)),  # S=1
+    (2, 2, 20, 20, 16, (20, 0)),  # batch 1: every key bias -1e9, uniform rows
+    (1, 12, 600, 600, 64, (600,)),  # the FaceFormer encoder's shape
+]
+
+
+def bf16_within_limit(got, ref, rms=True):
+    """The bfloat16 kernel against its plain version, by the limit that
+    ``kb.bf16_disagreement`` derives: each element within 2^-7 |ref| +
+    2^-9 max|ref|, and the rms within 2^-11 rms(ref) and one element's step."""
+    dis = kb.bf16_disagreement(got, ref)
+    assert dis["worst"] <= 1.0, dis
+    if rms:
+        assert dis["rms_worst"] <= 1.0, dis
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,S,d,lens", BF16_CASES)
+def test_keybias_bf16_kernel_matches_plain_version(B, H, T, S, d, lens):
+    """bfloat16 q, k, v and key bias: the bfloat16 entry, one bf16 launch
+    and no fp32 one counted, a bfloat16 output within bf16_within_limit."""
+    q, k, v, bias = (t.bfloat16() for t in _cuda_inputs(B, H, T, S, d, lens))
+    before, before16 = kb.launches, kb.launches_bf16
+    got = kb.keybias_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert (kb.launches, kb.launches_bf16) == (before, before16 + 1)
+    assert got.dtype == torch.bfloat16
+    ref = kb.keybias_attention_reference(q, k, v, bias)
+    bf16_within_limit(got, ref)
+    for b, n in enumerate(lens):
+        if n == 0:  # a batch whose every key is masked averages v (P = bf16(1/S) on both sides)
+            mean = v[b].float().mean(1, keepdim=True).expand(got[b].shape)
+            bf16_within_limit(got[b], mean, rms=False)
+
+
+@pytest.mark.cuda
+def test_keybias_bf16_kernel_refuses_what_it_does_not_take():
+    q, k, v, bias = (t.bfloat16() for t in _cuda_inputs(1, 2, 16, 16, 24, (16,)))
+    with pytest.raises(ValueError):  # head_dim 24: a multiple of 8, not of 16
+        kb.keybias_attention(q, k, v, bias)
+    q, k, v, bias = (t.bfloat16() for t in _cuda_inputs(1, 2, 16, 16, 32, (16,)))
+    with pytest.raises(TypeError):  # mixed dtypes
+        kb.keybias_attention(q, k, v, bias.float())
+
+
 BIAS_CASES = [
     # B, H, T, S, d, bias shape, bias layout ("keys last": as stored;
     # "keys first": stored as (B, H, S, T) and read with key stride T)

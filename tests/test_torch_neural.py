@@ -29,6 +29,8 @@ from avi_talking_tpu_torch.models import video_emotion as tvemo
 from avi_talking_tpu_torch.viz import rasterizer as tr
 from avi_talking_tpu_torch.viz import visualizer as tviz
 from test_torch_rasterizer import head_proxy_mesh, random_mesh
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 CPU = torch.device("cpu")

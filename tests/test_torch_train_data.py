@@ -35,6 +35,7 @@ from avi_talking_tpu_torch.models.faceformer import FaceFormerConfig
 from avi_talking_tpu_torch.models.fan_encoder import FanEncoder
 from avi_talking_tpu_torch.models.fan_encoder import mask_lip as t_mask_lip
 from avi_talking_tpu_torch.viz.pngio import write_png
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N_FRAMES = 20
 IMG = 64
@@ -70,17 +71,6 @@ def _write_clip(root, name, rng, det=None):
     for i in range(N_FRAMES):
         write_png(str(det / f"{i:06d}_000.png"),
                   rng.integers(0, 256, (IMG, IMG, 3), dtype=np.uint8))
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The FAN's convolutions on one thread: beside other test processes,
-    torch's default of a thread per core oversubscribes the machine and
-    its spinning threads slow these tests tenfold."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")
