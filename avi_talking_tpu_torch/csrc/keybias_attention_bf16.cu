@@ -9,46 +9,87 @@
 //     out = bf16( P . V ),  P = bf16( exp(s - m) / l ),  s = q . k^T + key_bias[b]
 //
 // with q pre-scaled by the caller, s and the softmax in fp32, P rounded to
-// bfloat16 (the Pallas kernel's weights.astype(v.dtype)), P . V accumulated
-// in fp32 and the output rounded to bfloat16 (round to nearest even, as
-// torch's .to(torch.bfloat16)). The float32 entry stays in bias_attention.cu.
+// bfloat16 (the Pallas kernel's weights.astype(v.dtype)) after it is
+// normalised, P . V accumulated in fp32 and the output rounded to bfloat16
+// (round to nearest even, as torch's .to(torch.bfloat16)). The float32 entry
+// stays in bias_attention.cu.
 //
 // What bounds it: 4*B*H*T*S*d operations (the two products) against the
 // bytes of q, k, v, the key bias and out, all bfloat16: T/2 operations per
 // byte at T = S, under the H100's bf16 ridge of about 295 up to T of about
-// 590, so the bytes bound the generate shapes (T=S=200..512) and the
-// operations T=S=600; either way a launch there is well under a
-// microsecond of work, and latency (two dependent passes over K) sets its
-// time.
+// 590. Either way a launch at the generate shapes is well under a
+// microsecond of work (0.37 us of bytes at B=1 H=12 T=S=200 d=64), so the
+// time is set by latency and by how fast an SM's copies of K and V land.
 //
-// Design (simple and exact first; wgmma / TMA is later work):
-//   * both products on tensor cores in bfloat16 with fp32 accumulation,
-//     mma.sync m16n8k16: the products of bfloat16 values are exact in fp32,
-//     so no split is needed;
-//   * the softmax is normalised BEFORE P is rounded, as the Pallas kernel
-//     and the plain version do: two passes over K per query tile. Pass 1
-//     forms q . k^T tile by tile and keeps each row's running max m and sum
-//     l (the sum rescaled when the max grows); pass 2 forms q . k^T again,
-//     P = exp(s - m) / l (IEEE division, expf), rounds P to bfloat16 and
-//     accumulates P . V. A one-pass online softmax would round the
-//     unnormalised exponentials instead, another quantity;
-//   * one block of 4 warps per (64-query tile, b*h); warp w owns query rows
-//     16w..16w+15 of the tile, holds its q fragments in registers for the
-//     whole kernel and sees every key. K and V stream through shared memory
-//     in 64-key tiles, loaded by the whole block 16 bytes at a time; keys
-//     past S are zero-filled and excluded (-inf). A key masked by the
-//     caller's finite bias still counts, so a row whose every bias is the
-//     bf16 -1e9 is a uniform softmax, as on the TPU. Query rows past T are
-//     computed on zeros and never written;
-//   * P . V takes P straight from the score accumulators: for m16n8k16 the
-//     accumulator of key columns 2t, 2t+1 of an 8-key tile is the A
-//     fragment's layout, two 8-key tiles making one 16-key k step;
-//   * shared rows are (d + 8) bfloat16 long, so the 32-bit K fragment loads
-//     (rows g, words t) and the 16-bit V loads (rows 2t, 2t+1, column g) of
-//     a warp fall in distinct banks;
-//   * instantiations for d = 16, 32, ..., 128 (a multiple of 16; wav2vec2's
-//     is 64) size the register tiles; __launch_bounds__(128, 1) lets ptxas
-//     take the registers it needs (without the 1 it spills at d = 32).
+// Design. The first version (one 4-warp block per 64 query rows, every warp
+// walking every key, K read twice through synchronous tile copies, expf and
+// a division per score, scalar loads of V) left four things in the way;
+// what this one does about each:
+//
+//   * The grid filled a third of the card (48 blocks on 132 SMs at the
+//     generate shape). A block now holds 1 to 4 row groups of 16 query rows
+//     (2 above d = 64, for the registers), each of 4 consumer warps that
+//     split the keys between them, and the host takes the groups that give
+//     the fewest waves of blocks, each block weighted by its rows plus what
+//     its set-up costs (pick_groups): 156 blocks of 16 rows at B=1 H=12
+//     T=200, 252 of 16 at T=333, 264 of 48 at B=2 T=512 and 120 of 64 at
+//     T=600. More rows a block read K and V fewer times from L2.
+//   * K was read from device memory twice and every copy waited. K and V of the
+//     (b, h) now go into dynamic shared memory once per block, in 64-key tiles,
+//     by PRODUCERS producer warps beside the consumers: q with K's first tile,
+//     K's other tiles, then V's, one cp.async group each (16 bytes a lane, L2
+//     only), two groups ahead of the one released; each tile's mbarrier takes
+//     the producers' arrivals once its group has landed (cp.async.wait_group),
+//     and a consumer waits on the tile it reads and on nothing else. A warp
+//     that issues copies stalls until the SM takes them, at about the rate they
+//     land (10 to 20 bytes a cycle on the H100), so the copies come from warps
+//     that do nothing else, while the consumers start on the first tiles; the
+//     first two groups go out before the block's set-up barrier. Rows are
+//     padded to d + 8 bfloat16, so the ldmatrix reads of 8 rows fall in
+//     distinct banks. The blocks of one (b, h) start on different tiles, so
+//     that they do not ask L2 for the same lines at once. When K and V do not
+//     fit (4*S*(d+8) bytes past the 227 KB a block may take: d=128 at S >= 428,
+//     d=64 from S of about 760, by the block's rows) they stream through rings
+//     of RING tiles each instead: pass 1 reads K, pass 2 K again with V, and a
+//     slot is refilled once every consumer warp has arrived on its empty
+//     barrier.
+//   * Each warp walked every key. Keys are now dealt to the 4 consumer
+//     warps of a row group in 16-key chunks (chunk c to warp c % 4, so all
+//     four work on every tile as it lands). Pass 1: each warp keeps its
+//     rows' max m and sum l over its own keys; the group merges them
+//     through shared memory, M = max m_w and L = sum_w l_w exp(m_w - M)
+//     (warps in order). Pass 2: each warp forms P = bf16(exp(s - M) * (1 /
+//     L)) for its keys and accumulates P . V in fp32; the four partial sums
+//     are added in fp32 through shared memory (warps in order, into the
+//     space K and V held) before the one bf16 rounding of the output.
+//   * The inner loops are cheaper: exp as ex2 of (s - m) * log2(e), the
+//     reciprocal of L taken once per row, the key bias staged in fp32 with
+//     -inf past S, q's A fragments and K's B fragments by ldmatrix and V's
+//     by ldmatrix.trans from shared memory (one instruction per 8x8 pair of
+//     operands instead of scalar loads). These move P's fp32 value by a few
+//     ulp, well inside the 2^-20 relative differences kb.bf16_disagreement's
+//     limit is derived from; tests/test_torch_bf16.py emulates this order
+//     and these rounding points on the CPU and holds them to that limit.
+//
+// The normalisation stays before P is rounded, hence the two passes: a
+// one-pass online softmax would round the unnormalised exponentials, another
+// quantity. Keys past S are excluded (-inf); a key masked by the caller's
+// finite bias still counts, so a row whose every bias is the bf16 -1e9 is a
+// uniform softmax, as on the TPU. Rows past T are computed on zeros and
+// never written; K and V rows past S that a chunk reads are zeros or an
+// earlier tile's finite values, weighted by P = 0.
+//
+// Tensor cores: mma.sync m16n8k16, bfloat16 operands (their products exact
+// in fp32) with fp32 accumulation. wgmma needs 64-row tiles per warpgroup,
+// which at T=200 leaves 48 blocks again; at these shapes both products take
+// well under a microsecond of tensor-core time, so the grid, the copies and
+// the latency of each warp's steps matter and the rate does not. P is taken
+// straight from the score accumulators: for m16n8k16 the accumulator of key
+// columns 2t, 2t+1 of an 8-key tile is the A fragment's layout, two 8-key
+// tiles making one 16-key k step. Instantiations for d = 16, 32, ..., 128
+// (a multiple of 16; wav2vec2's is 64); __launch_bounds__ of the largest
+// block and 1 block per SM, so ptxas may take the registers it needs and
+// does not spill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,21 +97,129 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
+
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int BQ = 16 * WARPS;  // query rows per block, 16 per warp
-constexpr int BK = 64;          // keys per K / V tile
+constexpr int SHARES = 4;         // consumer warps of a row group, each with a share of the keys
+constexpr int BK = 16 * SHARES;   // keys per tile: one 16-key chunk per consumer warp
 constexpr int DMAX = 128;
+constexpr int MAX_DEVICES = 64;
+constexpr int SMEM_MAX = 232448;  // the 227 KB a block may take on sm_90
+constexpr int RING = 4;           // tiles of K and of V held at once when they do not fit
+constexpr int PRODUCERS = 4;      // warps that issue the copies
+constexpr int LAG = 2;            // copy groups the producers keep in flight past a released one
+constexpr int PRE = 2;            // copy groups the producers issue before the set-up barrier
+static_assert(PRE <= LAG && LAG <= RING - 1, "group 0 is released once group LAG goes out");
+constexpr float LOG2E = 1.4426950408889634f;
 
-// c += a . b, m16n8k16, bf16 operands (a0..a3 the A fragment), fp32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+// Row groups of 16 query rows a block may hold (4 only up to d = 64, where
+// the registers allow them).
+template <int D>
+constexpr int max_groups() {
+  return D <= 64 ? 4 : 2;
+}
+
+// Byte offsets of a block's dynamic shared memory: the mbarriers (resident:
+// one per copy group, full; streamed: RING full and RING empty), each row
+// group's (m, l) per consumer warp and row, the key bias in fp32 (resident
+// only), the q rows, K, V. After pass 2 the K / V space holds the warps'
+// partial sums. K and V are resident (every tile, S rounded up to 16 rows)
+// or stream through rings of RING 64-row tiles each.
+struct Plan {
+  size_t stats, bias, q, k, v, bytes;
+};
+
+template <int D>
+__host__ __device__ inline Plan plan(int S, int groups, bool resident) {
+  constexpr size_t P = D + 8;
+  const int tiles = (S + BK - 1) / BK;
+  const size_t s16 = (size_t)(S + 15) / 16 * 16;
+  const size_t rows = resident ? s16 : (size_t)RING * BK;
+  Plan p;
+  p.stats = ((size_t)(resident ? 2 * tiles : 2 * RING) * 8 + 15) / 16 * 16;
+  p.bias = p.stats + (size_t)groups * SHARES * 16 * sizeof(float2);
+  p.q = p.bias + (resident ? s16 * sizeof(float) : 0);
+  p.k = p.q + (size_t)16 * groups * P * 2;
+  p.v = p.k + rows * P * 2;
+  const size_t kv_end = p.v + rows * P * 2;
+  const size_t part_end = p.k + (size_t)groups * SHARES * (D / 8) * 32 * sizeof(float4);
+  p.bytes = kv_end > part_end ? kv_end : part_end;
+  return p;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Until at most n (up to RING - 1, the largest lag) of this thread's copy
+// groups are in flight.
+template <int N = RING - 1>
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if constexpr (N > 0) {
+    if (n < N) return cp_async_wait<N - 1>(n);
+  }
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Returns once the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(const uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Synchronises the consumer warps only (the producer warps do not take it).
+__device__ __forceinline__ void consumers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a . b, m16n8k16, bf16 operands, fp32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two fp32 values rounded to bfloat16 (nearest even), lo in the low half.
@@ -89,158 +238,357 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Rows k0..k0+BK-1 of a (S, D) bfloat16 matrix into a (BK, D + 8) tile,
-// 16 bytes a copy; rows past S are zero.
+// exp(x - m) as the kernel forms it everywhere: 2^y of the fp32 product
+// y = (x - m) * log2(e), by the special-function unit (results below 2^-126
+// flush to 0: a weight that small moves no bfloat16 output).
+__device__ __forceinline__ float exp_from(float x, float m) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"((x - m) * LOG2E));
+  return r;
+}
+
+// Rows 0..n-1 of a (., D) bfloat16 matrix into rows of D + 8, by the lanes
+// of the producer warps (lane: 0 .. 32 * PRODUCERS - 1), 16 bytes a copy.
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int k0,
-                                          int S) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  constexpr int P = D + 8;
-  for (int e = threadIdx.x; e < BK * CHUNKS; e += THREADS) {
-    const int r = e / CHUNKS, c = e - r * CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (k0 + r < S) val = *reinterpret_cast<const uint4*>(src + (size_t)(k0 + r) * D + 8 * c);
-    *reinterpret_cast<uint4*>(dst + r * P + 8 * c) = val;
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int n,
+                                          int lane) {
+  for (int e = lane; e < n * (D / 8); e += 32 * PRODUCERS) {
+    const int r = e / (D / 8), c = e - r * (D / 8);
+    cp_async16(dst + r * (D + 8) + 8 * c, src + (size_t)r * D + 8 * c);
   }
 }
 
-// s[j] = q . K^T for the warp's 16 rows and keys 8j..8j+7 of the tile in
-// k_s, plus the key bias; keys past S are -inf.
+// s[j] = q . K^T for the warp's 16 rows and keys key0 + 8j .. + 7 (k_c: the
+// chunk's first K row in shared memory), plus the key bias; keys past S are
+// -inf. The bias comes from bias_s (fp32, -inf past S) when K and V are
+// resident, else from device memory.
 template <int D>
-__device__ __forceinline__ void scores(float (&s)[BK / 8][4], const uint32_t (&qf)[D / 16][4],
-                                       const __nv_bfloat16* k_s, const __nv_bfloat16* kbias,
-                                       int k0, int S, int g, int t) {
-  constexpr int P = D + 8;
+__device__ __forceinline__ void scores(float (&s)[2][4], const uint32_t (&qf)[D / 16][4],
+                                       const __nv_bfloat16* k_c, const float* bias_s,
+                                       const __nv_bfloat16* kbias, int key0, int S, int lane) {
+  // ldmatrix x4: keys 0-7 / dims 0-7, keys 0-7 / dims 8-15, keys 8-15 / ...
+  const __nv_bfloat16* kaddr =
+      k_c + ((lane & 7) + 8 * (lane >> 4)) * (D + 8) + 8 * ((lane >> 3) & 1);
 #pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    const __nv_bfloat16* krow = k_s + (8 * j + g) * P + 2 * t;
+  for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + 16 * kk);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + 16 * kk + 8);
-      mma_bf16(s[j], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3], b0, b1);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t b[4];
+    ldsm_x4(b, kaddr + 16 * kk);
+    mma_bf16(s[0], qf[kk], b[0], b[1]);
+    mma_bf16(s[1], qf[kk], b[2], b[3]);
+  }
+  // K rows past S are zeros or an earlier tile's finite values, so s + -inf
+  // is -inf there.
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int key = key0 + 8 * j + 2 * t;
+    float2 bias;
+    if (bias_s) {
+      bias = *reinterpret_cast<const float2*>(bias_s + key);
+    } else {
+      bias.x = key < S ? __bfloat162float(kbias[key]) : -INFINITY;
+      bias.y = key + 1 < S ? __bfloat162float(kbias[key + 1]) : -INFINITY;
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int key = k0 + 8 * j + 2 * t + i;
-      const float bias = key < S ? __bfloat162float(kbias[key]) : -INFINITY;
-      s[j][i] = key < S ? s[j][i] + bias : -INFINITY;
-      s[j][2 + i] = key < S ? s[j][2 + i] + bias : -INFINITY;
-    }
+    s[j][0] += bias.x;
+    s[j][1] += bias.y;
+    s[j][2] += bias.x;
+    s[j][3] += bias.y;
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1)
     keybias_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                   const __nv_bfloat16* __restrict__ k,
                                   const __nv_bfloat16* __restrict__ v,
                                   const __nv_bfloat16* __restrict__ key_bias,
-                                  __nv_bfloat16* __restrict__ out, int H, int T, int S) {
+                                  __nv_bfloat16* __restrict__ out, int H, int T, int S,
+                                  bool resident) {
   constexpr int P = D + 8;
   constexpr int NT = D / 8;  // 8-column output tiles
-  __shared__ __align__(16) __nv_bfloat16 k_s[BK * P];
-  __shared__ __align__(16) __nv_bfloat16 v_s[BK * P];
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int groups = (blockDim.x - 32 * PRODUCERS) / (32 * SHARES);
+  const int consumers = 32 * SHARES * groups;
+  const int tiles = (S + BK - 1) / BK;
+  const Plan pl = plan<D>(S, groups, resident);
+  // Resident: full[g] for copy group g (K's entry g, then V's entry g -
+  // tiles). Streamed: full[g % RING] and empty[g % RING], once a lap.
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + RING;
+  float2* stats = reinterpret_cast<float2*>(smem + pl.stats);
+  float* bias_s = resident ? reinterpret_cast<float*>(smem + pl.bias) : nullptr;
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + pl.q);
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + pl.k);
+  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + pl.v);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int bh = blockIdx.y, b = bh / H;
-  const int ra = blockIdx.x * BQ + 16 * warp + g, rb = ra + 8;
-  const __nv_bfloat16* qb = q + (size_t)bh * T * D;
-  const __nv_bfloat16* kb = k + (size_t)bh * S * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * S * D;
+  const int q0 = blockIdx.x * 16 * groups;
+  const int qrows = min(16 * groups, T - q0);
   const __nv_bfloat16* kbias = key_bias + (size_t)b * S;
+  // The blocks of one (b, h) walk the tiles from different starts, so that
+  // they do not all ask L2 for the same lines at once: entry e of K's
+  // sequence (pass 1's tiles, then, streamed, pass 2's) and of V's (pass
+  // 2's) is tile (e + rot) % tiles.
+  const int rot = blockIdx.x % tiles;
+  const int G = 2 * tiles;  // copy groups: K's entries, then V's (resident) or K's with V's
 
-  // A fragments of the warp's q rows: rows g / g+8, columns 2t, 2t+1 (+8).
+  // The producer warps (the last PRODUCERS): copy group g (q with K's
+  // entry 0; K's entry g; then V's entry g - tiles, streamed with K's entry
+  // g), one cp.async group each; before group g goes out, group g - lag has
+  // landed and its barrier takes the producers' arrivals. Streamed, a group
+  // waits until the consumers are done with the group a lap before it in
+  // the same slots. The first PRE groups go out before the block's set-up
+  // barrier, so that their trip to memory overlaps the set-up.
+  const bool producer = tid >= consumers;
+  const int plane = tid - consumers;  // a producer's lane among the producer warps
+  auto issue = [&](int gi) {
+    const __nv_bfloat16* kb = k + (size_t)bh * S * D;
+    const __nv_bfloat16* vb = v + (size_t)bh * S * D;
+    if (gi == 0) copy_rows<D>(q_s, q + ((size_t)bh * T + q0) * D, qrows, plane);
+    if (gi < tiles || !resident) {
+      const int tile = (gi + rot) % tiles;
+      copy_rows<D>(k_s + (resident ? tile : gi % RING) * BK * P, kb + (size_t)tile * BK * D,
+                   min(BK, S - tile * BK), plane);
+    }
+    if (gi >= tiles) {
+      const int e = gi - tiles, tile = (e + rot) % tiles;
+      copy_rows<D>(v_s + (resident ? tile : e % RING) * BK * P, vb + (size_t)tile * BK * D,
+                   min(BK, S - tile * BK), plane);
+    }
+    cp_async_commit();
+  };
+  if (producer)
+    for (int gi = 0; gi < PRE; ++gi) issue(gi);  // G >= 2 >= PRE
+
+  if (tid == 0) {
+    for (int i = 0; i < (resident ? G : RING); ++i) mbar_init(&full[i], 32 * PRODUCERS);
+    if (!resident)
+      for (int i = 0; i < RING; ++i) mbar_init(&empty[i], consumers / 32);
+  }
+  // Rows no copy fills: q rows past T, and the rows past S that the last
+  // tile's chunks read, in its place (resident) or in its slot when it is
+  // the slot's first tile (streamed; else an earlier tile's finite values
+  // are there).
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int e = tid; e < (16 * groups - qrows) * (D / 8); e += blockDim.x)
+    *reinterpret_cast<uint4*>(q_s + (qrows + e / (D / 8)) * P + 8 * (e % (D / 8))) = zero;
+  const int last = S - (tiles - 1) * BK, pad = (last + 15) / 16 * 16 - last;
+  const int first = tiles - 1 - rot;  // the last tile's entry in the sequence
+  if (resident || first < RING) {
+    const int row0 = (resident ? tiles - 1 : first) * BK + last;
+    for (int e = tid; e < pad * (D / 8); e += blockDim.x) {
+      const int off = (row0 + e / (D / 8)) * P + 8 * (e % (D / 8));
+      *reinterpret_cast<uint4*>(k_s + off) = zero;
+      *reinterpret_cast<uint4*>(v_s + off) = zero;
+    }
+  }
+  if (resident)  // the bias in fp32, -inf past S
+    for (int j = tid; j < S + pad; j += blockDim.x)
+      bias_s[j] = j < S ? __bfloat162float(kbias[j]) : -INFINITY;
+  __syncthreads();
+
+  if (producer) {
+    // Streamed, at most RING - 1 groups run ahead of the one released, or
+    // the producer would wait for a slot that the consumers free only after
+    // that release.
+    const int lag = resident ? LAG : RING - 1;
+    for (int gi = PRE; gi < G + lag; ++gi) {
+      const int h = gi - lag;  // released before group gi goes out
+      if (h >= 0) {
+        cp_async_wait(min(gi, G) - 1 - h);
+        mbar_arrive(&full[resident ? h : h % RING]);
+      }
+      if (gi < G) {
+        if (!resident && gi >= RING) mbar_wait(&empty[gi % RING], (gi / RING - 1) & 1);
+        issue(gi);
+      }
+    }
+    return;
+  }
+
+  const int group = warp / SHARES, share = warp % SHARES;
+  const int g = lane / 4, t = lane % 4;
+  auto wait_group_of = [&](int gi) {
+    mbar_wait(&full[resident ? gi : gi % RING], resident ? 0 : (gi / RING) & 1);
+  };
+  auto release = [&](int gi) {  // streamed: this warp is done with group gi's slots
+    if (!resident) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[gi % RING]);
+    }
+  };
+
+  // The warp's q fragments (A of m16n8k16), by ldmatrix x4: rows 0-7 / 8-15
+  // of the group's 16, columns 0-7 / 8-15 of each 16-column step.
+  wait_group_of(0);
   uint32_t qf[D / 16][4];
+  const __nv_bfloat16* qaddr = q_s + (16 * group + (lane & 15)) * P + 8 * (lane >> 4);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = 16 * kk + 2 * t;
-    qf[kk][0] = ra < T ? *reinterpret_cast<const uint32_t*>(qb + (size_t)ra * D + c) : 0u;
-    qf[kk][1] = rb < T ? *reinterpret_cast<const uint32_t*>(qb + (size_t)rb * D + c) : 0u;
-    qf[kk][2] = ra < T ? *reinterpret_cast<const uint32_t*>(qb + (size_t)ra * D + c + 8) : 0u;
-    qf[kk][3] = rb < T ? *reinterpret_cast<const uint32_t*>(qb + (size_t)rb * D + c + 8) : 0u;
+  for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], qaddr + 16 * kk);
+
+  // Pass 1: the max m and the sum l of exp(s - m) over the warp's keys, per
+  // row (g for h = 0, g + 8 for h = 1). A thread keeps the sum of its own
+  // keys; the quad's four are added at the end.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int i = 0, tile = rot; i < tiles; ++i, tile = tile + 1 == tiles ? 0 : tile + 1) {
+    wait_group_of(i);
+    const int key0 = tile * BK + 16 * share;
+    if (key0 < S) {  // the chunk holds key0 < S, whose bias is finite: n finite
+      const int slot = resident ? tile : i % RING;
+      float s[2][4];
+      scores<D>(s, qf, k_s + (slot * BK + 16 * share) * P, bias_s, kbias, key0, S, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float n = fmaxf(m[h], quad_max(fmaxf(fmaxf(s[0][2 * h], s[0][2 * h + 1]),
+                                                   fmaxf(s[1][2 * h], s[1][2 * h + 1]))));
+        l[h] = l[h] * exp_from(m[h], n) + exp_from(s[0][2 * h], n) +
+               exp_from(s[0][2 * h + 1], n) + exp_from(s[1][2 * h], n) +
+               exp_from(s[1][2 * h + 1], n);
+        m[h] = n;
+      }
+    }
+    release(i);
   }
 
-  // Pass 1: each row's max m and sum l of exp(s - m). A thread keeps the
-  // sum of its own keys; the quad's four are added at the end.
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float s[BK / 8][4];
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    __syncthreads();
-    load_tile<D>(k_s, kb, k0, S);
-    __syncthreads();
-    scores<D>(s, qf, k_s, kbias, k0, S, g, t);
-    float x0 = -INFINITY, x1 = -INFINITY;
+  // The row group's M and L over its four warps, in warp order. A warp that
+  // saw no key has m = -inf and l = 0, and adds 0.
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      x0 = fmaxf(x0, fmaxf(s[j][0], s[j][1]));
-      x1 = fmaxf(x1, fmaxf(s[j][2], s[j][3]));
-    }
-    // finite: the tile holds key k0 < S, whose bias is finite
-    const float n0 = fmaxf(m0, quad_max(x0)), n1 = fmaxf(m1, quad_max(x1));
-    l0 *= expf(m0 - n0);
-    l1 *= expf(m1 - n1);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      l0 += expf(s[j][0] - n0) + expf(s[j][1] - n0);
-      l1 += expf(s[j][2] - n1) + expf(s[j][3] - n1);
-    }
-    m0 = n0;
-    m1 = n1;
+  for (int h = 0; h < 2; ++h) {
+    const float sum = quad_sum(l[h]);
+    if (t == 0) stats[(group * SHARES + share) * 16 + g + 8 * h] = make_float2(m[h], sum);
   }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
+  consumers_sync(consumers);
+  float M[2], R[2];  // the row's max and the reciprocal of its sum
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float top = -INFINITY, sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < SHARES; ++w)
+      top = fmaxf(top, stats[(group * SHARES + w) * 16 + g + 8 * h].x);
+#pragma unroll
+    for (int w = 0; w < SHARES; ++w) {
+      const float2 a = stats[(group * SHARES + w) * 16 + g + 8 * h];
+      sum += a.y * exp_from(a.x, top);
+    }
+    M[h] = top;
+    R[h] = 1.f / sum;
+  }
 
-  // Pass 2: P = bf16(exp(s - m) / l), acc += P . V.
+  // Pass 2: P = bf16(exp(s - M) * (1 / L)), acc += P . V over the warp's keys.
   float acc[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const unsigned short* v16 = reinterpret_cast<const unsigned short*>(v_s);
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    __syncthreads();
-    load_tile<D>(k_s, kb, k0, S);
-    load_tile<D>(v_s, vb, k0, S);
-    __syncthreads();
-    scores<D>(s, qf, k_s, kbias, k0, S, g, t);
+  for (int i = 0, tile = rot; i < tiles; ++i, tile = tile + 1 == tiles ? 0 : tile + 1) {
+    wait_group_of(tiles + i);  // resident: V's entry i (K is still in place); streamed: both
+    const int key0 = tile * BK + 16 * share;
+    if (key0 < S) {
+      const int kslot = resident ? tile : (tiles + i) % RING, vslot = resident ? tile : i % RING;
+      float s[2][4];
+      scores<D>(s, qf, k_s + (kslot * BK + 16 * share) * P, bias_s, kbias, key0, S, lane);
+      const uint32_t p[4] = {
+          pack_bf16(exp_from(s[0][0], M[0]) * R[0], exp_from(s[0][1], M[0]) * R[0]),
+          pack_bf16(exp_from(s[0][2], M[1]) * R[1], exp_from(s[0][3], M[1]) * R[1]),
+          pack_bf16(exp_from(s[1][0], M[0]) * R[0], exp_from(s[1][1], M[0]) * R[0]),
+          pack_bf16(exp_from(s[1][2], M[1]) * R[1], exp_from(s[1][3], M[1]) * R[1])};
+      // ldmatrix x4.trans: keys 0-7 / 8-15 of the chunk, columns 8n.. / 8(n+1)..
+      const __nv_bfloat16* vaddr =
+          v_s + (vslot * BK + 16 * share + (lane & 15)) * P + 8 * (lane >> 4);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const float(&s0)[4] = s[2 * kk];
-      const float(&s1)[4] = s[2 * kk + 1];
-      const uint32_t p0 = pack_bf16(expf(s0[0] - m0) / l0, expf(s0[1] - m0) / l0);
-      const uint32_t p1 = pack_bf16(expf(s0[2] - m1) / l1, expf(s0[3] - m1) / l1);
-      const uint32_t p2 = pack_bf16(expf(s1[0] - m0) / l0, expf(s1[1] - m0) / l0);
-      const uint32_t p3 = pack_bf16(expf(s1[2] - m1) / l1, expf(s1[3] - m1) / l1);
-      const int r0 = (16 * kk + 2 * t) * P;  // V rows 16kk+2t, +1, +8, +9
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int c = 8 * n + g;
-        const uint32_t b0 = (uint32_t)v16[r0 + c] | ((uint32_t)v16[r0 + P + c] << 16);
-        const uint32_t b1 =
-            (uint32_t)v16[r0 + 8 * P + c] | ((uint32_t)v16[r0 + 9 * P + c] << 16);
-        mma_bf16(acc[n], p0, p1, p2, p3, b0, b1);
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, vaddr + 8 * n);
+        mma_bf16(acc[n], p, bv[0], bv[1]);
+        mma_bf16(acc[n + 1], p, bv[2], bv[3]);
       }
     }
+    release(tiles + i);
   }
 
-  __nv_bfloat16* ob = out + (size_t)bh * T * D;
+  // The four warps' partial sums, added in fp32 in warp order through the
+  // space K and V held; warp `share` of the group writes output tiles
+  // share, share + 4, ...
+  consumers_sync(consumers);
+  float4* part = reinterpret_cast<float4*>(k_s);
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int c = 8 * n + 2 * t;
-    if (ra < T)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)ra * D + c) = pack_bf16(acc[n][0], acc[n][1]);
-    if (rb < T)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)rb * D + c) = pack_bf16(acc[n][2], acc[n][3]);
+  for (int n = 0; n < NT; ++n)
+    part[((group * SHARES + share) * NT + n) * 32 + lane] =
+        make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+  consumers_sync(consumers);
+  __nv_bfloat16* ob = out + (size_t)bh * T * D;
+  const int ra = q0 + 16 * group + g, rb = ra + 8;
+  for (int n = share; n < NT; n += SHARES) {
+    float4 a = part[(group * SHARES * NT + n) * 32 + lane];
+#pragma unroll
+    for (int w = 1; w < SHARES; ++w) {
+      const float4 c = part[((group * SHARES + w) * NT + n) * 32 + lane];
+      a.x += c.x;
+      a.y += c.y;
+      a.z += c.z;
+      a.w += c.w;
+    }
+    const int col = 8 * n + 2 * t;
+    if (ra < T) *reinterpret_cast<uint32_t*>(ob + (size_t)ra * D + col) = pack_bf16(a.x, a.y);
+    if (rb < T) *reinterpret_cast<uint32_t*>(ob + (size_t)rb * D + col) = pack_bf16(a.z, a.w);
   }
+}
+
+// Read once per device: 0 until set, then 1 + the setter's cudaError_t.
+// Two threads racing to set it both store the same value, which is harmless.
+template <int D>
+cudaError_t raise_smem_limit(int dev) {
+  static std::atomic<int> state[MAX_DEVICES];
+  int val = state[dev].load(std::memory_order_acquire);
+  if (val == 0) {
+    val = 1 + (int)cudaFuncSetAttribute(keybias_attention_bf16_kernel<D>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    state[dev].store(val, std::memory_order_release);
+  }
+  return (cudaError_t)(val - 1);
+}
+
+// The block's row groups (1 to 4: 16 to 64 query rows) that take the least
+// waves * (rows + 8192 / S): a block's set-up and first trip to memory cost
+// about as much as 8192 / S rows of work, and fewer rows a block make more
+// blocks, maybe another wave. A wave is as many blocks as fit on the SMs by
+// shared memory and threads.
+template <int D>
+int pick_groups(int B, int H, int T, int S, int sms) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int groups = 1; groups <= max_groups<D>(); ++groups) {
+    const bool resident = plan<D>(S, groups, true).bytes <= (size_t)SMEM_MAX;
+    const long long bytes = (long long)plan<D>(S, groups, resident).bytes;
+    const int threads = 32 * (SHARES * groups + PRODUCERS);
+    const long long fit = std::max(1LL, std::min(233472 / (bytes + 1024), 2048LL / threads));
+    const long long blocks = (long long)((T + 16 * groups - 1) / (16 * groups)) * B * H;
+    const long long cost = (blocks + sms * fit - 1) / (sms * fit) * (16 * groups + 8192 / S);
+    if (best_cost < 0 || cost < best_cost) best = groups, best_cost = cost;
+  }
+  return best;
 }
 
 template <int D>
 cudaError_t launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                      const __nv_bfloat16* key_bias, __nv_bfloat16* out, int B, int H, int T,
                      int S, cudaStream_t stream) {
-  const dim3 grid((T + BQ - 1) / BQ, B * H);
-  keybias_attention_bf16_kernel<D><<<grid, THREADS, 0, stream>>>(q, k, v, key_bias, out, H, T, S);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  err = raise_smem_limit<D>(dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int groups = pick_groups<D>(B, H, T, S, sms);
+  const bool resident = plan<D>(S, groups, true).bytes <= (size_t)SMEM_MAX;
+  const dim3 grid((T + 16 * groups - 1) / (16 * groups), B * H);
+  keybias_attention_bf16_kernel<D><<<grid, 32 * (SHARES * groups + PRODUCERS),
+                                     plan<D>(S, groups, resident).bytes, stream>>>(
+      q, k, v, key_bias, out, H, T, S, resident);
   return cudaGetLastError();
 }
 
@@ -248,14 +596,15 @@ cudaError_t launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_
 
 // q, out: (B, H, T, d); k, v: (B, H, S, d); key_bias: (B, S), broadcast over
 // heads and query rows. All bfloat16, contiguous, on the current device;
-// q and out 4-byte aligned, k and v 16-byte aligned; d a multiple of 16 up
-// to 128. Launches on `stream` and returns the launch's cudaError_t (0 on
-// success); does not synchronise.
+// q, k and v 16-byte aligned, out 4-byte aligned; d a multiple of 16 up to
+// 128. Launches on `stream` and returns the launch's cudaError_t (0 on
+// success), or the error of raising the kernel's shared-memory limit, which
+// is done once per instantiation and device; does not synchronise.
 extern "C" int avi_keybias_attention_bf16(const void* q, const void* k, const void* v,
                                           const void* key_bias, void* out, int B, int H, int T,
                                           int S, int d, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || S <= 0 || d <= 0 || d > DMAX || d % 16 ||
-      (long long)B * H > 65535 || (uintptr_t)q % 4 || (uintptr_t)out % 4 ||
+      (long long)B * H > 65535 || (uintptr_t)q % 16 || (uintptr_t)out % 4 ||
       (uintptr_t)k % 16 || (uintptr_t)v % 16)
     return (int)cudaErrorInvalidValue;
   const auto* qq = static_cast<const __nv_bfloat16*>(q);

@@ -69,20 +69,22 @@ def bf16_disagreement(got: torch.Tensor, ref: torch.Tensor) -> dict:
     """How far the bfloat16 kernel's output ``got`` lies from ``ref``, the
     plain version's on the same inputs, against the limit that holds it.
     Both round P and the output to bfloat16 from float32 values that differ
-    only in summation order and expf's last bits (about 2^-20 relative), so a
-    value near a rounding midpoint may round the other way. An output that
-    does so moves one bfloat16 step, at most 2^-7 |ref| (8 significant
-    bits); a flipped P_j moves the output's float32 value by at most
-    2^-7 p_j |v_j|, for which 2^-9 max|ref| is allowed. So each element is
-    held within 2^-7 |ref| + 2^-9 max|ref|. Few elements flip, so the rms
+    only in summation order and the exponential's last bits (about 2^-20
+    relative), so a value near a rounding midpoint may round the other way.
+    An output that does so moves one bfloat16 step, at most 2^-7 |ref| (8
+    significant bits); a flipped P_j moves the output's float32 value by at
+    most 2^-7 p_j |v_j|, for which 2^-9 max|ref| is allowed. So each element
+    is held within 2^-7 |ref| + 2^-9 max|ref|. Few elements flip, so the rms
     stays far below one step: it is held within 2^-11 rms(ref), plus one
     element's step of 2^-7 max|ref| spread over the N elements (what a
     single flip in a small tensor gives). A CPU emulation at the generate
     shapes (float64 sums, the same rounding points) reads rms 2^-14 rms(ref)
-    with 0.05% of the outputs flipped. A wrong kernel does not pass: P
-    mis-normalised by 1% reads ``worst`` 1.6, by 0.4% rms 2^-7.6 rms(ref);
-    the one-pass softmax that rounds the unnormalised exponentials reads rms
-    2^-8.4 rms(ref), half the outputs flipped.
+    with 0.05% of the outputs flipped; one in the card kernel's order (keys
+    split over four warps, exp2 and a reciprocal of the sum) rms 2^-13.9
+    with 0.04% flipped. A wrong kernel does not pass: P mis-normalised by
+    1% reads ``worst`` 1.6, by 0.4% rms 2^-7.6 rms(ref); the one-pass
+    softmax that rounds the unnormalised exponentials reads rms 2^-8.4
+    rms(ref), half the outputs flipped.
 
     Returns ``worst`` and ``rms_worst``, the largest element's and the rms's
     share of their limits (at most 1 each passes), ``rms_rel``,
@@ -139,8 +141,8 @@ def _check_cuda_inputs(q, k, v, key_bias) -> None:
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it when its data does not start on a 16-byte
-    boundary (a view with an odd storage offset): the kernel copies K and V
-    into shared memory 16 bytes at a time."""
+    boundary (a view with an odd storage offset): the kernels copy q (the
+    bfloat16 one), K and V into shared memory 16 bytes at a time."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 

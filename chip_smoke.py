@@ -50,7 +50,8 @@ the checkout's sources into build/, then
             at max_batch 4, driven as `cli serve` drives it, each result held
             to generate_batch on the same padded micro-batch; p50 / p99;
 10. kernel_check bf16: K1's bfloat16 entry against its plain version at
-            the generate shapes (B=1 H=12 T=S=200, 333, 600; B=2 T=S=512),
+            the generate shapes (B=1 H=12 T=S=200, 333, 600; B=2 T=S=512)
+            and at one shape past its shared-memory fit (streamed, marked),
             with its times, SDPA's at bfloat16 and the bf16-peak bound;
 11. generate_bf16: `--bf16` at full width on the fp32 pipeline's weights:
             K1 bf16 12 launches a generate and fp32 0, finite outputs, the
@@ -2652,17 +2653,44 @@ def attention_bound_bf16(B, H, T, S, d, peaks):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
 
 
+# K1 bf16's shapes on the generate path: name, B, H, T, S, d, valid keys per batch
+BF16_CASES = [
+    ("generate", 1, 12, 200, 200, 64, (200,)),
+    ("batch_512", 2, 12, 512, 512, 64, (512, 300)),
+    ("ragged_333", 1, 12, 333, 333, 64, (333,)),
+    ("generate_600", 1, 12, 600, 600, 64, (600,)),
+]
+# K and V past the 227 KB a block may take: the kernel streams them
+BF16_STREAMED = [("streamed_d128", 1, 2, 64, 600, 128, (600,))]
+
+
+def bf16_inputs(B, H, T, S, d, lens, g):
+    """bfloat16 q (scaled by d^-1/2), k, v and a (B, S) key bias of 0 for
+    the first lens[b] keys of batch b and -1e9 past them, on the card."""
+    import torch
+
+    q = (torch.randn(B, H, T, d, device="cuda", generator=g) * d ** -0.5).bfloat16()
+    k = torch.randn(B, H, S, d, device="cuda", generator=g).bfloat16()
+    v = torch.randn(B, H, S, d, device="cuda", generator=g).bfloat16()
+    valid = torch.tensor(lens, device="cuda")
+    bias = torch.where(torch.arange(S, device="cuda")[None] < valid[:, None], 0.0,
+                       -1e9).bfloat16()
+    return q, k, v, bias
+
+
 def phase_kernels_bf16(peaks):
     """K1's bfloat16 entry against its plain version on the card at the
     generate path's shapes (bfloat16 q, k, v and key bias, as wav2vec2 sends
-    them under --bf16). Limit (``kb.bf16_disagreement``, which derives it):
+    them under --bf16), and at BF16_STREAMED's, where K and V stream through
+    shared memory (its row marked ``path``; the kernels line's headline shape
+    stays generate's). Limit (``kb.bf16_disagreement``, which derives it):
     each element within 2^-7 |ref| + 2^-9 max|ref| (one bfloat16 step of the
     output, since both sides round P and the output from float32 values that
-    differ only in summation order and expf's last bits, plus a share for
-    flipped P), and rms(out - ref) within 2^-11 rms(ref) plus one element's
-    step over the N elements (few elements flip; a kernel that mis-normalises
-    P by 0.4% or rounds the unnormalised exponentials reads 2^-7.6 or 2^-8.4
-    rms(ref)). With its time (CUDA events around the
+    differ only in summation order and the exponential's last bits, plus a
+    share for flipped P), and rms(out - ref) within 2^-11 rms(ref) plus one
+    element's step over the N elements (few elements flip; a kernel that
+    mis-normalises P by 0.4% or rounds the unnormalised exponentials reads
+    2^-7.6 or 2^-8.4 rms(ref)). With its time (CUDA events around the
     wrapper, the kernel's device time under torch.profiler), the plain
     version's, scaled_dot_product_attention's at bfloat16 with the same
     float mask, and the bound at the bf16 peak."""
@@ -2672,20 +2700,9 @@ def phase_kernels_bf16(peaks):
     from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    cases = [
-        ("generate", 1, 12, 200, 200, 64, (200,)),
-        ("batch_512", 2, 12, 512, 512, 64, (512, 300)),
-        ("ragged_333", 1, 12, 333, 333, 64, (333,)),
-        ("generate_600", 1, 12, 600, 600, 64, (600,)),
-    ]
     rows = []
-    for name, B, H, T, S, d, lens in cases:
-        q = (torch.randn(B, H, T, d, device="cuda", generator=g) * d ** -0.5).bfloat16()
-        k = torch.randn(B, H, S, d, device="cuda", generator=g).bfloat16()
-        v = torch.randn(B, H, S, d, device="cuda", generator=g).bfloat16()
-        valid = torch.tensor(lens, device="cuda")
-        bias = torch.where(torch.arange(S, device="cuda")[None] < valid[:, None], 0.0,
-                           -1e9).bfloat16()
+    for name, B, H, T, S, d, lens in BF16_CASES + BF16_STREAMED:
+        q, k, v, bias = bf16_inputs(B, H, T, S, d, lens, g)
         before = kb.launches
         out = kb.keybias_attention(q, k, v, bias)
         torch.cuda.synchronize()
@@ -2705,6 +2722,8 @@ def phase_kernels_bf16(peaks):
 
         row = {
             "case": name, "shape": [B, H, T, S, d], "dtype": "bfloat16",
+            "path": ("streamed: K and V past the shared-memory fit, on no path of the product"
+                     if (name, B, H, T, S, d, lens) in BF16_STREAMED else "generate --bf16"),
             "max_abs_err": dis["max_abs"], "limit_share": dis["worst"],
             "rms_limit_share": dis["rms_worst"], "rms_rel": dis["rms_rel"],
             "flipped": dis["flipped"], "ms": time_ms(kernel),

@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Where a block of K1's bfloat16 kernel spends its time, on the card.
+
+    python scripts/torch_bf16_timeline.py
+
+Builds avi_talking_tpu_torch/csrc/keybias_attention_bf16.cu with marks added
+at its section boundaries (thread 0, a consumer, reads clock64 there and
+writes it to a __device__ array), runs it at chip_smoke.py's bf16
+kernel-check shapes (chip_smoke.BF16_CASES and BF16_STREAMED) and prints one
+JSON line per shape: per section, the median over blocks of the cycles from
+the block's start to the section's end (set-up: barriers, zero rows and the
+fp32 bias; q: the first copy group released; tile0: pass 1's first tile;
+pass1, merge, pass2, end), and the spread of the blocks' start times (ns,
+%globaltimer), which shows the waves. The marks cost a few instructions of
+one thread; the build goes to build/variants/.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import kernel_variants
+
+SECTIONS = [  # (mark, the text it goes before), in order; "end" goes after the output loop
+    ("start", "  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;"),
+    ("setup", "  if (producer) {\n    // Streamed, at most"),
+    ("q", "  uint32_t qf[D / 16][4];"),
+    ("tile0", "    if (key0 < S) {  // the chunk holds"),
+    ("pass1", "  // The row group's M and L"),
+    ("merge", "  // Pass 2: P = bf16"),
+    ("pass2", "  // The four warps' partial sums"),
+]
+END = ("    if (rb < T) *reinterpret_cast<uint32_t*>(ob + (size_t)rb * D + col) = "
+       "pack_bf16(a.z, a.w);\n  }\n")
+HEADER = r"""
+#include <cuda_runtime.h>
+__device__ long long avi_marks[8192][10];
+#define MARK(k)                                                                     \
+  do {                                                                              \
+    const int blk = blockIdx.y * gridDim.x + blockIdx.x;                            \
+    if (threadIdx.x == 0 && blk < 8192 && avi_marks[blk][k] == 0) {                 \
+      avi_marks[blk][k] = clock64();                                                \
+      if ((k) == 0) {                                                               \
+        long long ns;                                                               \
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));                      \
+        avi_marks[blk][9] = ns;                                                     \
+      }                                                                             \
+    }                                                                               \
+  } while (0)
+extern "C" int avi_marks_read(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, avi_marks, sizeof(avi_marks));
+}
+extern "C" int avi_marks_clear() {
+  static long long zero[8192][10];
+  return (int)cudaMemcpyToSymbol(avi_marks, zero, sizeof(zero));
+}
+"""
+
+
+def marked_source(text: str) -> str:
+    for k, (_, anchor) in enumerate(SECTIONS):
+        if text.count(anchor) != 1:
+            raise SystemExit(f"the mark {SECTIONS[k][0]} no longer applies")
+        text = text.replace(anchor, f"  MARK({k});\n" + anchor)
+    if text.count(END) != 1:
+        raise SystemExit("the end mark no longer applies")
+    return HEADER + text.replace(END, END + f"  MARK({len(SECTIONS)});\n")
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    cs = kernel_variants.chip_smoke("torch_bf16_timeline")
+    from avi_talking_tpu_torch.ops.kernels import build
+
+    with open(os.path.join(build.CSRC_DIR, "keybias_attention_bf16.cu")) as f:
+        src = marked_source(f.read())
+    out_dir = os.path.join(kernel_variants.ROOT, "build", "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    path, lib = os.path.join(out_dir, "kb_marks.cu"), os.path.join(out_dir, "libkb_marks.so")
+    with open(path, "w") as f:
+        f.write(src)
+    done = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib, path],
+                          capture_output=True, text=True)
+    if done.returncode:
+        raise SystemExit(done.stdout + done.stderr)
+    so = ctypes.CDLL(lib)
+    fn = so.avi_keybias_attention_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    names = [name for name, _ in SECTIONS[1:]] + ["end"]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for case, B, H, T, S, d, lens in cs.BF16_CASES + cs.BF16_STREAMED:
+        q, k, v, bias = cs.bf16_inputs(B, H, T, S, d, lens, g)
+        out = torch.empty_like(q)
+
+        def call():
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                     B, H, T, S, d, torch.cuda.current_stream().cuda_stream)
+            assert err == 0, err
+
+        call()  # warm-up: the build's first launch raises the shared-memory limit
+        torch.cuda.synchronize()
+        assert so.avi_marks_clear() == 0
+        call()
+        torch.cuda.synchronize()
+        marks = np.zeros((8192, 10), np.int64)
+        assert so.avi_marks_read(marks.ctypes.data) == 0
+        marks = marks[marks[:, 0] != 0]
+        cycles = marks[:, 1:len(SECTIONS) + 1] - marks[:, :1]
+        start_ns = marks[:, 9] - marks[:, 9].min()
+        print(json.dumps({
+            "case": case, "shape": [B, H, T, S, d], "blocks": int(len(marks)),
+            "median_cycles_from_start": {n: float(np.median(cycles[:, i]))
+                                         for i, n in enumerate(names)},
+            "start_ns_percentiles_0_50_90_100": [int(np.percentile(start_ns, p))
+                                                 for p in (0, 50, 90, 100)]}), flush=True)
+    kernel_variants.print_card()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,7 +8,9 @@ A is the checkout at OTHER_ROOT (say a parent commit unpacked with
 letter of ``--order`` runs one side in a process of its own, which imports
 the port from that side's root and builds its kernels there, then measures:
 
-* K1 / K3 at chip_smoke.py's kernel-check shapes, and K2 at its three
+* K1 / K3 at chip_smoke.py's kernel-check shapes, K1's bfloat16 entry at
+  its bf16 kernel-check shapes (chip_smoke.BF16_CASES, the generate path's
+  four; keys ``bf16_<case>``), and K2 at its three
   visibility shapes (chip_smoke.visibility_cases: the render path's launch
   on the 8 s clip's frames, the head mesh at 256^2 / tile 32 and 224^2 /
   tile 56): CUDA-event ms around the wrapper and the kernel's device ms
@@ -88,6 +90,15 @@ def side(root: str, label: str, kernels_only: bool) -> dict:
                 return kba.fused_bias_attention(q, k, v, bias)
         result["kernels"][case] = {"ms": cs.time_ms(fn),
                                    "device_ms": cs.device_ms(fn, "bias_attention_kernel")}
+    gb = torch.Generator(device="cuda").manual_seed(1)
+    for case, B, H, T, S, d, lens in cs.BF16_CASES:
+        qb, kb16, vb, biasb = cs.bf16_inputs(B, H, T, S, d, lens, gb)
+
+        def fn():
+            return kb.keybias_attention(qb, kb16, vb, biasb)
+
+        result["kernels"][f"bf16_{case}"] = {
+            "ms": cs.time_ms(fn), "device_ms": cs.device_ms(fn, "keybias_attention_bf16_kernel")}
 
     assets = synthetic_assets(num_vertices=5023, n_shape=300, n_exp=50, num_faces=9976)
     pipe = AviTalkingPipeline.random_init(PipelineConfig(), assets, seed=0)

@@ -131,14 +131,43 @@ def test_keybias_plain_bf16_matches_jax(B, H, T, S, d, lens):
     assert_closer("xla path", port, jb, xla(*f32, jnp.float32))
 
 
+def _key_split_kernel(s, v):
+    """The card kernel's order and rounding points on the scores ``s``:
+    16-key chunk c to warp c % 4; each warp's max m and sum l of
+    exp2(fp32((s - m) * log2 e)); M = max m, L = sum l * exp2((m - M) * log2 e)
+    over the warps in order; P = bf16(exp2(...) * fp32(1 / L)); each warp's
+    P . V in fp32, the four added in fp32 in warp order."""
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    share = (torch.arange(s.shape[-1]) // 16) % 4
+    stats = []
+    for w in range(4):
+        sw = s[..., share == w]
+        m = sw.amax(-1, keepdim=True)
+        stats.append((m, torch.exp2((sw - m) * log2e).double().sum(-1, keepdim=True).float()))
+    big = torch.stack([m for m, _ in stats]).amax(0)
+    total = torch.zeros_like(big)
+    for m, l in stats:
+        total = total + l * torch.exp2((m - big) * log2e)
+    p = (torch.exp2((s - big) * log2e) * (1 / total)).bfloat16()
+    out = torch.zeros(*s.shape[:-1], v.shape[-1])
+    for w in range(4):
+        keys = share == w
+        out = out + torch.einsum("bhts,bhsd->bhtd", p[..., keys].double(),
+                                 v[..., keys, :].double()).float()
+    return out.bfloat16()
+
+
 def _emulated_kernel(q, k, v, bias, variant):
     """K1 at bfloat16 computed another way on the CPU: ``reordered`` with
     the plain version's rounding points but its sums in float64 (what a
-    correct kernel may differ by), ``one_pass`` rounding the unnormalised
+    correct kernel may differ by), ``key_split`` in the card kernel's order
+    (``_key_split_kernel``), ``one_pass`` rounding the unnormalised
     exponentials and dividing at the end, ``misnormalised`` with P 1% too
     large."""
     s = (torch.einsum("bhtd,bhsd->bhts", q.double(), k.double())
          + bias.double()[:, None, None, :]).float()
+    if variant == "key_split":
+        return _key_split_kernel(s, v)
     e = torch.exp(s - s.amax(-1, keepdim=True))
     l = e.double().sum(-1, keepdim=True).float()
     if variant == "one_pass":
@@ -148,13 +177,14 @@ def _emulated_kernel(q, k, v, bias, variant):
     return torch.einsum("bhts,bhsd->bhtd", p.double(), v.double()).float().bfloat16()
 
 
-@pytest.mark.parametrize("variant,passes", [("reordered", True), ("one_pass", False),
-                                            ("misnormalised", False)])
+@pytest.mark.parametrize("variant,passes", [("reordered", True), ("key_split", True),
+                                            ("one_pass", False), ("misnormalised", False)])
 def test_bf16_kernel_limit_separates_a_wrong_kernel(variant, passes):
     """``kb.bf16_disagreement``, which holds the bfloat16 kernel to its
     plain version on the card, at the generate shape (B=1, H=12, T=S=200,
-    d=64): a kernel that differs only in summation order passes; one that
-    rounds the unnormalised exponentials, or mis-normalises P by 1%, fails."""
+    d=64): a kernel that differs only in summation order passes, the card
+    kernel's key split with its exp2 and reciprocal too; one that rounds the
+    unnormalised exponentials, or mis-normalises P by 1%, fails."""
     g = torch.Generator().manual_seed(1)
     q = (torch.randn(1, 12, 200, 64, generator=g) * 64 ** -0.5).bfloat16()
     k = torch.randn(1, 12, 200, 64, generator=g).bfloat16()

@@ -126,6 +126,21 @@ BF16_CASES = [
     (2, 2, 12, 1, 32, (1, 1)),  # S=1
     (2, 2, 20, 20, 16, (20, 0)),  # batch 1: every key bias -1e9, uniform rows
     (1, 12, 600, 600, 64, (600,)),  # the FaceFormer encoder's shape
+    # the edges of the key-split partition: 16-key chunks dealt to 4 warps,
+    # blocks of 1 to 4 groups of 16 query rows (pick_groups), K and V
+    # resident in shared memory or streamed through rings of 64-key tiles
+    # where they do not fit; the shapes above take 1 group (T=200, 333), 3
+    # (B=2 T=512) and 4 (T=600)
+    (1, 3, 40, 65, 64, (65,)),  # S past one tile by one key: warps 1-3 idle on tile 1
+    (2, 2, 50, 130, 32, (130, 77)),  # S=130: a 2-key last chunk
+    (1, 4, 17, 100, 64, (100,)),  # T=17: a 1-row last query tile
+    (1, 6, 700, 700, 64, (700,)),  # 2 row groups at d=64, a 28-row last block
+    (2, 12, 256, 256, 128, (256, 100)),  # 32 rows as 2 row groups at d=128
+    (1, 2, 64, 600, 128, (600,)),  # streamed: d=128 past the fit
+    (1, 2, 64, 1024, 64, (1024,)),  # streamed: d=64 at S=1024
+    (2, 2, 40, 700, 128, (700, 0)),  # streamed, batch 1 every key masked
+    (2, 12, 512, 600, 128, (600, 321)),  # streamed, 2 row groups a block
+    (2, 12, 333, 800, 64, (800, 555)),  # streamed, 2 row groups, a 13-row last block
 ]
 
 
