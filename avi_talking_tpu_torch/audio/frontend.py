@@ -8,7 +8,8 @@ Mirrors the reference's ``read_audio``/``process_audio`` (inferno's
 TalkingHead ``evaluation_functions.py``): float wav * 32768 -> int16, hard cut at ``max_seconds`` (22 s), reshape into
 25 fps frames of 640 samples. Decoding uses the stdlib ``wave`` module plus
 scipy polyphase resampling (librosa/ffmpeg are heavier host deps the
-framework does not require).
+framework does not require); ``audio.native`` binds the C++ decoder of
+``native/wavio.cpp``.
 
 Everything here is numpy on host. The device sees one float32 array per
 utterance (zero-mean/unit-var normalised like Wav2Vec2Processor).
@@ -91,3 +92,10 @@ def normalize_audio(frames: np.ndarray, eps: float = 1e-7) -> np.ndarray:
     """Wav2Vec2Processor-style per-utterance zero-mean/unit-variance."""
     flat = frames.astype(np.float32).reshape(-1)
     return ((flat - flat.mean()) / np.sqrt(flat.var() + eps)).astype(np.float32)
+
+
+def load_audio_frames(path: str, pad_to_multiple: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+    """wav file -> (frames (T, 640) int16, normalised flat float32 (T*640,))."""
+    wav, sr = read_wav(path)
+    frames = frame_audio(wav, sr, pad_to_multiple=pad_to_multiple)
+    return frames, normalize_audio(frames)

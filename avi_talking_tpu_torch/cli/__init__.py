@@ -7,6 +7,8 @@ Subcommands:
              generate per caption
   serve      the same corpus through the micro-batching InferenceServer
              (batch coalescing, warmup, p50 / p99)
+  diversity  the mean pairwise distance of N styles sampled for one
+             instruction (sample i seeded --seed + i)
   train-faceformer
              stage-1 FaceFormer training (AdamW) on synthetic batches or a
              MEAD tree (--root, conditioned by the frozen FAN's eye and
@@ -21,7 +23,8 @@ Subcommands:
              staged EMOTE training (geometric, then condition exchange at
              lr / 2) on synthetic batches or a MEAD tree (--root, split by
              clip), with validation, best / last checkpoints and early
-             stopping
+             stopping; --neural adds the rendered perceptual terms, --bf16
+             trains the head and the towers at bfloat16 compute
   train-prior
              diffusion-prior training (clipped AdamW, one-cycle schedule)
              on the structured synthetic stream or a caption corpus
@@ -43,8 +46,8 @@ random unless ``--checkpoint`` gives them (repeatable: each checkpoint's
 parts overwrite the seeded ones); ``--bf16`` computes in bfloat16 over
 float32 weights, as the JAX package's ``--bf16`` does; ``--flame-npz``
 gives real FLAME assets. The JAX package's other subcommands (portrait,
-bench, diversity, reconstruct, translate-captions, the other trainers) are
-still to port.
+bench, reconstruct, translate-captions, the other trainers) are still to
+port.
 """
 
 from __future__ import annotations

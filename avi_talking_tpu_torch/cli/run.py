@@ -1,4 +1,4 @@
-"""Product commands: generate / instruct / serve (the
+"""Product commands: generate / instruct / serve / diversity (the
 experiments/diffusion_test.sh surface)."""
 
 from __future__ import annotations
@@ -83,6 +83,30 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def diversity_score(pipe, text: str, num_samples: int, seed: int = 0, noise=None) -> float:
+    """Mean pairwise L2 distance of ``num_samples`` styles sampled for
+    ``text``, sample i from a generator seeded ``seed + i`` (or from
+    ``noise[i]``, the prior's explicit draws), as JAX's ``diversity`` draws
+    sample i from ``PRNGKey(seed + i)`` at ``cond_scale`` 1."""
+    import torch
+
+    from ..train.eval_metrics import style_diversity
+
+    embs = [pipe.sample_style(text, seed=seed + i, noise=None if noise is None else noise[i])[0]
+            for i in range(num_samples)]
+    return float(style_diversity(torch.stack(embs).float()))
+
+
+def cmd_diversity(args) -> int:
+    """Style diversity (the reference's ``--is_cal_diversity``): sample N
+    style embeddings for one instruction and report their mean pairwise L2
+    distance."""
+    pipe = _build_pipeline(args)
+    score = diversity_score(pipe, args.text, args.num_samples, args.seed)
+    print(f"diversity over {args.num_samples} samples: {score:.4f}")
+    return 0
+
+
 def register(sub, common):
     g = sub.add_parser("generate", help="single wav + instruction")
     g.add_argument("--wav", required=True)
@@ -105,3 +129,9 @@ def register(sub, common):
     sv.add_argument("--warmup", action="store_true")
     common(sv)
     sv.set_defaults(fn=cmd_serve)
+
+    dv = sub.add_parser("diversity", help="style diversity score (N samples)")
+    dv.add_argument("--text", required=True)
+    dv.add_argument("--num-samples", type=int, default=10)
+    common(dv)
+    dv.set_defaults(fn=cmd_diversity)

@@ -4,18 +4,15 @@
 over renders of the head's FLAME vertices, with towers at seeded random
 init). Batches are synthetic, or with ``--root`` the windows of an
 EMOCA-preprocessed MEAD tree (``data.train_batches.EmoteBatchBuilder``),
-split by clip into train and val (``--val-fraction``)."""
+split by clip into train and val (``--val-fraction``). ``--bf16`` builds
+the head and the towers at a bfloat16 compute dtype over float32 weights,
+as the JAX command does: K1's bfloat16 kernel runs in every wav2vec2 layer
+of the step, and its backward is the float32 recompute."""
 
 from __future__ import annotations
 
 import itertools
 import sys
-
-REFUSED = {
-    "bf16": "--bf16 trains the towers at bfloat16 through K1's bfloat16 backward (ROADMAP "
-            "Queue 2, train-emote --bf16; generate / instruct / serve take --bf16)",
-}
-
 
 def synthetic_batches(rng, batch_size: int, frames: int, n_exp: int, n_shape: int, device):
     """Endless batches drawn from the numpy Generator ``rng`` in the JAX
@@ -66,11 +63,11 @@ def mead_batches(root: str, batch_size: int, frames: int, n_exp: int, n_shape: i
                                       epochs=1)))
 
 
-def build_head(tiny: bool, seed: int, device, flame_assets=None):
+def build_head(tiny: bool, seed: int, device, flame_assets=None, dtype=None):
     """The head ``train-emote`` trains: ``EmoteConfig()`` (or ``.tiny()``)
     with seeded random weights and a style encoder over the batches' 9 + 3
-    + 32 + n_shape condition; with ``flame_assets`` it also decodes FLAME
-    vertices."""
+    + 32 + n_shape condition, at the compute ``dtype`` (float32 when None);
+    with ``flame_assets`` it also decodes FLAME vertices."""
     import torch
 
     from ..infra.init import random_module
@@ -80,7 +77,8 @@ def build_head(tiny: bool, seed: int, device, flame_assets=None):
     assets = None if flame_assets is None else flame_assets.to(device)
     return random_module(
         lambda: EmoteTalkingHead(cfg, flame_assets=assets,
-                                 condition_dim=9 + 3 + 32 + cfg.n_shape),
+                                 condition_dim=9 + 3 + 32 + cfg.n_shape,
+                                 dtype=dtype or torch.float32),
         device, torch.Generator().manual_seed(seed))
 
 
@@ -101,13 +99,14 @@ def neural_assets(tiny: bool):
                             num_faces=9976)
 
 
-def build_neural(tiny: bool, faces, device, seed: int = 7):
+def build_neural(tiny: bool, faces, device, seed: int = 7, dtype=None):
     """The JAX command's perceptual suite: renders at 224^2 (24^2 tiny), the
     lip-reading net (its crop is ``mouth_transform``'s 88^2, or a smaller
     frame's whole mouth box), EmoNet with 8 expressions, a one-layer
     video-emotion classifier (feature_dim 128 / 8 heads, tiny 32 / 4);
-    weights 1, 1, 0.1. The towers are drawn, in that order, from one CPU
-    generator seeded ``seed``."""
+    weights 1, 1, 0.1. The towers run at the compute ``dtype`` (float32
+    when None) and are drawn, in that order, from one CPU generator seeded
+    ``seed``."""
     import torch
 
     from ..infra.init import random_module
@@ -117,12 +116,13 @@ def build_neural(tiny: bool, faces, device, seed: int = 7):
     from ..train.talking_head import NeuralLosses
     from ..viz.visualizer import FixedViewRenderer
 
+    dt = dtype or torch.float32
     g = torch.Generator().manual_seed(seed)
-    lip = random_module(LipReadingNet, device, g)
-    emo = random_module(lambda: EmotionRecognitionModule(n_expression=8), device, g)
+    lip = random_module(lambda: LipReadingNet(dtype=dt), device, g)
+    emo = random_module(lambda: EmotionRecognitionModule(n_expression=8, dtype=dt), device, g)
     vemo = random_module(lambda: VideoEmotionClassifier(
         n_classes=8, feature_dim=32 if tiny else 128, num_layers=1, nhead=4 if tiny else 8,
-        input_dim=2048), device, g)
+        input_dim=2048, dtype=dt), device, g)
     return NeuralLosses(
         renderer=FixedViewRenderer(faces, image_size=24 if tiny else 224, device=device),
         lipread=LipReadingLoss(lip), lipread_weight=1.0,
@@ -132,21 +132,21 @@ def build_neural(tiny: bool, faces, device, seed: int = 7):
 
 def cmd_train_emote(args) -> int:
     import numpy as np
+    import torch
 
     from ..infra.device import resolve_device
     from ..train.emote_driver import EmoteStage, train_emote
 
-    for name, why in REFUSED.items():
-        if getattr(args, name, None):
-            raise SystemExit(f"train-emote: not ported to avi_talking_tpu_torch yet: {why}")
     device = resolve_device(args.device)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32  # the head's and the towers'
     neural = assets = None
     if args.neural:
         assets = neural_assets(args.tiny)
-        neural = build_neural(args.tiny, assets.faces, device)
+        neural = build_neural(args.tiny, assets.faces, device, dtype=dtype)
         print("train-emote --neural: perception towers are RANDOM-init "
               "(import real lipread/EmoNet checkpoints for product runs)", file=sys.stderr)
-    head = build_head(args.tiny, seed=0, device=device, flame_assets=assets)  # JAX: PRNGKey(0)
+    head = build_head(args.tiny, seed=0, device=device, flame_assets=assets,  # JAX: PRNGKey(0)
+                      dtype=dtype)
     cfg = head.cfg
     T = args.frames - args.frames % cfg.flint.latent_frame_size
     draw = (args.batch_size, T, cfg.flint.n_exp, cfg.n_shape, device)
@@ -191,7 +191,9 @@ def register(sub, common):
                     help="add the perceptual terms (renders + lip-reading / EmoNet / "
                          "video-emotion towers) to the second stage; gt meshes are decoded "
                          "in the loss from the coefficients")
-    te.add_argument("--bf16", action="store_true", help="(not ported yet)")
+    te.add_argument("--bf16", action="store_true",
+                    help="bfloat16 compute for the head and the perception towers (float32 "
+                         "weights, gradients and optimizer state)")
     te.add_argument("--device", default=None,
                     help="torch device; the default is the CUDA card, and no card is an error")
     te.set_defaults(fn=cmd_train_emote)

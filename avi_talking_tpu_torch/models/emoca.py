@@ -7,6 +7,7 @@ expression logits (8) + valence + arousal; EMOTE's emotion loss compares
 the 2048-d features (``emo_feat_2``) by MSE. The DECA / EMOCA coefficient
 encoders (``DecaEncoder``, ``EmocaEncoder``, ``emoca_pseudo_gt``,
 ``split_deca_code``) are not ported yet (ROADMAP Queue 1, item 5).
+``dtype`` is the compute dtype of the backbone and the head, as JAX's.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from ..ops.layers import Linear, set_compute_dtype
 from .resnet import ResNet50
 
 
@@ -24,12 +26,14 @@ class EmotionRecognitionModule(nn.Module):
     """(N, 3, H, W) images -> {"emo_feat_2": (N, 2048), "expr_classification":
     (N, n_expression), and with ``predict_va`` "valence" / "arousal" (N,)}."""
 
-    def __init__(self, n_expression: int = 8, predict_va: bool = True):
+    def __init__(self, n_expression: int = 8, predict_va: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_expression = n_expression
         self.predict_va = predict_va
         self.backbone = ResNet50()
-        self.linear = nn.Linear(2048, n_expression + (2 if predict_va else 0))
+        self.linear = Linear(2048, n_expression + (2 if predict_va else 0))
+        set_compute_dtype(self, dtype)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         feat = self.backbone(images)

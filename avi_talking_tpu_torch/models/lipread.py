@@ -11,7 +11,9 @@ loss takes them. The loss is a cosine (or L1 / MSE) distance between the
 predicted and the ground-truth renders' features, the ground truth
 detached. Parameter names follow the reference's ``frontend3D`` /
 ``trunk.layer{1..4}.{0,1}`` so a VSR state dict loads as it is. BatchNorm
-reads its running statistics (keep the module in ``eval()`` mode).
+reads its running statistics in every mode. ``dtype`` is the compute dtype
+(``ops.layers``), as JAX's: the Conv3d front end, the trunk and the pool
+run at it, the swish as ``x * sigmoid(x)`` rounded op by op.
 """
 
 from __future__ import annotations
@@ -23,13 +25,15 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.layers import BatchNorm2d, BatchNorm3d, Conv2d, Conv3d, set_compute_dtype, silu
+
 LIPREAD_MEAN = 0.421
 LIPREAD_STD = 0.165
 
 
 def _act(name: str):
     if name == "swish":
-        return F.silu
+        return silu
     if name == "relu":
         return F.relu
     if name == "prelu":  # the loss nets use a fixed slope of 0.25
@@ -44,12 +48,12 @@ class BasicBlock(nn.Module):
     def __init__(self, in_planes: int, planes: int, stride: int = 1, relu_type: str = "swish"):
         super().__init__()
         self.relu_type = relu_type
-        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride=stride, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
-        self.downsample = (nn.Sequential(nn.Conv2d(in_planes, planes, 1, stride=stride,
-                                                   bias=False), nn.BatchNorm2d(planes))
+        self.conv1 = Conv2d(in_planes, planes, 3, stride=stride, padding=1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm2d(planes)
+        self.downsample = (nn.Sequential(Conv2d(in_planes, planes, 1, stride=stride,
+                                                bias=False), BatchNorm2d(planes))
                            if in_planes != planes or stride != 1 else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -79,13 +83,14 @@ class LipReadingNet(nn.Module):
     """(B, T, H, W, 1) mouth crops, already ``mouth_transform``-ed (the JAX
     layout) -> (B, T, 512) per-frame visual-speech features."""
 
-    def __init__(self, relu_type: str = "swish"):
+    def __init__(self, relu_type: str = "swish", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.relu_type = relu_type
         self.frontend3D = nn.Sequential(
-            nn.Conv3d(1, 64, (5, 7, 7), stride=(1, 2, 2), padding=(2, 3, 3), bias=False),
-            nn.BatchNorm3d(64))
+            Conv3d(1, 64, (5, 7, 7), stride=(1, 2, 2), padding=(2, 3, 3), bias=False),
+            BatchNorm3d(64))
         self.trunk = _Trunk(relu_type)
+        set_compute_dtype(self, dtype)
 
     def forward(self, crops: torch.Tensor) -> torch.Tensor:
         B, T = crops.shape[:2]
@@ -94,6 +99,10 @@ class LipReadingNet(nn.Module):
         C, h, w = x.shape[1], x.shape[3], x.shape[4]
         x = x.transpose(1, 2).reshape(B * T, C, h, w)  # time folded into the batch
         return self.trunk(x).reshape(B, T, 512)
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt((x * x).sum(-1, keepdim=True))
 
 
 def mouth_transform(images: torch.Tensor, crop: int = 88) -> torch.Tensor:
@@ -130,15 +139,16 @@ class LipReadingLoss:
         """Loss from per-frame features computed once per distinct crop set;
         ``fg`` is detached here. The cosine clamps each side's norm at 1e-8
         on its own, as JAX does (``F.cosine_similarity`` clamps the
-        product)."""
+        product); the norm is ``jnp.linalg.norm``'s ``sqrt(sum(x * x))``,
+        rounded op by op below float32."""
         fg = fg.detach()
         if self.metric == "l1":
             per = (fp - fg).abs().mean(-1)
         elif self.metric == "l2":
             per = ((fp - fg) ** 2).mean(-1)
         else:
-            fp_n = fp / torch.clamp_min(torch.linalg.vector_norm(fp, dim=-1, keepdim=True), 1e-8)
-            fg_n = fg / torch.clamp_min(torch.linalg.vector_norm(fg, dim=-1, keepdim=True), 1e-8)
+            fp_n = fp / torch.clamp_min(_norm(fp), 1e-8)
+            fg_n = fg / torch.clamp_min(_norm(fg), 1e-8)
             per = 1.0 - (fp_n * fg_n).sum(-1)
         if mask is None:
             return per.mean()

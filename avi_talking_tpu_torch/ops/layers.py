@@ -7,7 +7,8 @@ after the product is rounded; a norm takes its statistics in float32 and
 returns ``dtype``. These subclasses of torch's layers do the same through a
 ``compute_dtype`` attribute (float32 unless ``set_compute_dtype`` sets it).
 Their parameters, and so every state dict and checkpoint, stay float32; at
-float32 each computes exactly what its torch base class does.
+float32 each computes exactly what its torch base class does (the
+BatchNorms in eval mode: they always read their running statistics).
 
 Below float32 the layers and the activations here round where JAX's ops
 round when they run one by one: each op's result in the compute dtype, a
@@ -65,6 +66,16 @@ def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(x >= 0, x, scalar(slope, x.dtype) * x)
 
 
+def log_softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.log_softmax``: below float32, ``x - max`` less the log of
+    its exponentials' sum, each op rounded (the sum accumulates in float32),
+    where ``torch.log_softmax`` rounds once."""
+    if x.dtype == torch.float32:
+        return torch.log_softmax(x, dim)
+    shifted = x - x.amax(dim, keepdim=True).detach()
+    return shifted - torch.log(torch.exp(shifted).sum(dim, keepdim=True))
+
+
 class GELU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return gelu(x)
@@ -120,6 +131,28 @@ class Conv1d(nn.Conv1d):
         return y if self.bias is None else y + self.bias.to(dt)[:, None]
 
 
+class Conv2d(nn.Conv2d):
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _plain(x, self):
+            return super().forward(x)
+        dt = self.compute_dtype
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+
+
+class Conv3d(nn.Conv3d):
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _plain(x, self):
+            return super().forward(x)
+        dt = self.compute_dtype
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None, None]
+
+
 class ConvTranspose1d(nn.ConvTranspose1d):
     compute_dtype = torch.float32
 
@@ -153,6 +186,35 @@ class GroupNorm(nn.GroupNorm):
         shape = (1, G, x.shape[1] // G, 1)
         return _flax_norm(g, (2, 3), self.weight.reshape(shape), self.bias.reshape(shape),
                           self.eps, self.compute_dtype).reshape(x.shape)
+
+
+class _RunningBatchNorm:
+    """flax's ``BatchNorm(use_running_average=True)`` over channels first:
+    the running statistics in every mode. At float32 it is
+    ``F.batch_norm`` with them; below, ``(x - mean) * (rsqrt(var + eps) *
+    weight) + bias`` with the input promoted to the float32 statistics and
+    one rounding to the compute dtype at the end, as flax's ``_normalize``
+    computes (``F.batch_norm`` on mixed dtypes rounds elsewhere, and
+    differently on the CPU and under cuDNN)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _plain(x, self):
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(self.running_var.reshape(shape) + self.eps) * self.weight.reshape(shape)
+        y = (x - self.running_mean.reshape(shape)) * mul + self.bias.reshape(shape)
+        return y.to(self.compute_dtype)
+
+
+class BatchNorm2d(_RunningBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_RunningBatchNorm, nn.BatchNorm3d):
+    pass
 
 
 class Embedding(nn.Embedding):

@@ -1,7 +1,7 @@
 """Offline CLIP byte-level BPE tokenizer (pure Python; port of
-``avi_talking_tpu/text/clip_bpe.py`` but ``learn_bpe``: ``ClipBpeTokenizer``,
-``find_tokenizer_assets`` and the vocab files' ``validate_tokenizer_assets``,
-``import_tokenizer_assets`` and ``save_vocab_files``).
+``avi_talking_tpu/text/clip_bpe.py``: ``ClipBpeTokenizer``,
+``find_tokenizer_assets``, the vocab files' ``validate_tokenizer_assets``,
+``import_tokenizer_assets`` and ``save_vocab_files``, and ``learn_bpe``).
 
 It implements HF ``CLIPTokenizer``'s algorithm over a local
 ``vocab.json`` + ``merges.txt`` pair, so token ids match HF and the JAX
@@ -364,6 +364,60 @@ def import_tokenizer_assets(src: os.PathLike, dest: Optional[os.PathLike] = None
         shutil.copyfile(found / fn, dest / fn)
     validate_tokenizer_assets(dest)
     return dest
+
+
+def learn_bpe(corpus: Sequence[str], num_merges: int
+              ) -> Tuple[Dict[str, int], List[Tuple[str, str]]]:
+    """Learn a merge table and a CLIP-layout vocab from raw text (the
+    standard Sennrich et al. loop). The vocab is laid out as the real CLIP
+    file: 256 byte symbols, the same 256 with ``</w>``, one token per merge
+    in rank order, then the two specials, so the result round-trips through
+    HF ``CLIPTokenizer``. Each merge takes the most frequent pair, ties
+    broken lexicographically; the loop stops early when no pair occurs
+    twice."""
+    word_freq: Dict[Tuple[str, ...], int] = {}
+    for line in corpus:
+        for tok in pre_tokenize(clean_text(line)):
+            if tok in _SPECIALS:
+                continue
+            btok = "".join(_BYTE_ENC[b] for b in tok.encode("utf-8"))
+            key = tuple(btok[:-1]) + (btok[-1] + "</w>",)
+            word_freq[key] = word_freq.get(key, 0) + 1
+
+    merges: List[Tuple[str, str]] = []
+    for _ in range(num_merges):
+        pair_freq: Dict[Tuple[str, str], int] = {}
+        for word, freq in word_freq.items():
+            for a, b in zip(word, word[1:]):
+                pair_freq[(a, b)] = pair_freq.get((a, b), 0) + freq
+        if not pair_freq:
+            break
+        top = max(pair_freq.values())
+        best = min(p for p, f in pair_freq.items() if f == top)
+        if pair_freq[best] < 2:
+            break
+        merges.append(best)
+        first, second = best
+        new_freq: Dict[Tuple[str, ...], int] = {}
+        for word, freq in word_freq.items():
+            out: List[str] = []
+            i = 0
+            while i < len(word):
+                if i < len(word) - 1 and word[i] == first and word[i + 1] == second:
+                    out.append(first + second)
+                    i += 2
+                else:
+                    out.append(word[i])
+                    i += 1
+            key = tuple(out)
+            new_freq[key] = new_freq.get(key, 0) + freq
+        word_freq = new_freq
+
+    byte_symbols = [_BYTE_ENC[b] for b in range(256)]
+    tokens = byte_symbols + [s + "</w>" for s in byte_symbols]
+    tokens += [a + b for a, b in merges]
+    tokens += list(_SPECIALS)
+    return {tok: i for i, tok in enumerate(tokens)}, merges
 
 
 def save_vocab_files(vocab: Dict[str, int], merges: Sequence[Tuple[str, str]],

@@ -27,6 +27,14 @@ variables tree to ``optax.adamw``: so the head stays in ``eval()`` mode
 squasher BatchNorm running statistics, which JAX's gradient reaches and
 its AdamW moves like weights. The gradient runs through wav2vec2's K1
 (the CUDA kernel on the card) and its recompute backward.
+
+A head at a bfloat16 compute dtype (``train-emote --bf16``) trains as
+JAX's does: exp / jaw come out in bfloat16 and the geometric terms
+promote them to the float32 targets; the FLAME decode, the gt decode and
+the render run in float32 (K2 unchanged); each tower casts the float32
+frames to its own compute dtype, and its terms are computed in it (JAX's
+``jnp`` promotion, which torch's matches); the parameters, gradients and
+AdamW state stay float32.
 """
 
 from __future__ import annotations
@@ -210,7 +218,7 @@ class TalkingHeadTrainer:
         mask = batch.get("frame_mask")
         m = mv = None
         if mask is not None:
-            m = mask[:B_eff, :, None].to(exp.dtype)  # (B, T, 1)
+            m = mask[:B_eff, :, None].float()  # (B, T, 1), float32 as in JAX at any head dtype
             mv = m[:, 1:] * m[:, :-1]  # a velocity needs both endpoints
         if "gt_exp" in batch:
             gt = batch["gt_exp"][:B_eff]

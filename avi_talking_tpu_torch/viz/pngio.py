@@ -1,22 +1,59 @@
-"""Dependency-free PNG read / write (a numpy / zlib copy of the pure-Python
-codec in ``avi_talking_tpu/viz/pngio.py``; host only).
+"""PNG read / write (a copy of ``avi_talking_tpu/viz/pngio.py``; host only).
 
 ``read_png`` decodes 8-bit gray / gray+alpha / RGB / RGBA / palette PNGs
-(non-interlaced) to a (H, W, C) uint8 array with the pure-Python decoder,
-which is also the JAX package's correctness oracle. The JAX package first
-tries its native C++ decoder (``native/libimageio.so``); the port reads
-through Python alone until that library is loaded here too (ROADMAP Queue
-1, item 4e).
+(non-interlaced) to a (H, W, C) uint8 array. It decodes with the C++
+decoder of ``native/imageio.cpp`` (``_read_png_native``, over the library
+``infra.native_build`` builds at first use; a failed build raises), as the
+JAX package does once its library is built, and, as there, a file the
+native decoder refuses (a palette image, or a malformed one) goes to
+``_read_png_python``, the pure-Python decoder, which decodes it or raises
+its own error. The Python decoder is also the plain version the tests hold
+the native one to.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 import struct
 import zlib
 
 import numpy as np
 
+from ..infra import native_build
+
 _CHANNELS = {0: 1, 2: 3, 3: 3, 4: 2, 6: 4}  # colour type -> output channels
+
+
+def _load_native() -> ctypes.CDLL:
+    lib = native_build.load("imageio")
+    lib.imageio_read_png.restype = ctypes.c_int64
+    lib.imageio_read_png.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32),  # w
+        ctypes.POINTER(ctypes.c_int32),  # h
+        ctypes.POINTER(ctypes.c_int32),  # c
+    ]
+    return lib
+
+
+def _read_png_native(path: str, lib: ctypes.CDLL) -> np.ndarray:
+    """Raises ``ValueError`` with the decoder's code for a file it does not
+    decode (-3: a palette image, a depth other than 8 or interlacing; -1 /
+    -4: malformed)."""
+    w, h, c = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    cap = os.path.getsize(path) * 64 + (1 << 20)  # a generous inflate bound
+    buf = np.empty(cap, np.uint8)
+    n = lib.imageio_read_png(str(path).encode(), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                             cap, ctypes.byref(w), ctypes.byref(h), ctypes.byref(c))
+    if n == -2:  # capacity: retry with the exact size, which w carries
+        buf = np.empty(w.value, np.uint8)
+        n = lib.imageio_read_png(str(path).encode(),
+                                 buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), buf.size,
+                                 ctypes.byref(w), ctypes.byref(h), ctypes.byref(c))
+    if n < 0:
+        raise ValueError(f"native PNG decode failed ({n}): {path}")
+    return buf[:n].reshape(h.value, w.value, c.value).copy()
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -116,8 +153,13 @@ def _read_png_python(path: str) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Decode to (H, W, C) uint8 (C = 1 / 2 / 3 / 4 by colour type)."""
-    return _read_png_python(path)
+    """Decode to (H, W, C) uint8 (C = 1 / 2 / 3 / 4 by colour type): the
+    native decoder, or the Python one for a file the native one refuses."""
+    lib = _load_native()
+    try:
+        return _read_png_native(path, lib)
+    except ValueError:
+        return _read_png_python(path)
 
 
 def write_png(path: str, img_u8: np.ndarray) -> None:

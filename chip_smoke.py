@@ -7,9 +7,10 @@
                                        # FaceFormer and prior training step
                                        # each
     python3 chip_smoke.py --phases train [--profile]
-                                       # the build, K1's rows, the gradient
-                                       # rows and phases 15-19 alone; its
-                                       # result line says "phases": "train"
+                                       # the build, the host codecs, K1's rows,
+                                       # the gradient rows and the training
+                                       # phases alone; its result line says
+                                       # "phases": "train"
 
 Run it from the root of a checkout: it builds the port's CUDA kernels from
 the checkout's sources into build/, then
@@ -17,7 +18,12 @@ the checkout's sources into build/, then
 1. build:   every kernel of the port (one nvcc per source, all started
             together), reported in seconds with the compiler's register and
             spill report; a spill fails the check;
-2. kernels: K1 (key-bias attention) against its plain PyTorch version on the
+2. host codecs: native/wavio.cpp and native/imageio.cpp built by g++
+            at first use into build/, their decodes held to the Python
+            versions (a 16 kHz and a resampled 48 kHz wav, the framing, the
+            PNG golden file with all five row filters and a 224^2 crop under
+            each), with the decode's milliseconds native and Python;
+3. kernels: K1 (key-bias attention) against its plain PyTorch version on the
             card at the generate path's shapes, the FaceFormer encoder's and
             the EMOTE, vertex FaceFormer and FaceFormer training steps',
             and K3 (biased attention) at the FaceFormer decoder's four
@@ -27,62 +33,81 @@ the checkout's sources into build/, then
             bound; K1's and K3's gradients on the card against the same
             formula on CPU copies, and the backward's time at the training
             shapes;
-3. generate: full-width PipelineConfig() with seeded random weights and
+4. generate: full-width PipelineConfig() with seeded random weights and
             full-size synthetic FLAME assets on an 8 s clip: shapes,
             finiteness, same seed -> same output, kernel launches, time;
-4. generate_batch: six requests over three length buckets;
-5. GPU vs CPU: the same weights and explicit noise through the port on the
+5. generate_batch: six requests over three length buckets;
+6. GPU vs CPU: the same weights and explicit noise through the port on the
             card and on the CPU, as an explicit reference;
-6. visibility: K2 (rasterizer visibility) held bit-equal to its plain
+7. diversity: the style diversity score on the card against the CPU
+            with the same prior draws, and the `diversity` command at full
+            width (4 samples);
+8. visibility: K2 (rasterizer visibility) held bit-equal to its plain
             version at three shapes (the render path's launch, a closed
             FLAME-density head mesh at 256^2 / tile 32 and at 224^2 /
             tile 56), with its times (CUDA events and device time), both
             bounds (at the FMA peak, and at the fp32 issue rate its
             rounded arithmetic is held to), the live slots per tile and
             the launch's blocks;
-7. render:  the 200 frames of the 8 s clip through FlameVisualizer into a
+9. render:  the 200 frames of the 8 s clip through FlameVisualizer into a
             video under build/chip_smoke/: K2 launches, repeatability, wall
             time; the kernel route against the dense plain rasterizer on the
             head mesh;
-8. render GPU vs CPU: four head-mesh frames through the visualizer on the
+10. render GPU vs CPU: four head-mesh frames through the visualizer on the
             card and on the CPU;
-9. serve:   the fixture caption corpus (experiments/) through InferenceServer
+11. serve:   the fixture caption corpus (experiments/) through InferenceServer
             at max_batch 4, driven as `cli serve` drives it, each result held
             to generate_batch on the same padded micro-batch; p50 / p99;
-10. kernel_check bf16: K1's bfloat16 entry against its plain version at
+12. kernel_check bf16: K1's bfloat16 entry against its plain version at
             the generate shapes (B=1 H=12 T=S=200, 333, 600; B=2 T=S=512)
             and at one shape past its shared-memory fit (streamed, marked),
-            with its times, SDPA's at bfloat16 and the bf16-peak bound;
-11. generate_bf16: `--bf16` at full width on the fp32 pipeline's weights:
+            and at `train-emote --bf16`'s step (B=8 T=S=64), with its times,
+            SDPA's at bfloat16 and the bf16-peak bound; K1's bfloat16
+            gradient at that step, card vs CPU, and its backward's time
+            beside SDPA's;
+13. generate_bf16: `--bf16` at full width on the fp32 pipeline's weights:
             K1 bf16 12 launches a generate and fp32 0, finite outputs, the
             distance to the fp32 run on the same weights and noise, the six
             requests, generate's seconds at bf16 and fp32 in turns; then
             `cli serve --bf16` over the fixture corpus;
-12. checkpoint: full-width synthetic reference checkpoints (EMOTE, the
+14. checkpoint: full-width synthetic reference checkpoints (EMOTE, the
             prior's .pth, HF CLIP text) through `import-emote`,
             `import-prior`, `import-clip --weights`; `generate --checkpoint`
             bit-equal to load_state_dict; `convert-flame` on a
             FLAME-2020-shaped pickle, then `--flame-npz --save-video` on it
             with K2's launches;
-13. faceformer: full-width FaceFormerConfig() (wav2vec2-base, decoder 128
+15. faceformer: full-width FaceFormerConfig() (wav2vec2-base, decoder 128
             wide) on 24 s of audio: the teacher-forced forward and the
             KV-cached predict, with K1 / K3 launches, AR vs teacher-forced
             consistency, the card against the CPU, repeatability and times;
-14. train_faceformer: `cli train-faceformer` at its defaults (B=16, T=25)
+16. train_faceformer: `cli train-faceformer` at its defaults (B=16, T=25)
             for 5 steps, launches per step, step time; one step on the card
             against the same step on the CPU;
-15. train_emote: the EMOTE head at full width and `train-emote`'s defaults
+17. train_emote: the EMOTE head at full width and `train-emote`'s defaults
             (B=8, 64 frames): the shape K1 sees, K1 launches per step, step
             time; one step card vs CPU; the `train-emote` command for two
             stages of 3 steps with a run directory, and `last` restored;
-16. train_emote_neural: EMOTE's neural-loss stage at full width (renders
+18. train_emote_bf16: `train-emote --bf16` at full width (B=8, 64
+            frames): the command for two stages of 3 steps (K1 bf16 12 a
+            forward, fp32 0); a bf16 step against an fp32 step on the card
+            from the same weights (each gradient within 0.1 of fp32's rms),
+            the two in turns with peak memory; the card at bf16 against the
+            CPU at bf16 at the tiny width (heads 16 wide);
+19. train_emote_neural: EMOTE's neural-loss stage at full width (renders
             at 224^2, the three towers at seeded random init): `train-emote
             --neural` at B=2, 32 frames; one neural step card vs CPU and
             the render and towers on identical vertices; the step's time,
             frames per second, K2 launches and device ms, peak memory; K2
             at the predicted video's launch (2048 tiles) against its plain
             version;
-17. train_faceformer_vert: `train-faceformer-vert` at full width
+20. train_emote_neural_bf16: `train-emote --neural --bf16` at B=2, 32
+            frames (K1 bf16 96 and K2 8 launches, fp32 K1 0); bf16 against
+            fp32 on the card: the loss, and the vertex gradient through the
+            float32 render and the bfloat16 towers on identical vertices,
+            each within 0.1; the steps in turns with peak memory; one bf16
+            step at the command's defaults (B=8, 64 frames), its peak memory
+            recorded, not held;
+21. train_faceformer_vert: `train-faceformer-vert` at full width
             (FaceFormerVertConfig(), B=4, 100 frames) on a synthetic MEAD
             tree and a synthetic full-size FLAME: synthetic and
             --disentangle runs with checkpoints loaded back; the main path
@@ -92,10 +117,10 @@ the checkout's sources into build/, then
             with the landmark terms; the step's time, launches and peak
             memory; K3 at the decoder's shape forward and backward, K2 at
             the emotion loss's launch;
-18. train_prior: the prior trainer at full width (B=256): step time; one
+22. train_prior: the prior trainer at full width (B=256): step time; one
             step card vs CPU with the same draws; `train-prior` for 4 steps
             with validation and checkpoints, then --resume from step 4;
-19. train_data: the data-backed commands on a synthetic MEAD tree of 18
+23. train_data: the data-backed commands on a synthetic MEAD tree of 18
             clips x 100 frames with 224^2 crops, at full width and their
             defaults: `train-emote --root` (the split, K1 12 a step, the head
             moved), `train-faceformer --root` with FAN conditioning (K1 12
@@ -106,14 +131,14 @@ the checkout's sources into build/, then
             featurize card vs CPU (limits in its docstring; the crops are
             unfiltered PNGs, so their decode is a lower bound of a real
             crop's, which the phase also times per row filter);
-20. the kernels summary line (K1 at the generate path's, the EMOTE step's,
+24. the kernels summary line (K1 at the generate path's, the EMOTE step's,
             the vertex step's and the FaceFormer step's shapes, and its
             bf16 entry at generate --bf16's; K2 at the render path's (under
             the plain and the --flame-npz generate), the neural step's and
             the emotion loss's launches; K3 at the FaceFormer decoder's and
             the vertex decoder's; with the launches of each path that runs
             them) and the card's name and power limit;
-21. the result line.
+25. the result line.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without the result line. It imports nothing of JAX.
@@ -1391,6 +1416,561 @@ def phase_train_emote_neural(kb, kras, peaks, profile=False):
     return {"launches": cli_launches, "row": row}
 
 
+def attention_backward_bound_bf16(B, H, T, S, d, peaks):
+    """K1's bfloat16 backward's least time: the recompute's five (T, S, d)
+    products (the scores, dv, dw, dq, dk), 10*B*H*T*S*d operations, at the
+    fp32 peak, as the float32 recompute does them (three of the five take a
+    float32 operand); or q, k, v, do and the (B, S) key bias read once and
+    dq, dk, dv written once, all bfloat16, over the memory rate."""
+    flops = 10 * B * H * T * S * d
+    nbytes = 2 * B * H * (3 * T + 3 * S) * d + 2 * B * S
+    t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_attention_grad_bf16(peaks):
+    """K1's gradient at bfloat16 at `train-emote --bf16`'s step (B=8 H=12
+    T=S=64 d=64): the bfloat16 kernel's forward and the recompute backward
+    (float32, each gradient cast to bfloat16, as JAX's ``_keybias_bwd``) on
+    the card against the same wrapper on CPU copies (the plain forward), each
+    gradient within ``kb.bf16_disagreement``'s limit (both sides round
+    float32 values that differ only in summation order); one bfloat16 launch
+    on the card, none in fp32. The backward's time (CUDA events, device ms)
+    beside its bound, the plain version's backward (autograd through the
+    bfloat16 plain forward) and scaled_dot_product_attention's backward at
+    bfloat16 with the same float mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
+
+    B, H, T, d = 8, 12, 64, 64
+    S = T
+    g = torch.Generator().manual_seed(6)
+    q = (torch.randn(B, H, T, d, generator=g) * d ** -0.5).bfloat16()
+    k = torch.randn(B, H, S, d, generator=g).bfloat16()
+    v = torch.randn(B, H, S, d, generator=g).bfloat16()
+    cot = torch.randn(B, H, T, d, generator=g).bfloat16()
+    bias = torch.zeros(B, S, dtype=torch.bfloat16)
+    grads, launched = {}, {}
+    for dev in ("cpu", "cuda"):
+        ts = [t.to(dev, copy=True).requires_grad_(i < 3) for i, t in enumerate((q, k, v, bias))]
+        kb.launches = kb.launches_bf16 = 0
+        torch.autograd.backward(kb.keybias_attention(*ts), cot.to(dev))
+        launched[dev] = {"fp32": kb.launches, "bf16": kb.launches_bf16}
+        grads[dev] = [t.grad.cpu() for t in ts[:3]]
+    check(launched == {"cpu": {"fp32": 0, "bf16": 0}, "cuda": {"fp32": 0, "bf16": 1}},
+          f"K1's bf16 gradient launched {launched}")
+    dis = {n: kb.bf16_disagreement(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads["cuda"],
+                                                              grads["cpu"])}
+    for n, x in dis.items():
+        check(x["worst"] <= 1.0 and x["rms_worst"] <= 1.0,
+              f"K1 bf16 gradient {n}, card vs CPU: {x} past the limit")
+    qc, kc, vc = (t.cuda().requires_grad_() for t in (q, k, v))
+    bc, cc = bias.cuda(), cot.cuda()
+
+    def bwd_ms(out):
+        return time_ms(lambda: torch.autograd.grad(out, (qc, kc, vc), cc, retain_graph=True))
+
+    out = kb.keybias_attention(qc, kc, vc, bc)
+    row = {"kernel": "keybias_attention_bf16", "shape": [B, H, T, S, d], "dtype": "bfloat16",
+           "bias_shape": [B, S], "path": "train-emote --bf16 (backward, 12 a step)",
+           "max_abs_err": {n: x["max_abs"] for n, x in dis.items()},
+           "limit_share": max(x["worst"] for x in dis.values()),
+           "rms_limit_share": max(x["rms_worst"] for x in dis.values()),
+           "backward_ms": bwd_ms(out),
+           # every device kernel of the backward, summed
+           "backward_device_ms": device_ms(
+               lambda: torch.autograd.grad(out, (qc, kc, vc), cc, retain_graph=True)),
+           "plain_backward_ms": bwd_ms(kb.keybias_attention_reference(qc, kc, vc, bc)),
+           "library_backward_ms": bwd_ms(F.scaled_dot_product_attention(
+               qc, kc, vc, attn_mask=bc[:, None, None, :], scale=1.0))}
+    lib_out = F.scaled_dot_product_attention(qc, kc, vc, attn_mask=bc[:, None, None, :], scale=1.0)
+    row["library_backward_device_ms"] = device_ms(
+        lambda: torch.autograd.grad(lib_out, (qc, kc, vc), cc, retain_graph=True))
+    row["bound_ms"], row["bound_by"] = attention_backward_bound_bf16(B, H, T, S, d, peaks)
+    emit({"phase": "attention_grads", **row})
+    return row
+
+
+def _grads_rms_rel(got: dict, ref: dict) -> dict:
+    """rms(got - ref) / rms(ref) of each trained tensor's gradient, and of
+    all of them together (``"all"``), the key biases left out: their exact
+    gradient is 0 (softmax is shift invariant along a key row), so theirs
+    is rounding noise (wav2vec2's ``k_proj.bias``, the key third of each
+    packed ``in_proj_bias``)."""
+    import torch
+
+    out, num, den = {}, 0.0, 0.0
+    for k, r in ref.items():
+        if k.endswith("k_proj.bias"):
+            continue
+        a, b = got[k].double().flatten().cpu(), r.double().flatten().cpu()
+        if k.endswith("in_proj_bias"):
+            n = a.numel() // 3
+            a, b = torch.cat([a[:n], a[2 * n:]]), torch.cat([b[:n], b[2 * n:]])
+        out[k] = float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt().clamp_min(1e-30))
+        num, den = num + float((a - b).pow(2).sum()), den + float(b.pow(2).sum())
+    out["all"] = (num / den) ** 0.5
+    return out
+
+
+# bf16 against fp32, the step's gradient: all of it within 0.1 of its rms
+# (PERF.md §2's bfloat16 rule), each tensor within 0.2. A tensor's own rms
+# can pass 0.1 where its exact gradient cancels: the query and key
+# projections of the deepest wav2vec2 layers take theirs through the score
+# gradient ds = w (dw - sum(dw w)), formed from bfloat16 q, k, v and do (as
+# JAX's _keybias_bwd forms it): 0.09-0.12 on the card, the rest at most
+# 0.075 (PERF.md §6).
+GRAD_BF16_ALL, GRAD_BF16_TENSOR = 0.1, 0.2
+
+
+def _loss_and_grads(trainer, batch, perm=None) -> dict:
+    """One forward and backward of ``trainer`` on ``batch`` (no update):
+    the metrics, each trained tensor's gradient and the K1 launches by
+    dtype."""
+    from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
+
+    trainer.optimizer.zero_grad(set_to_none=True)
+    kb.launches = kb.launches_bf16 = 0
+    loss, metrics = trainer.loss_fn(batch, perm=perm)
+    loss.backward()
+    return {"metrics": {k: float(v.detach()) for k, v in metrics.items()},
+            "grads": {k: t.grad.detach().clone() for k, t in _trained(trainer.head).items()
+                      if t.grad is not None},
+            "k1": {"fp32": kb.launches, "bf16": kb.launches_bf16}}
+
+
+def _vector(metrics: dict, grads: dict):
+    """The metrics and the gradients but the key biases', in one float64
+    vector (the rule's operand)."""
+    import torch
+
+    parts = [torch.tensor([metrics[k] for k in sorted(metrics)], dtype=torch.float64)]
+    for k in sorted(grads):
+        if k.endswith("k_proj.bias"):
+            continue
+        g = grads[k].double().flatten().cpu()
+        if k.endswith("in_proj_bias"):
+            n = g.numel() // 3
+            g = torch.cat([g[:n], g[2 * n:]])
+        parts.append(g)
+    return torch.cat(parts)
+
+
+def _in_turns(trainers: dict, batch, rounds: int = 3, **kw) -> dict:
+    """Each of ``trainers`` ({"fp32": ..., "bf16": ...}) stepped on
+    ``batch`` in turns (fp32, bf16, bf16, fp32, ``rounds`` times, the first
+    round a warm-up): seconds per step and peak memory of each."""
+    import torch
+
+    walls = {k: [] for k in trainers}
+    peak = {k: 0.0 for k in trainers}
+    for order in (("fp32", "bf16"), ("bf16", "fp32")) * rounds:
+        for which in order:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainers[which].train_step(batch, **kw)
+            torch.cuda.synchronize()
+            walls[which].append(time.perf_counter() - t0)
+            peak[which] = max(peak[which], torch.cuda.max_memory_allocated() / 2 ** 30)
+    return {"step_s_median": {k: statistics.median(v[2:]) for k, v in walls.items()},
+            "step_s_all": walls, "peak_allocated_gib": peak,
+            "order": "fp32, bf16, bf16, fp32, repeated; the first two steps of each a warm-up"}
+
+
+def phase_train_emote_bf16(kb):
+    """`train-emote --bf16`: the head at bfloat16 compute over float32
+    weights, at full width and the command's defaults (B=8, 64 frames).
+
+    1. The command, two stages of 3 steps with validation every 3: K1's
+       bfloat16 entry 12 times a forward (2 x (3 steps + 2 validation
+       batches) x 12 = 120), the float32 one never; a finite validation loss.
+    2. Steps stepped directly: 12 bfloat16 launches a step and 0 fp32.
+    3. A bf16 step against an fp32 step on the card, from the same weights
+       and batch: the whole gradient within 0.1 of the fp32 gradient's rms
+       (PERF.md §2's bfloat16 rule), each trained tensor's within 0.2
+       (``GRAD_BF16_TENSOR``; the key biases, whose exact gradient is 0,
+       left out), the loss within 0.1 relative; the two trainers' steps in
+       turns with their peak memory.
+    4. The card at bf16 against the CPU at bf16 at the tiny width (its
+       wav2vec2 at 64 wide with 4 heads: the tiny config's head width of 8
+       is below the bfloat16 kernel's step of 16): one step's metrics and
+       gradients, by the rule of the CPU tests: rms(card bf16 - CPU bf16) <
+       rms(CPU bf16 - CPU fp32)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.audio.wav2vec2 import Wav2Vec2Config
+    from avi_talking_tpu_torch.cli import main as cli_main
+    from avi_talking_tpu_torch.cli.train_emote import build_head, synthetic_batches
+    from avi_talking_tpu_torch.infra.init import random_module
+    from avi_talking_tpu_torch.models.emote import EmoteConfig, EmoteTalkingHead
+
+    B, T, lr, steps = 8, 64, 1e-4, 3
+    bf16, fp32, dev = torch.bfloat16, torch.float32, torch.device("cuda")
+    buf = io.StringIO()
+    kb.launches = kb.launches_bf16 = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["train-emote", "--bf16", "--steps", str(steps), "--val-every", str(steps)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launches = {"fp32": kb.launches, "bf16": kb.launches_bf16}
+    check(rc == 0, f"train-emote --bf16 exited {rc}")
+    want = {"fp32": 0, "bf16": 12 * 2 * (steps + 2)}
+    check(cli_launches == want, f"train-emote --bf16 launched K1 {cli_launches}, not {want}")
+    done = [line for line in buf.getvalue().splitlines() if line.startswith("done:")]
+    check(len(done) == 1 and math.isfinite(float(done[0].rsplit(" ", 1)[1])),
+          f"train-emote --bf16 printed {buf.getvalue()!r}")
+
+    cfg = EmoteConfig()
+    draw = (cfg.flint.n_exp, cfg.n_shape)
+    head = build_head(False, seed=0, device=dev, dtype=bf16)
+    trainer = _emote_trainer(head, lr)
+    batches = synthetic_batches(np.random.default_rng(0), B, T, *draw, "cuda")
+    per_step, losses = [], []
+    for _ in range(4):
+        kb.launches = kb.launches_bf16 = 0
+        losses.append(float(trainer.train_step(next(batches))["loss"]))
+        per_step.append({"fp32": kb.launches, "bf16": kb.launches_bf16})
+    check(per_step == [{"fp32": 0, "bf16": 12}] * 4,
+          f"train-emote --bf16 steps launched K1 {per_step}")
+    check(all(math.isfinite(x) for x in losses), f"bf16 EMOTE losses {losses}")
+    del trainer, head
+
+    batch = next(synthetic_batches(np.random.default_rng(1), B, T, *draw, "cuda"))
+    trainers = {n: _emote_trainer(build_head(False, seed=2, device=dev, dtype=dt), lr)
+                for n, dt in (("fp32", fp32), ("bf16", bf16))}
+    got = {n: _loss_and_grads(tr, batch) for n, tr in trainers.items()}
+    check(got["fp32"]["k1"] == {"fp32": 12, "bf16": 0} and got["bf16"]["k1"] == {"fp32": 0,
+                                                                                "bf16": 12},
+          f"K1 launches of the compared steps: {got['fp32']['k1']}, {got['bf16']['k1']}")
+    grad_rel = _grads_rms_rel(got["bf16"]["grads"], got["fp32"]["grads"])
+    worst = max((k for k in grad_rel if k != "all"), key=grad_rel.get)
+    loss_rel = abs(got["bf16"]["metrics"]["loss"] - got["fp32"]["metrics"]["loss"]) / abs(
+        got["fp32"]["metrics"]["loss"])
+    timing = _in_turns(trainers, batch)
+    del trainers, got
+
+    small = dataclasses.replace(EmoteConfig.tiny(), wav2vec2=Wav2Vec2Config.tiny(hidden=64, heads=4))
+    tb = next(synthetic_batches(np.random.default_rng(2), 2, 16, small.flint.n_exp, small.n_shape,
+                                "cpu"))
+    sides = {}
+    for name, d, dt in (("card_bf16", "cuda", bf16), ("cpu_bf16", "cpu", bf16),
+                        ("cpu_fp32", "cpu", fp32)):
+        h = random_module(lambda: EmoteTalkingHead(small, condition_dim=9 + 3 + 32 + small.n_shape,
+                                                   dtype=dt),
+                          torch.device(d), torch.Generator().manual_seed(3))
+        r = _loss_and_grads(_emote_trainer(h, lr), {k: v.to(d) for k, v in tb.items()})
+        sides[name] = _vector(r["metrics"], r["grads"])
+    d_card = float((sides["card_bf16"] - sides["cpu_bf16"]).pow(2).mean().sqrt())
+    d_ref = float((sides["cpu_bf16"] - sides["cpu_fp32"]).pow(2).mean().sqrt())
+    emit({"phase": "train_emote_bf16", "config": "EmoteConfig() at bfloat16 compute",
+          "batch": B, "frames": T, "lr": lr,
+          "cli": f"train-emote --bf16 --steps {steps} --val-every {steps}", "cli_wall_s": cli_s,
+          "cli_k1_launches": cli_launches, "final": done[0], "k1_launches_per_step": per_step,
+          "losses": losses, "bf16_vs_fp32_one_step": {
+              "grad_rms_rel": grad_rel, "grad_rms_rel_all": grad_rel["all"],
+              "grad_rms_rel_worst": grad_rel[worst], "grad_rms_rel_worst_tensor": worst,
+              "tensors_past_0.1": sorted(k for k, v in grad_rel.items() if v >= 0.1),
+              "loss_rel": loss_rel,
+              "limits": {"all": GRAD_BF16_ALL, "tensor": GRAD_BF16_TENSOR, "loss": 0.1}},
+          "in_turns": timing,
+          "card_vs_cpu_bf16_tiny": {"config": "EmoteConfig.tiny(), wav2vec2 64 wide, 4 heads",
+                                    "rms_card_bf16_to_cpu_bf16": d_card,
+                                    "rms_cpu_bf16_to_cpu_fp32": d_ref}})
+    check(grad_rel["all"] < GRAD_BF16_ALL and grad_rel[worst] < GRAD_BF16_TENSOR
+          and loss_rel < 0.1,
+          f"train-emote --bf16 against fp32: the gradient {grad_rel['all']} of its rms (limit "
+          f"{GRAD_BF16_ALL}), {worst}'s {grad_rel[worst]} (limit {GRAD_BF16_TENSOR}), loss "
+          f"{loss_rel} (limit 0.1)")
+    check(d_card < d_ref, f"tiny bf16 step, card vs CPU: rms {d_card} not below the CPU's bf16 to "
+          f"fp32 {d_ref}")
+    return {"launches": cli_launches["bf16"]}
+
+
+def phase_train_emote_neural_bf16(kb, kras):
+    """`train-emote --neural --bf16`: the head and the three towers at
+    bfloat16 compute, the renders in float32 (K2 unchanged), at full width.
+
+    1. The command at B=2, 32 frames, two stages of 2 steps, validation every
+       2: K1's bfloat16 entry 12 a forward (2 x (2 + 2) x 12 = 96), fp32 0;
+       K2 2 a neural loss (2 x (2 + 2) = 8); a finite validation loss.
+    2. bf16 against fp32 on the card from the same weights, batch and
+       exchange: the step's loss within 0.1 relative; and at identical
+       predicted vertices (the fp32 head's) the gradient of the neural terms
+       at the vertices, through the render and the towers, within 0.1 of the
+       fp32 gradient's rms (PERF.md §2's bfloat16 rule), each term's distance
+       reported.
+    3. The two trainers' steps at B=2, 32 frames in turns, with K2's
+       launches and peak memory; then one bf16 step at the command's
+       defaults (B=8, 64 frames), which fp32 cannot take in 80 GiB (PERF.md §5):
+       its peak memory, or the allocator's refusal, is recorded and not
+       held."""
+    import contextlib
+    import gc
+    import io
+
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.cli import main as cli_main
+    from avi_talking_tpu_torch.cli.train_emote import (
+        build_head, build_neural, neural_assets, synthetic_batches)
+    from avi_talking_tpu_torch.core.flame import FlameModel
+    from avi_talking_tpu_torch.models.emote import EmoteConfig
+
+    B, T, lr, steps = 2, 32, 1e-4, 2
+    bf16, fp32, dev = torch.bfloat16, torch.float32, torch.device("cuda")
+    buf = io.StringIO()
+    kb.launches = kb.launches_bf16 = kras.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["train-emote", "--neural", "--bf16", "--batch-size", str(B), "--frames",
+                       str(T), "--steps", str(steps), "--val-every", str(steps)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launches = {"keybias_attention": kb.launches, "keybias_attention_bf16": kb.launches_bf16,
+                    "rasterize_tiles_visibility": kras.launches}
+    check(rc == 0, f"train-emote --neural --bf16 exited {rc}")
+    want = {"keybias_attention": 0, "keybias_attention_bf16": 12 * 2 * (steps + 2),
+            "rasterize_tiles_visibility": 2 * (steps + 2)}
+    check(cli_launches == want, f"train-emote --neural --bf16 launched {cli_launches}, not {want}")
+    done = [line for line in buf.getvalue().splitlines() if line.startswith("done:")]
+    check(len(done) == 1 and math.isfinite(float(done[0].rsplit(" ", 1)[1])),
+          f"train-emote --neural --bf16 printed {buf.getvalue()!r}")
+
+    assets = neural_assets(tiny=False)
+    cfg = EmoteConfig()
+    n_exp, n_shape = cfg.flint.n_exp, cfg.n_shape
+    batch = next(synthetic_batches(np.random.default_rng(1), B, T, n_exp, n_shape, "cuda"))
+    perm = torch.tensor([1, 0])
+    suites, trainers, got, seen = {}, {}, {}, {}
+    for name, dt in (("fp32", fp32), ("bf16", bf16)):
+        head = build_head(False, seed=2, device=dev, flame_assets=assets, dtype=dt)
+        suites[name] = build_neural(False, assets.faces, dev, dtype=dt)
+        suites[name].loss, seen[name] = _recording(suites[name].loss)
+        trainers[name] = _neural_trainer(head, suites[name], lr)
+        kras.launches = 0
+        got[name] = _loss_and_grads(trainers[name], batch, perm=perm)
+        got[name]["k2"] = kras.launches
+    check(got["bf16"]["k1"] == {"fp32": 0, "bf16": 12} and got["bf16"]["k2"] == 2,
+          f"the neural bf16 step launched K1 {got['bf16']['k1']}, K2 {got['bf16']['k2']}")
+    loss_rel = abs(got["bf16"]["metrics"]["loss"] - got["fp32"]["metrics"]["loss"]) / abs(
+        got["fp32"]["metrics"]["loss"])
+    terms_rel = {k: abs(got["bf16"]["metrics"][k] - v) / max(abs(v), 1e-12)
+                 for k, v in got["fp32"]["metrics"].items()}
+    # identical vertices: the fp32 head's prediction, through each suite
+    verts = seen["fp32"]["vertices"]
+    jaw = batch["gt_jaw"].reshape(B * T, 3)
+    gt = FlameModel(assets.to(dev), n_shape=n_shape, n_exp=n_exp).vertices_only(
+        torch.zeros(B * T, n_shape, device=dev), batch["gt_exp"].reshape(B * T, n_exp),
+        torch.cat([torch.zeros_like(jaw), jaw], -1)).reshape(B, T, -1, 3)
+    with torch.no_grad():
+        gt_video = suites["fp32"].render_video(gt)
+    chain = {n: _neural_chain(suites[n], verts, gt_video, batch, perm) for n in suites}
+    vg = {n: c["vertex_grad"].double() for n, c in chain.items()}
+    vertex_grad_rel = float((vg["bf16"] - vg["fp32"]).pow(2).mean().sqrt()
+                            / vg["fp32"].pow(2).mean().sqrt())
+    chain_terms_rel = _rel(chain["bf16"]["terms"], chain["fp32"]["terms"])
+    del chain, vg, got
+    kras.launches = 0
+    timing = _in_turns(trainers, batch, perm=perm)
+    timing["k2_launches"] = kras.launches
+    del trainers, suites, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the command's defaults at bf16: recorded, not held
+    defaults = {"batch": 8, "frames": 64}
+    try:
+        head = build_head(False, seed=0, device=dev, flame_assets=assets, dtype=bf16)
+        trainer = _neural_trainer(head, build_neural(False, assets.faces, dev, dtype=bf16), lr)
+        big = next(synthetic_batches(np.random.default_rng(0), 8, 64, n_exp, n_shape, "cuda"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(
+            big, generator=torch.Generator(device="cuda").manual_seed(0))["loss"])
+        torch.cuda.synchronize()
+        defaults.update(fits=True, step_s=time.perf_counter() - t0, loss=loss,
+                        peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    except torch.cuda.OutOfMemoryError as e:
+        defaults.update(fits=False, refused=str(e).splitlines()[0])
+    trainer = head = big = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_emote_neural_bf16",
+          "config": "EmoteConfig() and the towers at bfloat16 compute, synthetic FLAME 5023 / "
+                    "9976, 224^2 float32 renders",
+          "batch": B, "frames": T, "lr": lr,
+          "cli": f"train-emote --neural --bf16 --batch-size {B} --frames {T} --steps {steps} "
+                 f"--val-every {steps}",
+          "cli_wall_s": cli_s, "cli_launches": cli_launches, "final": done[0],
+          "bf16_vs_fp32": {"loss_rel": loss_rel, "metrics_rel": terms_rel,
+                           "identical_vertices": {"vertex_grad_rms_rel": vertex_grad_rel,
+                                                  "terms_rel": chain_terms_rel},
+                           "limit": 0.1},
+          "in_turns": timing, "defaults_at_bf16": defaults})
+    check(loss_rel < 0.1 and vertex_grad_rel < 0.1,
+          f"train-emote --neural --bf16 against fp32: loss {loss_rel}, vertex gradient "
+          f"{vertex_grad_rel} of its rms; the limit is 0.1")
+    return {"launches": cli_launches}
+
+
+def _png_with_filter(path, filter_type: int, size: int = 224, seed: int = 0):
+    """A size^2 RGB PNG whose rows all carry ``filter_type`` (random
+    filtered bytes: any byte string is a valid filtered row)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    rows = np.random.default_rng(seed + filter_type).integers(0, 256, (size, size * 3),
+                                                              dtype=np.uint8)
+    raw = b"".join(bytes([filter_type]) + r.tobytes() for r in rows)
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", size, size, 8, 2, 0,
+                                                                   0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    return path
+
+
+def phase_host_codecs():
+    """The host codecs of ``native/`` on the card's host: wavio.cpp and
+    imageio.cpp built by g++ at first use into build/ (seconds each), then
+    held to the Python versions of the port: a 16 kHz wav decode within
+    1e-4 (as the JAX package's native test), a 48 kHz one resampled to 16
+    kHz still a 440 Hz sine of the same rms, the framing equal; the PNG
+    decode bit-equal on the golden file with all five row filters and on a
+    224^2 crop under each filter, with the decode's milliseconds per crop
+    native and Python (S2b's cost)."""
+    import tempfile
+    import wave
+
+    import numpy as np
+
+    from avi_talking_tpu_torch.audio import frontend, native
+    from avi_talking_tpu_torch.infra import native_build
+    from avi_talking_tpu_torch.viz import pngio
+
+    build = {}
+    for name, load in (("wavio", native._load), ("imageio", pngio._load_native)):
+        path = native_build.library_path(name)
+        fresh = not path.exists()
+        t0 = time.perf_counter()
+        load()
+        build[name] = {"library": os.path.relpath(path, HERE), "built_here": fresh,
+                       "seconds": time.perf_counter() - t0}
+    lib = pngio._load_native()
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        def write_wav(path, sr, data):
+            with wave.open(path, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(sr)
+                w.writeframes((data * 32767).astype("<i2").tobytes())
+
+        p16 = os.path.join(tmp, "a.wav")
+        write_wav(p16, 16000, synthetic_wav(8.0, seed=4))
+        got, _ = native.read_wav_native(p16)
+        want, _ = frontend.read_wav(p16)
+        wav_err = float(np.abs(got - want).max()) if got.shape == want.shape else math.inf
+        check(wav_err < 1e-4, f"native wav decode: max |d| {wav_err} from the Python decoder")
+        frames_equal = bool(np.array_equal(native.frame_audio_native(got),
+                                           frontend.frame_audio(got)))
+        check(frames_equal, "frame_audio_native differs from frame_audio")
+        p48 = os.path.join(tmp, "b.wav")
+        write_wav(p48, 48000, (np.sin(2 * np.pi * 440 * np.arange(48000) / 48000) * 0.5
+                               ).astype(np.float32))
+        r48, sr = native.read_wav_native(p48)
+        rms48, zc = float(np.sqrt((r48 ** 2).mean())), int(np.sum(np.diff(np.signbit(r48))))
+        check(sr == 16000 and abs(len(r48) - 16000) <= 2 and 0.3 < rms48 < 0.4 and 800 < zc < 960,
+              f"native 48 kHz decode: {len(r48)} samples, rms {rms48}, {zc} zero crossings")
+        wav_ms = {"native": time_host_ms(lambda: native.read_wav_native(p16)),
+                  "python": time_host_ms(lambda: frontend.read_wav(p16))}
+
+        golden = os.path.join(HERE, "tests", "golden", "mixed_filters.png")
+        check(np.array_equal(pngio._read_png_native(golden, lib), pngio._read_png_python(golden)),
+              "native PNG decode of the five-filter golden file differs from the Python one")
+        png_ms = {}
+        for name, ft in (("none", 0), ("sub", 1), ("up", 2), ("average", 3), ("paeth", 4)):
+            p = _png_with_filter(os.path.join(tmp, f"{name}.png"), ft)
+            check(np.array_equal(pngio._read_png_native(p, lib), pngio._read_png_python(p)),
+                  f"native PNG decode under the {name} filter differs from the Python one")
+            png_ms[name] = {"native": time_host_ms(lambda: pngio.read_png(p)),
+                            "python": time_host_ms(lambda: pngio._read_png_python(p), reps=1)}
+    emit({"phase": "host_codecs", "build": build, "wav_16k_max_abs_diff": wav_err,
+          "frame_audio_equal": frames_equal,
+          "wav_48k": {"samples": len(r48), "rms": rms48, "zero_crossings": zc},
+          "wav_decode_ms_8s": wav_ms, "png_decode_ms_224_rgb": png_ms})
+
+
+def time_host_ms(fn, reps: int = 5) -> float:
+    """Median wall milliseconds of ``fn`` on the host over ``reps`` calls
+    after one more."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def phase_diversity(pipe, cpu):
+    """`diversity`: the mean pairwise distance of styles sampled for one
+    instruction. ``diversity_score`` on the card against the CPU pipeline on
+    the same weights with the same explicit prior draws (4 samples): within
+    1e-3 relative; then the command at full width (4 samples, sample i
+    seeded --seed + i on the card) against ``diversity_score`` on ``pipe``
+    (the same seed-0 weights and seeds): the printed score equal."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from avi_talking_tpu_torch.cli import main as cli_main
+    from avi_talking_tpu_torch.cli.run import diversity_score
+
+    text = "A fairly angry man speaks with brow fairly down"
+    rng = np.random.default_rng(11)
+    D, steps = pipe.cfg.clip_size, pipe.cfg.timesteps
+    noise = [{"init": rng.standard_normal((1, 1, D)).astype(np.float32),
+              "steps": rng.standard_normal((steps, 1, 1, D)).astype(np.float32)}
+             for _ in range(4)]
+    card = diversity_score(pipe, text, 4, 0, noise=noise)
+    host = diversity_score(cpu, text, 4, 0, noise=noise)
+    rel = abs(card - host) / abs(host)
+    check(math.isfinite(card) and card > 0 and rel < 1e-3,
+          f"diversity card {card} against CPU {host}: relative {rel}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["diversity", "--text", text, "--num-samples", "4"])
+    cli_s = time.perf_counter() - t0
+    line = buf.getvalue().strip().splitlines()[-1]
+    direct = diversity_score(pipe, text, 4, 0)
+    check(rc == 0 and line == f"diversity over 4 samples: {direct:.4f}",
+          f"diversity printed {line!r}; diversity_score on the same weights gives {direct}")
+    emit({"phase": "diversity", "card_vs_cpu": {"card": card, "cpu": host, "rel": rel,
+                                                "tol": 1e-3},
+          "cli": "diversity --text <text> --num-samples 4", "cli_line": line,
+          "cli_wall_s": cli_s})
+
+
 def _write_mead_tree(root, n_clips, frames, seed, names=None, crop_size=None):
     """A MEAD-layout root as the data tests build one: ``n_clips`` clips of
     ``frames`` frames (identities M003 / W009, emotions neutral / happy /
@@ -2437,6 +3017,7 @@ def phase_gpu_vs_cpu(pipe):
           "tol": tol, "cpu_wall_s": cpu_s})
     for k, e in errs.items():
         check(e < tol, f"GPU vs CPU {k}: max |d| {e} >= {tol}")
+    return cpu
 
 
 def phase_visibility(verts, faces, peaks, ptxas):
@@ -2662,6 +3243,8 @@ BF16_CASES = [
 ]
 # K and V past the 227 KB a block may take: the kernel streams them
 BF16_STREAMED = [("streamed_d128", 1, 2, 64, 600, 128, (600,))]
+# train-emote --bf16's step: B=8, 64 frames after the 50 -> 25 fps resample
+BF16_TRAIN = [("emote_train", 8, 12, 64, 64, 64, (64,) * 8)]
 
 
 def bf16_inputs(B, H, T, S, d, lens, g):
@@ -2678,12 +3261,13 @@ def bf16_inputs(B, H, T, S, d, lens, g):
     return q, k, v, bias
 
 
-def phase_kernels_bf16(peaks):
+def phase_kernels_bf16(peaks, cases=None):
     """K1's bfloat16 entry against its plain version on the card at the
     generate path's shapes (bfloat16 q, k, v and key bias, as wav2vec2 sends
-    them under --bf16), and at BF16_STREAMED's, where K and V stream through
-    shared memory (its row marked ``path``; the kernels line's headline shape
-    stays generate's). Limit (``kb.bf16_disagreement``, which derives it):
+    them under --bf16), at BF16_STREAMED's, where K and V stream through
+    shared memory, and at `train-emote --bf16`'s step (BF16_TRAIN), each row
+    marked with its ``path`` (the kernels line's headline shape stays
+    generate's); ``cases`` picks some of them. Limit (``kb.bf16_disagreement``, which derives it):
     each element within 2^-7 |ref| + 2^-9 max|ref| (one bfloat16 step of the
     output, since both sides round P and the output from float32 values that
     differ only in summation order and the exponential's last bits, plus a
@@ -2700,8 +3284,13 @@ def phase_kernels_bf16(peaks):
     from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
 
     g = torch.Generator(device="cuda").manual_seed(1)
+    paths = {c: "generate --bf16" for c in BF16_CASES}
+    paths.update({c: "streamed: K and V past the shared-memory fit, on no path of the product"
+                  for c in BF16_STREAMED})
+    paths.update({c: "train-emote --bf16 (forward, 12 a step)" for c in BF16_TRAIN})
     rows = []
-    for name, B, H, T, S, d, lens in BF16_CASES + BF16_STREAMED:
+    for case in cases or BF16_CASES + BF16_STREAMED + BF16_TRAIN:
+        name, B, H, T, S, d, lens = case
         q, k, v, bias = bf16_inputs(B, H, T, S, d, lens, g)
         before = kb.launches
         out = kb.keybias_attention(q, k, v, bias)
@@ -2722,8 +3311,7 @@ def phase_kernels_bf16(peaks):
 
         row = {
             "case": name, "shape": [B, H, T, S, d], "dtype": "bfloat16",
-            "path": ("streamed: K and V past the shared-memory fit, on no path of the product"
-                     if (name, B, H, T, S, d, lens) in BF16_STREAMED else "generate --bf16"),
+            "path": paths[case],
             "max_abs_err": dis["max_abs"], "limit_share": dis["worst"],
             "rms_limit_share": dis["rms_worst"], "rms_rel": dis["rms_rel"],
             "flipped": dis["flipped"], "ms": time_ms(kernel),
@@ -3260,54 +3848,71 @@ def main() -> int:
 
     name = torch.cuda.get_device_name(0)
     variant, peaks = card_peaks(name)
-    ptxas = phase_build()
-    rows = phase_kernels(peaks)
+    phase_s = {}  # wall seconds of each phase function, summed over its calls
+
+    def timed(fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        phase_s[fn.__name__] = phase_s.get(fn.__name__, 0.0) + time.perf_counter() - t0
+        return out
+
+    ptxas = timed(phase_build)
+    timed(phase_host_codecs)
+    rows = timed(phase_kernels, peaks)
     if args.phases == "train":
-        phase_attention_grads(peaks)
-        emote = phase_train_emote(kb)
+        timed(phase_attention_grads, peaks)
+        timed(phase_kernels_bf16, peaks, cases=BF16_TRAIN)
+        timed(phase_attention_grad_bf16, peaks)
+        emote = timed(phase_train_emote, kb)
         check_emote_row(rows, emote)
-        phase_train_emote_neural(kb, kras, peaks, profile=args.profile)
-        vert = phase_train_faceformer_vert(kb, kba, kras, peaks, profile=args.profile)
+        timed(phase_train_emote_bf16, kb)
+        timed(phase_train_emote_neural, kb, kras, peaks, profile=args.profile)
+        timed(phase_train_emote_neural_bf16, kb, kras)
+        vert = timed(phase_train_faceformer_vert, kb, kba, kras, peaks, profile=args.profile)
         check_vert_row(rows, vert)
-        phase_train_prior()
-        check_faceformer_row(rows, phase_train_data(kb, kba))
+        timed(phase_train_prior)
+        check_faceformer_row(rows, timed(phase_train_data, kb, kba))
         if args.profile:
             profile_emote_and_prior_steps()
-        emit({"phases": "train", "total_s": time.perf_counter() - t_start})
+        emit({"phases": "train", "phase_s": phase_s, "total_s": time.perf_counter() - t_start})
         return finish(name, phases="train")
-    k3_rows = phase_bias_kernels(peaks)
-    grad_rows = phase_attention_grads(peaks)
+    k3_rows = timed(phase_bias_kernels, peaks)
+    grad_rows = timed(phase_attention_grads, peaks)
 
     t0 = time.perf_counter()
     assets = synthetic_assets(num_vertices=5023, n_shape=300, n_exp=50, num_faces=9976)
     pipe = AviTalkingPipeline.random_init(PipelineConfig(), assets, seed=0)
     emit({"phase": "init", "device": str(pipe.device), "seconds": time.perf_counter() - t0})
-    gen_launches, gen_out = phase_generate(pipe, kb)
-    phase_generate_batch(pipe, kb)
-    phase_gpu_vs_cpu(pipe)
+    gen_launches, gen_out = timed(phase_generate, pipe, kb)
+    timed(phase_generate_batch, pipe, kb)
+    timed(phase_diversity, pipe, timed(phase_gpu_vs_cpu, pipe))
     faces = assets.faces.cuda()
-    vis_rows = phase_visibility(gen_out["vertices"], faces, peaks,
-                                ptxas.get("rasterize_visibility", []))
-    render_launches = phase_render(gen_out["vertices"], faces)
-    phase_render_gpu_vs_cpu()
-    phase_serve(pipe, kb)
-    bf16_rows = phase_kernels_bf16(peaks)
-    bf16_launches, _ = phase_generate_bf16(pipe, kb)
-    phase_serve_bf16(kb)
-    ckpt_k2 = phase_checkpoint(kb, kras)
-    ff_launches = phase_faceformer(kb, kba)
-    phase_train_faceformer(kb, kba)
-    emote = phase_train_emote(kb)
-    neural = phase_train_emote_neural(kb, kras, peaks, profile=args.profile)
-    vert = phase_train_faceformer_vert(kb, kba, kras, peaks, profile=args.profile)
-    phase_train_prior()
-    data = phase_train_data(kb, kba)
+    vis_rows = timed(phase_visibility, gen_out["vertices"], faces, peaks,
+                     ptxas.get("rasterize_visibility", []))
+    render_launches = timed(phase_render, gen_out["vertices"], faces)
+    timed(phase_render_gpu_vs_cpu)
+    timed(phase_serve, pipe, kb)
+    bf16_rows = timed(phase_kernels_bf16, peaks)
+    bf16_grad = timed(phase_attention_grad_bf16, peaks)
+    bf16_launches, _ = timed(phase_generate_bf16, pipe, kb)
+    timed(phase_serve_bf16, kb)
+    ckpt_k2 = timed(phase_checkpoint, kb, kras)
+    ff_launches = timed(phase_faceformer, kb, kba)
+    timed(phase_train_faceformer, kb, kba)
+    emote = timed(phase_train_emote, kb)
+    emote_bf16 = timed(phase_train_emote_bf16, kb)
+    neural = timed(phase_train_emote_neural, kb, kras, peaks, profile=args.profile)
+    neural_bf16 = timed(phase_train_emote_neural_bf16, kb, kras)
+    vert = timed(phase_train_faceformer_vert, kb, kba, kras, peaks, profile=args.profile)
+    timed(phase_train_prior)
+    data = timed(phase_train_data, kb, kba)
     if args.profile:
-        phase_profile(pipe, gen_out["vertices"], faces)
+        timed(phase_profile, pipe, gen_out["vertices"], faces)
 
     peaks_line = {"variant": variant, "fp32_flops": peaks[0], "bytes_per_s": peaks[1],
                   "tf32_flops": peaks[2], "bf16_flops": peaks[3]}
     bf16_main = bf16_rows[0]  # generate --bf16's shape: B=1, H=12, T=S=200, d=64
+    bf16_train = next(r for r in bf16_rows if r["case"] == "emote_train")  # B=8 T=S=64
     main_row = rows[0]  # the generate path's shape: B=1, H=12, T=S=200, d=64
     vis_row = vis_rows[0]  # the render path's launch: 16 frames x 64 tiles
     k3_main = k3_rows[1]  # the forward's self-attention: B=1 H=4 T=S=600 d=32, (H, T, T) bias
@@ -3351,6 +3956,46 @@ def main() -> int:
         "bound_by": bf16_main["bound_by"],
         "library_ms": bf16_main["library_ms"],
         "shape": bf16_main["shape"],
+        "dtype": "bfloat16",
+        "peaks": peaks_line,
+    }, {
+        "name": "keybias_attention_bf16",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/keybias_attention_bf16.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:114",
+        "path": "train-emote --bf16 (the forward under the gradient; the backward is the "
+                "float32 recompute, as JAX's _keybias_bwd)",
+        "launches": emote_bf16["launches"],  # the command's run
+        "max_abs_err": bf16_train["max_abs_err"],
+        "limit_share": max(bf16_train["limit_share"], bf16_train["rms_limit_share"]),
+        "ms": bf16_train["ms"],
+        "device_ms": bf16_train["device_ms"],
+        "library_device_ms": bf16_train["library_device_ms"],
+        "plain_ms": bf16_train["plain_ms"],
+        "bound_ms": bf16_train["bound_ms"],
+        "bound_by": bf16_train["bound_by"],
+        "library_ms": bf16_train["library_ms"],
+        "shape": bf16_train["shape"],
+        "dtype": "bfloat16",
+        "backward": {k: v for k, v in bf16_grad.items() if k != "kernel"},
+        "peaks": peaks_line,
+    }, {
+        "name": "keybias_attention_bf16",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/keybias_attention_bf16.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:114",
+        "path": "train-emote --neural --bf16 (B=2, 32 frames)",
+        "launches": neural_bf16["launches"]["keybias_attention_bf16"],  # the command's run
+        "max_abs_err": bf16_train["max_abs_err"],
+        "limit_share": max(bf16_train["limit_share"], bf16_train["rms_limit_share"]),
+        "ms": bf16_train["ms"],
+        "device_ms": bf16_train["device_ms"],
+        "library_device_ms": bf16_train["library_device_ms"],
+        "plain_ms": bf16_train["plain_ms"],
+        "bound_ms": bf16_train["bound_ms"],
+        "bound_by": bf16_train["bound_by"],
+        "library_ms": bf16_train["library_ms"],
+        "shape": bf16_train["shape"],
         "dtype": "bfloat16",
         "peaks": peaks_line,
     }, {
@@ -3428,6 +4073,24 @@ def main() -> int:
         "replaces": "avi_talking_tpu/ops/pallas/rasterize.py:111",
         "path": "train-emote --neural (the predicted video's render, under a gradient)",
         "launches": neural["launches"]["rasterize_tiles_visibility"],  # the command's run
+        "max_abs_err": neural_row["max_abs_err"],
+        "ms": neural_row["ms"],
+        "device_ms": neural_row["device_ms"],
+        "plain_ms": neural_row["plain_ms"],
+        "bound_ms": neural_row["bound_ms"],
+        "bound_by": neural_row["bound_by"],
+        "bound_ms_no_fma": neural_row["bound_ms_no_fma"],
+        "library_ms": None,  # no PyTorch call computes z-buffer visibility
+        "shape": neural_row["shape"],
+        "peaks": peaks_line,
+    }, {
+        "name": "rasterize_tiles_visibility",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/rasterize_visibility.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/rasterize.py:111",
+        "path": "train-emote --neural --bf16 (the float32 render of the predicted video, under "
+                "a gradient)",
+        "launches": neural_bf16["launches"]["rasterize_tiles_visibility"],  # the command's run
         "max_abs_err": neural_row["max_abs_err"],
         "ms": neural_row["ms"],
         "device_ms": neural_row["device_ms"],
@@ -3547,7 +4210,7 @@ def main() -> int:
         "bias_shape": ff_k3["bias_shape"],
         "peaks": peaks_line,
     }], "keybias_attention_backward": {k: v for k, v in grad_rows[0].items() if k != "kernel"},
-        "total_s": time.perf_counter() - t_start})
+        "phase_s": phase_s, "total_s": time.perf_counter() - t_start})
     return finish(name)
 
 

@@ -18,6 +18,7 @@ from avi_talking_tpu_torch.core.assets import synthetic_assets
 from avi_talking_tpu_torch.data import CaptionDataset
 from avi_talking_tpu_torch.pipeline import AviTalkingPipeline, PipelineConfig
 from avi_talking_tpu_torch.viz import visualizer as tviz
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 CORPUS = ["--json-dir", str(REPO / "experiments" / "json_dir"),
@@ -156,11 +157,38 @@ def test_train_prior_runs_on_cpu(tmp_path, capsys):
     assert "at step 4" in capsys.readouterr().out
 
 
+@pytest.fixture(scope="module")
+def mead_codes_root(tmp_path_factory):
+    """Six 20-frame MEAD clips with EMOCA codes and wavs (no crops), as
+    ``test_torch_train_data`` writes them."""
+    from test_torch_train_data import CLIPS, _write_clip
+
+    root = tmp_path_factory.mktemp("mead_codes")
+    rng = np.random.default_rng(0)
+    for name in CLIPS:
+        _write_clip(root, name, rng)
+    return str(root)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--bf16"], ["--neural", "--bf16"], ["--root", "ROOT", "--val-fraction", "0.34", "--bf16"],
+], ids=["bf16", "neural-bf16", "root-bf16"])
+def test_train_emote_bf16_runs_on_cpu(flags, mead_codes_root, capsys):
+    """``train-emote --bf16`` (the head and, with --neural, the towers at
+    bfloat16 compute): one step a stage, a finite validation loss."""
+    flags = [mead_codes_root if f == "ROOT" else f for f in flags]
+    assert main(["train-emote", "--tiny", "--device", "cpu", "--steps", "1", "--batch-size", "2",
+                 "--frames", "16", "--val-every", "1", *flags]) == 0
+    out = capsys.readouterr().out
+    done = [line for line in out.splitlines() if line.startswith("done:")]
+    assert len(done) == 1 and done[0].startswith("done: 2 steps, best val ")
+    assert np.isfinite(float(done[0].rsplit(" ", 1)[1]))
+    assert ("data root: " in out) == ("--root" in flags)
+
+
 @pytest.mark.parametrize("cmd,flag", [
     # --root, --json-dir and --captions are ported: what is still refused is
     # refused beside them too, before any data is read
-    ("train-emote", ["--root", "/data", "--bf16"]), ("train-emote", ["--neural", "--bf16"]),
-    ("train-emote", ["--bf16"]),
     ("train-prior", ["--json-dir", "experiments/json_dir", "--dp"]),
     # the tower checkpoints are ported: --dp is still refused beside them
     ("train-prior", ["--root", "/d", "--pipeline-checkpoint", "p", "--dp"]),
