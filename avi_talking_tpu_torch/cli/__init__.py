@@ -5,6 +5,9 @@ Subcommands:
              with --save-video)
   instruct   over a caption corpus (experiments/json_dir format), one
              generate per caption
+  portrait   PIRender photoreal portrait video from generate's coeff npz (or a
+             --control sweep of the rotation / expression semantics) and a
+             source portrait (--net-g: a reference net_G)
   serve      the same corpus through the micro-batching InferenceServer
              (batch coalescing, warmup, p50 / p99)
   diversity  the mean pairwise distance of N styles sampled for one
@@ -13,7 +16,9 @@ Subcommands:
              stage-1 FaceFormer training (AdamW) on synthetic batches or a
              MEAD tree (--root, conditioned by the frozen FAN's eye and
              emotion embeddings of the detection crops), with the FLAME
-             landmark terms given --flame-npz at full size
+             landmark terms given --flame-npz at full size, and under --root
+             the PIRender render term (--render-loss) and EmoNet's term on
+             its renders (--emo-loss, --emonet-checkpoint)
   train-faceformer-vert
              vertex-space FaceFormer training (Adam) on synthetic, VOCASET
              (--root) or MEAD (--mead-root) batches, with the disentangle
@@ -32,6 +37,10 @@ Subcommands:
              style encoder), with validation, best / last checkpoints and
              --resume (--pipeline-checkpoint / --emote-checkpoint: the frozen
              towers' weights)
+  train-pirender
+             PIRender training (warp stage, then the editing stage with the
+             style term, --gan: hinge GAN + feature matching) on synthetic
+             pairs or a MEAD tree's video pairs (--root, --cross-id)
   import-prior / import-emote / import-clip
              the reference's published prior .pth, EMOTE .ckpt and CLIP
              vocab (+ HF text weights) -> checkpoints --checkpoint reads
@@ -45,9 +54,10 @@ a card and without ``--device`` the commands raise. Weights are seeded
 random unless ``--checkpoint`` gives them (repeatable: each checkpoint's
 parts overwrite the seeded ones); ``--bf16`` computes in bfloat16 over
 float32 weights, as the JAX package's ``--bf16`` does; ``--flame-npz``
-gives real FLAME assets. The JAX package's other subcommands (portrait,
-bench, reconstruct, translate-captions, the other trainers) are still to
-port.
+gives real FLAME assets. The JAX package's other subcommands (bench,
+reconstruct, translate-captions, preprocess-mead, screen-videos, train-emoca,
+train-flint)
+are still to port.
 """
 
 from __future__ import annotations
@@ -57,14 +67,15 @@ import argparse
 
 def main(argv=None) -> int:
     from . import (importers, reconstruct, run, train, train_emote, train_faceformer_vert,
-                   train_prior)
+                   train_pirender, train_prior)
     from ._common import common_args
 
     p = argparse.ArgumentParser(prog="avi-talking-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
     run.register(sub, common_args)
-    for mod in (train, train_faceformer_vert, train_emote, train_prior, importers, reconstruct):
+    for mod in (train, train_faceformer_vert, train_emote, train_prior, train_pirender, importers,
+                reconstruct):
         mod.register(sub, common_args)
     args = p.parse_args(argv)
     return args.fn(args)

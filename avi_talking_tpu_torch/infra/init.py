@@ -17,7 +17,8 @@ from torch import nn
 M = TypeVar("M", bound=nn.Module)
 
 _NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d)
-_PROJECTIONS = (nn.Linear, nn.Conv1d, nn.ConvTranspose1d, nn.Conv2d, nn.Conv3d)
+_PROJECTIONS = (nn.Linear, nn.Conv1d, nn.ConvTranspose1d, nn.Conv2d, nn.ConvTranspose2d,
+                nn.Conv3d)
 
 
 def _fill(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
@@ -27,8 +28,10 @@ def _fill(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
 def init_module_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter and buffer of ``module`` in place:
 
-    * norms: weight (or gain ``g``) 1, bias 0, running stats 0 / 1;
-    * Linear / Conv weights: LeCun normal (std ``fan_in ** -0.5``), biases 0;
+    * norms (and modules that set ``affine_norm``): weight (or gain ``g``)
+      1, bias 0, running stats 0 / 1;
+    * Linear / Conv weights (and spectral-norm ``weight_orig``): LeCun normal
+      (std ``fan_in ** -0.5``), biases 0;
     * Embedding tables: normal with std 0.02;
     * any other parameter (null embeddings, null KV, learned query): normal
       with std 1.
@@ -36,11 +39,11 @@ def init_module_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     with torch.no_grad():
         for mod in module.modules():
             for name, p in mod.named_parameters(recurse=False):
-                if isinstance(mod, _NORMS) or name == "g":
+                if isinstance(mod, _NORMS) or getattr(mod, "affine_norm", False) or name == "g":
                     p.fill_(1.0 if name in ("weight", "g") else 0.0)
                 elif name.endswith("bias"):
                     p.zero_()
-                elif isinstance(mod, _PROJECTIONS) or name == "in_proj_weight":
+                elif isinstance(mod, _PROJECTIONS) or name in ("in_proj_weight", "weight_orig"):
                     fan_in = math.prod(p.shape[1:])
                     _fill(p, 1.0 / math.sqrt(fan_in), generator)
                 elif isinstance(mod, nn.Embedding):
@@ -49,6 +52,8 @@ def init_module_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                     _fill(p, 1.0, generator)
             for name, b in mod.named_buffers(recurse=False):
                 b.fill_(1 if name == "running_var" else 0)
+            if hasattr(mod, "init_own_"):  # tensors with an initial value of their own
+                mod.init_own_()
     return module
 
 

@@ -410,3 +410,129 @@ def pipeline_state_from_jax(variables: Tree) -> Dict[str, State]:
         "prior": prior_state_from_jax(variables["prior"]["params"]),
         "head": emote_head_state_from_jax(variables["head"]),
     }
+
+
+def _conv2d_any(p: Tree) -> State:
+    """A flax Conv (kh, kw, in, out) or ConvTranspose with
+    ``transpose_kernel`` (kh, kw, out, in) -> torch's (out, in, kh, kw) /
+    (in, out, kh, kw): the same axis order either way."""
+    out = {"weight": _a(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))}
+    if "bias" in p:
+        out["bias"] = _a(p["bias"])
+    return out
+
+
+def _adain(p: Tree) -> State:
+    return {**{f"mlp_shared.0.{k}": v for k, v in _dense(p["mlp_shared"]).items()},
+            **{f"mlp_gamma.{k}": v for k, v in _dense(p["mlp_gamma"]).items()},
+            **{f"mlp_beta.{k}": v for k, v in _dense(p["mlp_beta"]).items()}}
+
+
+def _layernorm2d(p: Tree) -> State:
+    return {"weight": _a(np.asarray(p["weight"]).reshape(-1, 1, 1)),
+            "bias": _a(np.asarray(p["bias"]).reshape(-1, 1, 1))}
+
+
+def pirender_state_from_jax(variables: Tree) -> State:
+    """``models.pirender.FaceGenerator`` variables -> port state, under the
+    reference ``net_G``'s names."""
+    params = variables["params"] if "params" in variables else variables
+    out: State = {}
+    m = params["mapping_net"]
+    _put(out, "mapping_net.first.0.", _conv(m["first"]))
+    for i in range(_count(m, "encoder")):
+        _put(out, f"mapping_net.encoder{i}.1.", _conv(m[f"encoder{i}"]))
+    w = params["warpping_net"]
+    hg, pre = w["hourglass"], "warpping_net.hourglass."
+    _put(out, pre + "encoder.input_layer.", _conv2d_any(hg["input_layer"]))
+    for name, blk in hg.items():
+        if name.startswith("encoder"):
+            sub = f"{pre}encoder.{name}."
+        elif name.startswith("decoder"):
+            sub = f"{pre}decoder.{name}."
+        else:
+            continue
+        for part, p in blk.items():
+            if part.startswith("norm"):
+                _put(out, f"{sub}{part}.", _adain(p))
+            else:
+                _put(out, f"{sub}{part}.", _conv2d_any(p["conv"] if "conv" in p else p))
+    _put(out, "warpping_net.flow_out.0.", _layernorm2d(w["flow_norm"]))
+    _put(out, "warpping_net.flow_out.2.", _conv2d_any(w["flow_out"]))
+    e = params["editing_net"]
+    _put(out, "editing_net.encoder.first.model.0.", _conv2d_any(e["first_conv"]))
+    _put(out, "editing_net.encoder.first.model.1.", _layernorm2d(e["first_norm"]))
+    for name, p in e.items():
+        stem, _, kind = name.partition("_")
+        if stem.startswith("down"):
+            sub = f"editing_net.encoder.{stem}.model."
+        elif stem.startswith(("up", "jump")):
+            sub = f"editing_net.decoder.{stem}.model."
+        elif stem.startswith("res"):
+            sub = f"editing_net.decoder.{stem}.res{kind}."
+            for part, q in p.items():
+                _put(out, f"{sub}{part}.", _adain(q) if part.startswith("norm")
+                     else _conv2d_any(q))
+            continue
+        else:
+            continue
+        _put(out, sub + ("0." if kind == "conv" else "1."),
+             _conv2d_any(p) if kind == "conv" else _layernorm2d(p))
+    _put(out, "editing_net.decoder.final.model.0.", _conv2d_any(e["final_conv"]))
+    return out
+
+
+def _nlayer_state(params: Tree, spectral: Tree) -> State:
+    out: State = {}
+    _put(out, "model0.0.", _conv2d_any(params["conv0"]))
+    n = 1
+    while f"conv{n}" in params:
+        pre = f"model{n}.0.0."
+        conv = _conv2d_any(params[f"conv{n}"])
+        if f"conv{n}" in spectral:
+            out[pre + "weight_orig"] = conv.pop("weight")
+            out[pre + "weight_u"] = _a(spectral[f"conv{n}"]["u"])
+            out[pre + "weight_v"] = _a(spectral[f"conv{n}"]["v"])
+        _put(out, pre, conv)
+        n += 1
+    _put(out, f"model{n}.0.", _conv2d_any(params["conv_out"]))
+    return out
+
+
+def discriminator_state_from_jax(variables: Tree) -> State:
+    """``models.discriminator`` variables -> port state: a
+    ``MultiscaleDiscriminator`` or ``NLayerDiscriminator`` (params and the
+    ``spectral`` u, v), or an ``ImageDiscriminator`` (params and
+    ``batch_stats``), under the reference's names."""
+    params = variables["params"]
+    if "bn1" in params:
+        stats, out, idx, n = variables["batch_stats"], {}, 2, 1
+        _put(out, "model.0.", _conv2d_any(params["conv0"]))
+        while f"bn{n}" in params:
+            _put(out, f"model.{idx}.", _conv2d_any(params[f"conv{n}"]))
+            _put(out, f"model.{idx + 1}.", _batchnorm(params[f"bn{n}"], stats[f"bn{n}"]))
+            idx, n = idx + 3, n + 1
+        _put(out, f"model.{idx}.", _conv2d_any(params["conv_out"]))
+        return out
+    spectral = variables.get("spectral", {})
+    if "discriminator_0" not in params:
+        return _nlayer_state(params, spectral)
+    out: State = {}
+    for i in range(_count(params, "discriminator_")):
+        name = f"discriminator_{i}"
+        _put(out, name + ".", _nlayer_state(params[name], spectral.get(name, {})))
+    return out
+
+
+def vgg19_state_from_jax(params: Tree) -> State:
+    """``train.perceptual.Vgg19Features`` params -> port state, under
+    torchvision's ``features.N`` names."""
+    params = params["params"] if "params" in params else params
+    out: State = {}
+    idx = 0
+    for stage, n_convs in enumerate((2, 2, 4, 4, 4), start=1):
+        for ci in range(1, n_convs + 1):
+            _put(out, f"features.{idx}.", _conv2d_any(params[f"conv{stage}_{ci}"]))
+            idx += 2
+        idx += 1
+    return out

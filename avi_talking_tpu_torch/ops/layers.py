@@ -165,6 +165,18 @@ class ConvTranspose1d(nn.ConvTranspose1d):
         return y if self.bias is None else y + self.bias.to(dt)[:, None]
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _plain(x, self):
+            return super().forward(x)
+        dt = self.compute_dtype
+        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding,
+                               self.output_padding, self.groups, self.dilation)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+
+
 class LayerNorm(nn.LayerNorm):
     compute_dtype = torch.float32
 

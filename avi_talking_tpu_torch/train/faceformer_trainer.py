@@ -6,9 +6,11 @@ channels, plus, with ``flame=``, ldmk_weight * the FLAME landmark terms:
 lipd_weight * (lip distance + mouth-corner loss), and eyed_weight * the eye
 distance where that weight is set, on the 68-point 2D landmarks of the
 de-normalised predicted and ground-truth coefficients (the ground truth's
-without a gradient). The render term (PIRender) and the emotion term
-(EmoNet) are not ported yet, and asking for them raises
-``NotImplementedError`` (ROADMAP Queue 1, item 5).
+without a gradient); with ``render_loss_fn`` (``train.render_loss.
+PIRenderRenderLoss``: the frozen PIRender's upper-face perceptual terms)
+render_weight * its value, and, where it returns ``{"render", "emo"}``
+(EmoNet on the same renders), emo_weight * the emotion term; with
+``emo_loss_fn`` emo_weight * its value.
 
 The gradient runs through wav2vec2's K1 and the decoder's K3 (their
 autograd backward is the plain recompute of JAX's ``_keybias_bwd``); the
@@ -39,18 +41,12 @@ class FaceFormerTrainer:
     ldmk_weight: float = 10.0
     lipd_weight: float = 1.0
     eyed_weight: float = 0.0
+    # (pred_coeff, batch) -> scalar, or {"render": ..., "emo": ...} when the
+    # render pass also feeds the EmoNet term (render_loss.PIRenderRenderLoss)
     render_loss_fn: Optional[Callable] = None
+    render_weight: float = 0.015
     emo_loss_fn: Optional[Callable] = None
-
-    def __post_init__(self):
-        if self.render_loss_fn is not None:
-            raise NotImplementedError(
-                "render_loss_fn is not ported yet: it needs PIRender and "
-                "train/render_loss.py (ROADMAP Queue 1, item 5)")
-        if self.emo_loss_fn is not None:
-            raise NotImplementedError(
-                "emo_loss_fn is not ported yet: it needs EmoNet "
-                "(ROADMAP Queue 1, item 5)")
+    emo_weight: float = 0.15
 
     def _denorm(self, coeff: torch.Tensor) -> torch.Tensor:
         if self.coeff_mean is None:
@@ -90,6 +86,19 @@ class FaceFormerTrainer:
                 l_ldmk = l_ldmk + self.eyed_weight * eyed_loss(lmk_pred, lmk_gt)
             loss = loss + self.ldmk_weight * l_ldmk
             metrics["ldmk"] = l_ldmk
+        if self.render_loss_fn is not None:
+            l_render = self.render_loss_fn(pred, batch)
+            if isinstance(l_render, dict):
+                loss = loss + self.render_weight * l_render["render"]
+                loss = loss + self.emo_weight * l_render["emo"]
+                metrics.update(l_render)
+            else:
+                loss = loss + self.render_weight * l_render
+                metrics["render"] = l_render
+        if self.emo_loss_fn is not None:
+            l_emo = self.emo_loss_fn(pred, batch)
+            loss = loss + self.emo_weight * l_emo
+            metrics["emo"] = l_emo
         metrics["loss"] = loss
         return loss, metrics
 

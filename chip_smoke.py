@@ -11,6 +11,10 @@
                                        # the gradient rows and the training
                                        # phases alone; its result line says
                                        # "phases": "train"
+    python3 chip_smoke.py --phases pirender
+                                       # the build, the host codecs, K1's rows
+                                       # and the portrait, render-loss and
+                                       # train-pirender phases alone
 
 Run it from the root of a checkout: it builds the port's CUDA kernels from
 the checkout's sources into build/, then
@@ -131,14 +135,29 @@ the checkout's sources into build/, then
             featurize card vs CPU (limits in its docstring; the crops are
             unfiltered PNGs, so their decode is a lower bound of a real
             crop's, which the phase also times per row filter);
-24. the kernels summary line (K1 at the generate path's, the EMOTE step's,
+24. portrait: `generate` on the 8 s clip, then `portrait --coeffs` at
+            PIRenderConfig() and 256^2 (--chunk 32, 200 frames): shapes,
+            repeatability, frames/s, peak memory; card vs CPU, chunked vs
+            per-frame, --bf16 vs fp32, --net-g bit-equal to load_state_dict,
+            --control;
+25. train_faceformer_render: `train-faceformer --root --render-loss
+            --emo-loss` at its defaults (B=16, T=25, 224^2 crops): K1 12 / 12
+            and K3 2 / 2 forwards / backwards a step, both terms nonzero with a
+            gradient to the model, step seconds, peak memory; one step card vs
+            CPU at B=2;
+26. train_pirender: `train-pirender` at PIRenderConfig() (256^2, B=4):
+            warp, full and --gan steps, synthetic and --root --cross-id; one
+            step of each stage card vs CPU at B=1; the editing net's first
+            full-stage update against optax's shared step count;
+27. the kernels summary line (K1 at the generate path's, the EMOTE step's,
             the vertex step's and the FaceFormer step's shapes, and its
             bf16 entry at generate --bf16's; K2 at the render path's (under
             the plain and the --flame-npz generate), the neural step's and
             the emotion loss's launches; K3 at the FaceFormer decoder's and
             the vertex decoder's; with the launches of each path that runs
-            them) and the card's name and power limit;
-25. the result line.
+            them; and K1 / K3 under the render-loss step) and the card's name
+            and power limit;
+28. the result line.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without the result line. It imports nothing of JAX.
@@ -148,6 +167,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -2686,7 +2706,6 @@ def phase_train_data(kb, kba):
     import numpy as np
     import torch
 
-    from avi_talking_tpu_torch.cli import main as cli_main
     from avi_talking_tpu_torch.cli import train as ff_cli
     from avi_talking_tpu_torch.cli.train_emote import build_head
     from avi_talking_tpu_torch.cli.train_prior import build_featurizer
@@ -2712,13 +2731,8 @@ def phase_train_data(kb, kba):
     tree_s = time.perf_counter() - t0
 
     def run(argv):
-        buf, err = io.StringIO(), io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
-            rc = cli_main(argv)
-        torch.cuda.synchronize()
-        check(rc == 0, f"{argv[0]} exited {rc}: {err.getvalue()[-2000:]}")
-        return buf.getvalue(), time.perf_counter() - t0
+        out, _, wall = _run_cli(argv)
+        return out, wall
 
     def line(out, prefix):
         found = [ln for ln in out.splitlines() if ln.startswith(prefix)]
@@ -2925,6 +2939,555 @@ def phase_train_data(kb, kba):
           "seconds": time.perf_counter() - t_phase})
     return {"emote_launches": emote_cli_launches, "ff_launches": ff_cli_launches,
             "ff_k1_shape": ff_k1_shape}
+
+
+def _run_cli(argv):
+    """``cli main(argv)`` with its output captured: (stdout, err, wall s);
+    a non-zero exit fails the check."""
+    import io
+
+    import torch
+
+    from avi_talking_tpu_torch.cli import main as cli_main
+
+    buf, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    check(rc == 0, f"{argv[0]} exited {rc}: {err.getvalue()[-2000:]}")
+    return buf.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def _final_metrics(out: str) -> dict:
+    """The ``final: {...}`` line of a training command, as floats."""
+    import ast
+
+    found = [ln for ln in out.splitlines() if ln.startswith("final:")]
+    check(len(found) == 1, f"expected one final: line in {out[-2000:]!r}")
+    return {k: float(v) for k, v in ast.literal_eval(found[0][len("final:"):].strip()).items()}
+
+
+def _mead_data_root():
+    """The train_data phase's 18-clip tree (224^2 crops), written here when
+    that phase has not run."""
+    root = os.path.join(HERE, "build", "chip_smoke", "mead_data")
+    if not os.path.isdir(root):
+        os.makedirs(root)
+        _write_mead_tree(root, len(MEAD_DATA_CLIPS), 100, seed=21, names=MEAD_DATA_CLIPS,
+                         crop_size=224)
+    return root
+
+
+def _portrait_source(size: int = 256):
+    """A smooth synthetic size^2 RGB portrait: an ellipse 'face' with darker
+    'eyes' and 'mouth' on a gradient."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:size, 0:size] / (size - 1.0)
+    face = ((xx - 0.5) / 0.32) ** 2 + ((yy - 0.5) / 0.42) ** 2 < 1
+    img = np.stack([0.3 + 0.4 * xx, 0.25 + 0.3 * yy, 0.5 - 0.2 * xx], axis=-1)
+    img[face] = [0.85, 0.65, 0.55]
+    for cx, cy, rx, ry in ((0.38, 0.4, 0.05, 0.025), (0.62, 0.4, 0.05, 0.025),
+                           (0.5, 0.68, 0.1, 0.03)):
+        img[((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 < 1] = [0.25, 0.12, 0.12]
+    return (img * 255).astype(np.uint8)
+
+
+def phase_portrait(pipe, kb):
+    """The `portrait` path: `generate` on the 8 s clip (K1 12 launches),
+    its coefficients through `cli portrait --coeffs` (PIRenderConfig() at
+    256^2, --chunk 32, 200 frames, seeded random net_G), then on the
+    renderer directly:
+
+    - shapes, finiteness, repeatability (within 1e-4: cuDNN's transposed
+      convolutions are not bit-stable), frames per second over
+      three renders of the 200 frames, peak memory;
+    - card vs CPU on 4 frames (fake and warp), within 1e-3 of the CPU
+      output's largest;
+    - chunked (8 a chunk) against one frame a chunk on 8 frames, within
+      1e-4 of the largest (the convolutions' batch size may pick another
+      cuDNN algorithm);
+    - `--bf16` against fp32 on the same weights: rms(bf16 - fp32) below
+      0.1 of fp32's rms, the two timed in turns;
+    - `--net-g` on a synthetic reference-named net_G (``module.`` prefixed,
+      under ``net_G_ema``): the command's unwrap loads weights bit-equal to
+      `load_state_dict` of the stripped dict, their renders of 16 frames
+      within 1e-4, and the command's frames within one level of that
+      render's where it writes PNG frames;
+    - `--control` (2 steps a leg: 18 legs, 36 frames).
+
+    No kernel runs under PIRender (convolutions, as JAX's); the phase prints
+    its seconds."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.cli.run import load_net_g
+    from avi_talking_tpu_torch.models.pirender import FaceGenerator, PIRenderConfig
+    from avi_talking_tpu_torch.pipeline.portrait import (PortraitRenderer, build_semantics,
+                                                         frames_to_u8)
+    from avi_talking_tpu_torch.viz.pngio import read_png, write_png
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "chip_smoke", "portrait")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    kb.launches = 0
+    gen_out = pipe.generate(synthetic_wav(8.0, seed=1),
+                            "A fairly angry man speaks with brow fairly down", seed=0)
+    k1 = kb.launches
+    check(k1 == 12, f"generate before portrait launched K1 {k1} times, not 12")
+    coeffs = os.path.join(out_dir, "clip_coeffs.npz")
+    np.savez(coeffs, exp=gen_out["exp"], jaw=gen_out["jaw"], style_emb=gen_out["style_emb"])
+    src_u8 = _portrait_source()
+    src_png = os.path.join(out_dir, "source.png")
+    write_png(src_png, src_u8)
+
+    out, err, cli_s = _run_cli(["portrait", "--source", src_png, "--coeffs", coeffs, "--out",
+                                out_dir, "--chunk", "32"])
+    check("portrait: 200 frames" in out and "RANDOM-init" in err, f"portrait printed {out!r}")
+    written = out.strip().rsplit("-> ", 1)[1]
+    if os.path.isdir(written):
+        check(len(os.listdir(written)) == 200, f"{written} holds {len(os.listdir(written))} frames")
+
+    cfg = PIRenderConfig()
+    src = src_u8.astype(np.float32) / 127.5 - 1.0
+    descr = build_semantics(gen_out["exp"], gen_out["jaw"])
+    gen = FaceGenerator.random_init(cfg, seed=0, device="cuda")
+    renderer = PortraitRenderer(gen, chunk=32)
+    torch.cuda.reset_peak_memory_stats()
+    res = renderer.render(src, descr, return_warp=True)
+    check(res["fake"].shape == res["warp"].shape == (200, 256, 256, 3),
+          f"portrait shapes {res['fake'].shape}")
+    check(all(np.isfinite(v).all() for v in res.values()), "portrait: non-finite frames")
+    check(float(np.abs(res["fake"]).max()) <= 1.0, "fake frames outside [-1, 1]")
+    walls = {"float32": [], "bfloat16": []}
+    repeat = 0.0
+    gen16 = FaceGenerator.random_init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    r16 = PortraitRenderer(gen16, chunk=32)
+    b16 = r16.render(src, descr)  # warm-up
+    for _ in range(3):
+        for name, r in (("float32", renderer), ("bfloat16", r16)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = r.render(src, descr)
+            walls[name].append(time.perf_counter() - t0)
+            if name == "float32":
+                repeat = max(repeat, float(np.abs(again["fake"] - res["fake"]).max()))
+    # cuDNN's transposed convolutions (its backward-data algorithms) add
+    # with atomics: a render is not bit-stable (2-2.5e-5 apart on an H100)
+    check(repeat <= 1e-4, f"the same render differs by {repeat} (limit 1e-4)")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rms = lambda a: float(np.sqrt(np.mean(np.square(a, dtype=np.float64))))  # noqa: E731
+    bf16_rel = rms(b16["fake"] - res["fake"]) / rms(res["fake"])
+    check(bf16_rel < 0.1, f"portrait --bf16: rms to fp32 {bf16_rel} of fp32's (limit 0.1)")
+
+    one = PortraitRenderer(gen, chunk=1).render(src, descr[:8])["fake"]
+    eight = PortraitRenderer(gen, chunk=8).render(src, descr[:8])["fake"]
+    chunk_rel = float(np.abs(one - eight).max() / np.abs(eight).max())
+    check(chunk_rel < 1e-4, f"chunked vs per-frame: {chunk_rel} of the largest (limit 1e-4)")
+
+    cpu_gen = FaceGenerator.random_init(cfg, seed=0, device="cpu")
+    t0 = time.perf_counter()
+    cpu4 = PortraitRenderer(cpu_gen, chunk=4).render(src, descr[:4], return_warp=True)
+    cpu_s = time.perf_counter() - t0
+    gpu4 = PortraitRenderer(gen, chunk=4).render(src, descr[:4], return_warp=True)
+    card_cpu = {k: float(np.abs(gpu4[k] - cpu4[k]).max() / np.abs(cpu4[k]).max())
+                for k in ("fake", "warp")}
+    check(all(v < 1e-3 for v in card_cpu.values()),
+          f"portrait card vs CPU: {card_cpu} of the largest (limit 1e-3)")
+    del cpu_gen, gen16, r16
+
+    # --net-g: a synthetic reference-named trainer checkpoint
+    g = torch.Generator().manual_seed(7)
+    ref_state = {k: v + 0.01 * torch.randn(v.shape, generator=g) for k, v in
+                 FaceGenerator.random_init(cfg, seed=7, device="cpu").state_dict().items()}
+    net_g = os.path.join(out_dir, "net_G.pth")
+    torch.save({"net_G_ema": {f"module.{k}": v for k, v in ref_state.items()}, "net_G": {}},
+               net_g)
+    short = os.path.join(out_dir, "short_coeffs.npz")
+    np.savez(short, exp=gen_out["exp"][:16], jaw=gen_out["jaw"][:16])
+    via_cli = FaceGenerator(cfg).cuda().eval()
+    via_cli.load_state_dict(load_net_g(net_g, cfg))
+    direct = FaceGenerator(cfg).cuda().eval()
+    direct.load_state_dict(ref_state)
+    check(all(torch.equal(v, direct.state_dict()[k]) for k, v in via_cli.state_dict().items()),
+          "--net-g's unwrap loaded other weights than load_state_dict")
+    descr16 = build_semantics(gen_out["exp"][:16], gen_out["jaw"][:16])
+    a = PortraitRenderer(via_cli, chunk=16).render(src, descr16)["fake"]
+    b = PortraitRenderer(direct, chunk=16).render(src, descr16)["fake"]
+    net_g_diff = float(np.abs(a - b).max())
+    check(net_g_diff <= 1e-4, f"--net-g's render differs from load_state_dict's by {net_g_diff}")
+    net_dir = os.path.join(out_dir, "net_g")
+    out, err, net_s = _run_cli(["portrait", "--source", src_png, "--coeffs", short, "--net-g",
+                                net_g, "--out", net_dir, "--chunk", "16"])
+    check("RANDOM-init" not in err and "portrait: 16 frames" in out, f"--net-g printed {out!r}")
+    written = out.strip().rsplit("-> ", 1)[1]
+    cli_u8_diff = None
+    if os.path.isdir(written):
+        frames = sorted(os.listdir(written))
+        check(len(frames) == 16, f"--net-g wrote {len(frames)} frames")
+        cli_u8_diff = max(int(np.abs(read_png(os.path.join(written, f)).astype(int)
+                                     - u.astype(int)).max())
+                          for f, u in zip(frames, frames_to_u8(b)))
+        check(cli_u8_diff <= 1, f"--net-g's frames differ from the render by {cli_u8_diff}")
+    del via_cli, direct
+
+    out, _, ctl_s = _run_cli(["portrait", "--source", src_png, "--control", "--control-steps",
+                              "2", "--out", os.path.join(out_dir, "control")])
+    check("control sweep: 18 legs, 36 frames" in out and "portrait: 36 frames" in out,
+          f"--control printed {out!r}")
+    del gen, renderer
+    torch.cuda.empty_cache()
+    f32 = statistics.median(walls["float32"])
+    emit({"phase": "portrait", "config": "PIRenderConfig() (59-d, 256^2), seeded random net_G",
+          "generate_k1_launches": k1, "cli": "portrait --coeffs <generate npz> --chunk 32",
+          "cli_wall_s": cli_s, "frames": 200, "chunk": 32,
+          "render_s_all": walls["float32"], "render_s_median": f32,
+          "frames_per_s": 200 / f32,
+          "bf16_render_s_all": walls["bfloat16"],
+          "bf16_frames_per_s": 200 / statistics.median(walls["bfloat16"]),
+          "bf16_rms_rel_to_fp32": bf16_rel, "bf16_limit": 0.1,
+          "peak_allocated_gib": peak_gib, "repeat_max_abs_diff": repeat, "repeat_limit": 1e-4,
+          "card_vs_cpu_4_frames": {"rel_to_largest": card_cpu, "limit": 1e-3,
+                                   "cpu_s": cpu_s},
+          "chunk8_vs_chunk1_rel": chunk_rel, "chunk_limit": 1e-4,
+          "net_g": {"weights_bit_equal_to_load_state_dict": True,
+                    "render_max_abs_diff": net_g_diff, "cli_frames_max_u8_diff": cli_u8_diff,
+                    "cli_wall_s": net_s},
+          "control": {"frames": 36, "cli_wall_s": ctl_s},
+          "seconds": time.perf_counter() - t_phase})
+    return {"k1_launches": k1, "frames_per_s": 200 / f32}
+
+
+def _counting(counts: dict, key: str):
+    """A wrapper that counts its function's calls in ``counts[key]``."""
+    def wrap(orig):
+        def counted(*args, **kwargs):
+            counts[key] = counts.get(key, 0) + 1
+            return orig(*args, **kwargs)
+        return counted
+    return wrap
+
+
+def phase_train_faceformer_render(kb, kba):
+    """`train-faceformer --root --render-loss --emo-loss` at its defaults
+    (FaceFormerConfig(), B=16, T=25; FAN conditioning; two frames a step
+    through PIRenderConfig() at the crops' 224^2, VGG19 at three scales
+    and EmoNet, all frozen at seeded random init) on the train_data
+    phase's tree, 4 steps: K1 12 forwards and 12 backwards, K3 2 and 2, a
+    step; the render and emotion terms nonzero; step seconds (the
+    command's own, probed) and peak memory. Then, cut to B=2 (T=25) for
+    the CPU side, on one conditioned batch (conditioned on the card, as
+    train_data's check): the render and emotion terms' gradient to the
+    model nonzero, and one step card vs CPU by `one_step_card_vs_cpu`
+    (1e-4, the 2 lr rule) with the same frames."""
+    import types
+
+    import torch
+
+    from avi_talking_tpu_torch.cli import train as ff_cli
+    from avi_talking_tpu_torch.models.faceformer import FaceFormerConfig
+    from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer
+    from avi_talking_tpu_torch.train.optim import adamw
+
+    t_phase = time.perf_counter()
+    root = _mead_data_root()
+    steps = 4
+    record = {"step_s": [], "launches": [], "losses": []}
+    backward = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _patched(FaceFormerTrainer, "train_step", _step_probe(record, [kb, kba], {})), \
+            _patched(kb, "attention_backward", _counting(backward, "keybias_attention")), \
+            _patched(kba, "attention_backward", _counting(backward, "fused_bias_attention")):
+        kb.launches = kba.launches = 0
+        out, err, cli_s = _run_cli(["train-faceformer", "--root", root, "--render-loss",
+                                    "--emo-loss", "--steps", str(steps)])
+        launches = {"keybias_attention": kb.launches, "fused_bias_attention": kba.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(record["launches"] == [[12, 2]] * steps,
+          f"the render-loss steps launched {record['launches']}, not K1 12 and K3 2 each")
+    check(launches == {"keybias_attention": 12 * steps, "fused_bias_attention": 2 * steps},
+          f"train-faceformer --render-loss --emo-loss launched {launches}")
+    check(backward == {"keybias_attention": 12 * steps, "fused_bias_attention": 2 * steps},
+          f"the steps ran {backward} attention backwards, not K1 12 and K3 2 each")
+    final = _final_metrics(out)
+    check(set(final) == {"coeff", "render", "emo", "loss"} and final["render"] > 0
+          and final["emo"] > 0 and math.isfinite(final["loss"]), f"final {final}")
+    check("EmoNet is RANDOM-init" in err and "RANDOM-init PIRender" in err, err[-2000:])
+
+    cfg = FaceFormerConfig()
+    small = types.SimpleNamespace(root=root, seq_length=25, batch_size=2, seed=3, tiny=False,
+                                  fan_checkpoint=None, render_loss=True, emo_loss=True,
+                                  emonet_checkpoint=None)
+    cuda = torch.device("cuda")
+    with contextlib.redirect_stderr(io.StringIO()):
+        builder = ff_cli.mead_builder(small, cfg)
+        source, cond = ff_cli.mead_source(small, cfg, cuda, builder)
+        batch = {k: v.cpu() for k, v in
+                 ff_cli.conditioned(next(source), cfg, cond, cuda, render=True).items()}
+    frames = [3, 17]
+    # the two terms' gradient to the model
+    with contextlib.redirect_stderr(io.StringIO()):
+        render = ff_cli.render_term(small, cfg, builder, cuda)
+    render.frame_idx = frames
+    model = _faceformer_model(cfg, seed=2, device=cuda)
+    terms = render(model(batch["audio"].to(cuda), batch["coeff"].to(cuda),
+                         batch["eye_embed"].to(cuda), batch["emo_embed"].to(cuda),
+                         batch["ref_coeff"].to(cuda)),
+                   {k: v.to(cuda) for k, v in batch.items()})
+    grads = torch.autograd.grad(0.015 * terms["render"] + 0.15 * terms["emo"],
+                                [p for p in model.parameters()], allow_unused=True)
+    term_grad = max(float(g.abs().max()) for g in grads if g is not None)
+    check(term_grad > 0, "the render and emotion terms give the model no gradient")
+    del model, render, terms, grads
+    pair, cpu_s = {}, None
+    for dev in ("cuda", "cpu"):
+        with contextlib.redirect_stderr(io.StringIO()):
+            render = ff_cli.render_term(small, cfg, ff_cli.mead_builder(small, cfg),
+                                        torch.device(dev))
+        render.frame_idx = frames
+        m = _faceformer_model(cfg, seed=2, device=dev)
+        tr = FaceFormerTrainer(model=m, optimizer=adamw(m.parameters(), 1e-4),
+                               render_loss_fn=render)
+        t0 = time.perf_counter()
+        metrics = tr.train_step({k: v.to(dev) for k, v in batch.items()})
+        if dev == "cpu":
+            cpu_s = time.perf_counter() - t0
+        pair[dev] = (float(metrics["loss"]), dict(m.named_parameters()))
+    one_step = one_step_card_vs_cpu(pair, lr=1e-4, loss_tol=1e-4 * max(1.0, abs(pair["cpu"][0])))
+    del pair, render, tr, m
+    torch.cuda.empty_cache()
+    emit({"phase": "train_faceformer_render",
+          "cli": f"train-faceformer --root <tree> --render-loss --emo-loss --steps {steps}",
+          "batch": 16, "seq_length": 25, "crop": 224, "cli_wall_s": cli_s, "final": final,
+          "launches": launches, "launches_per_step": record["launches"],
+          "attention_backwards": backward, "losses": record["losses"],
+          "step_s_all": record["step_s"],
+          "step_s_median_after_first": statistics.median(record["step_s"][1:]),
+          "peak_allocated_gib": peak_gib, "terms_grad_max_abs": term_grad,
+          "gpu_vs_cpu_one_step_B2_T25": {**one_step, "frames": frames, "cpu_step_s": cpu_s,
+                                         "cut": "B=2 (the command's B=16) for the CPU side"},
+          "seconds": time.perf_counter() - t_phase})
+    return {"launches": launches}
+
+
+def _warp_step_card_vs_cpu(pair, lr: float) -> dict:
+    """One PIRender optimizer step on the card against the same step on the
+    CPU (``step_diffs``). Its gradient is ill-conditioned: the L1 terms'
+    signs, VGG's relu masks and the bilinear warp's pixel edges flip under
+    rounding, so on the CPU alone the float32 gradient of a full-width warp
+    step lies 2.8e-3 (rms over the weights) from the float64 one, 6.4e-3 of
+    the worst tensor's largest, and of a full step 6.9e-4 and 5.7e-2
+    (``scripts/torch_pirender_grad_sensitivity.py``). So the loss is held
+    to 1e-4 of itself, the gradient by its rms over all the weights within
+    1e-2 of the CPU's, and every weight to 2 lr (Adam's first step moves
+    each by lr times the sign of its gradient)."""
+    d = step_diffs(pair)
+    (_, t_g), (_, t_c) = pair["cuda"], pair["cpu"]
+    num = den = 0.0
+    for k, t in t_c.items():
+        if t.grad is not None:
+            num += float(((t_g[k].grad.cpu() - t.grad) ** 2).sum())
+            den += float((t.grad ** 2).sum())
+    rms_rel = math.sqrt(num / den)
+    weights = max(d["param_max_abs_diff_where_grad_ge_floor"],
+                  d["param_max_abs_diff_where_grad_lt_floor"])
+    loss_tol = 1e-4 * max(1.0, abs(d["loss"]))
+    check(d["loss_abs_diff"] < loss_tol and rms_rel < 1e-2 and weights <= 2 * lr + 1e-6,
+          f"one PIRender step, card vs CPU: loss |d| {d['loss_abs_diff']} (tol {loss_tol}), "
+          f"gradient rms {rms_rel} of the CPU's (limit 1e-2), weights max |d| {weights} "
+          f"(limit 2 lr); worst tensor {d['grad_worst_tensor']} at {d['grad_max_rel_diff']}")
+    return {**d, "grad_rms_rel": rms_rel, "grad_rms_limit": 1e-2, "weights_max_abs_diff": weights,
+            "weights_limit": 2 * lr, "loss_tol": loss_tol}
+
+
+def _pirender_trainer(device, seed=0, gan=False):
+    """The trainer `train-pirender` builds at full width (PIRenderConfig(),
+    VGG19 seed 1 with its five taps at three scales, with ``gan`` the
+    two-scale discriminator seed 2), on ``device``."""
+    import torch
+
+    from avi_talking_tpu_torch.models.discriminator import MultiscaleDiscriminator
+    from avi_talking_tpu_torch.models.pirender import FaceGenerator, PIRenderConfig
+    from avi_talking_tpu_torch.train.perceptual import PerceptualLoss, Vgg19Features
+    from avi_talking_tpu_torch.train.pirender_trainer import (PIRenderTrainer,
+                                                              make_pirender_optimizer)
+
+    gen = FaceGenerator.random_init(PIRenderConfig(), seed=seed, device=device).train()
+    vgg = Vgg19Features.random_init(seed=1, device=device)
+    disc = opt_d = None
+    if gan:
+        disc = MultiscaleDiscriminator.random_init(seed=2, device=device)
+        opt_d = torch.optim.Adam(disc.parameters(), lr=1e-4, betas=(0.5, 0.999), eps=1e-8)
+    opt, sched = make_pirender_optimizer(gen.parameters(), 1e-4)
+    return PIRenderTrainer(generator=gen, optimizer=opt, scheduler=sched,
+                           perceptual_warp=PerceptualLoss(vgg),
+                           perceptual_final=PerceptualLoss(vgg, use_style_loss=True),
+                           discriminator=disc, optimizer_d=opt_d)
+
+
+def phase_train_pirender():
+    """`train-pirender` at full width (PIRenderConfig(), 256^2, B=4, VGG19
+    at five taps and three scales): synthetic pairs, 2 warp then 2 full
+    steps with a checkpoint read back; synthetic `--gan`, 1 warp then 2
+    GAN steps; `--root` on the train_data tree (224^2 crops resized to
+    256^2) `--cross-id --gan`, 1 warp then 2 steps. Each stage's step
+    seconds (the command's own, probed) and peak memory. Then, at B=1 for
+    the CPU side, one step of each stage card vs CPU from the same seeded
+    weights and batch (`_warp_step_card_vs_cpu`: the loss, the gradient's
+    rms, every weight within 2 lr; the D step's too, taken from the initial
+    generator on both sides: after G's step the two sides' fakes differ by
+    G's 2 lr), and the editing net's
+    first full-stage update on
+    the card after 5 warp steps against Adam replayed on its gradient with
+    optax's shared count (6), within 1e-3 of the update's largest."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.infra.checkpoint import restore_checkpoint
+    from avi_talking_tpu_torch.models.discriminator import MultiscaleDiscriminator
+    from avi_talking_tpu_torch.models.pirender import FaceGenerator, PIRenderConfig
+    from avi_talking_tpu_torch.train.pirender_trainer import PIRenderTrainer
+
+    t_phase = time.perf_counter()
+    root = _mead_data_root()
+    out_dir = os.path.join(HERE, "build", "chip_smoke", "pirender")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    runs = {}
+    peak = 0.0
+    for name, argv in (
+            ("synthetic", ["--steps", "4", "--warp-steps", "2", "--ckpt-dir",
+                           os.path.join(out_dir, "ck")]),
+            ("synthetic_gan", ["--steps", "3", "--warp-steps", "1", "--gan"]),
+            ("root_cross_id_gan", ["--root", root, "--steps", "3", "--warp-steps", "1",
+                                   "--gan", "--cross-id"])):
+        rec = {"step_s": [], "stage": [], "d_step_s": []}
+
+        def probe(orig, rec=rec):
+            def train_step(self, batch, warp_only, use_gan=False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = orig(self, batch, warp_only, use_gan)
+                torch.cuda.synchronize()
+                rec["step_s"].append(time.perf_counter() - t0)
+                rec["stage"].append("warp" if warp_only else ("gan" if use_gan else "full"))
+                return m
+            return train_step
+
+        def d_probe(orig, rec=rec):
+            def d_train_step(self, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = orig(self, batch)
+                torch.cuda.synchronize()
+                rec["d_step_s"].append(time.perf_counter() - t0)
+                return m
+            return d_train_step
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _patched(PIRenderTrainer, "train_step", probe), \
+                _patched(PIRenderTrainer, "d_train_step", d_probe):
+            out, err, wall = _run_cli(["train-pirender", "--log-every", "1", *argv])
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+        final = _final_metrics(out)
+        want = {"perceptual_warp", "perceptual_final", "loss"}
+        if "--gan" in argv:
+            want |= {"gan_g", "feature_matching", "gan_d"}
+        check(set(final) == want and all(math.isfinite(v) for v in final.values()),
+              f"train-pirender {name}: final {final}")
+        runs[name] = {"cli_wall_s": wall, "final": final, "stages": rec["stage"],
+                      "step_s_all": rec["step_s"], "d_step_s_all": rec["d_step_s"]}
+        if "--root" in argv:
+            check("video-pair data: 18 clips / 6 identities" in out, f"printed {out[:500]!r}")
+    state = restore_checkpoint(os.path.join(out_dir, "ck"))["net_G"]
+    FaceGenerator(PIRenderConfig()).load_state_dict(state)
+    moved = max(float((state[k].cpu() - v).abs().max()) for k, v in FaceGenerator.random_init(
+        PIRenderConfig(), seed=0, device="cpu").state_dict().items())
+    check(0 < moved, "train-pirender's checkpoint did not move the generator")
+
+    # one step of each stage, card vs CPU, from the same weights and batch (B=1)
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(a.astype(np.float32)) for k, a in (
+        ("input_image", rng.uniform(-1, 1, (1, 3, 256, 256))),
+        ("target_image", rng.uniform(-1, 1, (1, 3, 256, 256))),
+        ("coeff_window", rng.standard_normal((1, 59, 27))))}
+    steps = {}
+    cpu_s = {}
+    for stage, warp_only, gan in (("warp", True, False), ("full", False, False),
+                                  ("gan", False, True)):
+        pair, d_pair = {}, {}
+        for dev in ("cuda", "cpu"):
+            tr = _pirender_trainer(torch.device(dev), gan=gan)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            t0 = time.perf_counter()
+            m = tr.train_step(b, warp_only, use_gan=gan)
+            if dev == "cpu":
+                cpu_s[stage] = time.perf_counter() - t0
+            if gan:  # D's step from the same generator weights on both sides
+                fresh = _pirender_trainer(torch.device(dev), gan=True)
+                d_loss = float(fresh.d_train_step(b))
+                d_pair[dev] = (d_loss, dict(fresh.discriminator.named_parameters()))
+            named = dict(tr.generator.named_parameters())
+            if warp_only:  # the editing net's gradient is zero here: not compared
+                named = {k: v for k, v in named.items() if not k.startswith("editing_net.")}
+            pair[dev] = (float(m["loss"]), named)
+        steps[stage] = _warp_step_card_vs_cpu(pair, lr=1e-4)
+        if gan:
+            steps["gan_d"] = _warp_step_card_vs_cpu(d_pair, lr=1e-4)
+        del pair, d_pair, tr
+    torch.cuda.empty_cache()
+
+    # the editing net's first full-stage update against optax's count rule
+    tr = _pirender_trainer(torch.device("cuda"))
+    b = {k: v.cuda() for k, v in batch.items()}
+    for _ in range(5):
+        tr.train_step(b, True)
+    edit = {k: p for k, p in tr.generator.named_parameters() if k.startswith("editing_net.")}
+    before = {k: p.detach().clone() for k, p in edit.items()}
+    check(all(float(p.grad.abs().max()) == 0 for p in edit.values()),
+          "the warp steps gave the editing net a gradient")
+    tr.train_step(b, False)
+    # after 5 zero-gradient steps the shared count is 6: optax moves a weight
+    # 1.24 lr (m_hat 0.508 g over sqrt(v_hat) 0.409 |g|), a per-parameter
+    # count restarted at 1 by lr
+    t, lr, b1, b2, eps = 6, 1e-4, 0.5, 0.999, 1e-8
+    worst, largest, restart = 0.0, 0.0, 0.0
+    for k, p in edit.items():
+        g = p.grad.double()
+        m_hat = (1 - b1) * g / (1 - b1 ** t)
+        v_hat = (1 - b2) * g * g / (1 - b2 ** t)
+        want = -lr * m_hat / (v_hat.sqrt() + eps)
+        got = (p.detach() - before[k]).double()
+        worst = max(worst, float((got - want).abs().max()))
+        largest = max(largest, float(want.abs().max()))
+        restart = max(restart, float((-lr * g / (g.abs() + eps)).abs().max()))
+    check(worst <= 1e-3 * largest, f"the editing net's first update is {worst} from optax's "
+          f"count rule (largest {largest})")
+    del tr
+    torch.cuda.empty_cache()
+    stage_s = {}
+    for run in runs.values():
+        for st, s in zip(run["stages"], run["step_s_all"]):
+            stage_s.setdefault(st, []).append(s)
+    emit({"phase": "train_pirender", "config": "PIRenderConfig(), 256^2, B=4, VGG19 5 taps x "
+          "3 scales, discriminator 2 scales ndf 64", "runs": runs,
+          "step_s_by_stage_all": stage_s, "peak_allocated_gib": peak,
+          "checkpoint_moved_max_abs": moved,
+          "gpu_vs_cpu_one_step_B1": {**steps, "cpu_step_s": cpu_s,
+                                     "cut": "B=1 (the command's B=4) for the CPU side"},
+          "editing_first_update": {"count": t, "max_abs_diff_to_optax_rule": worst,
+                                   "largest_update": largest,
+                                   "per_parameter_restart_would_be": restart},
+          "seconds": time.perf_counter() - t_phase})
+    return {"step_s_by_stage": {k: statistics.median(v) for k, v in stage_s.items()}}
 
 
 def phase_generate(pipe, kb):
@@ -3821,10 +4384,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Chip check of the PyTorch / CUDA port.")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one generate, one render and each training step")
-    ap.add_argument("--phases", choices=("all", "train"), default="all",
+    ap.add_argument("--phases", choices=("all", "train", "pirender"), default="all",
                     help="train: only the build, K1's rows, the K1 / K3 gradient rows and the "
-                         "EMOTE (geometric and neural), vertex FaceFormer, prior and "
-                         "data-backed training phases")
+                         "EMOTE (geometric and neural), vertex FaceFormer, prior, data-backed "
+                         "and PIRender training phases; pirender: only the build and the "
+                         "portrait, render-loss and train-pirender phases")
     args = ap.parse_args()
     try:
         import torch
@@ -3872,10 +4436,22 @@ def main() -> int:
         check_vert_row(rows, vert)
         timed(phase_train_prior)
         check_faceformer_row(rows, timed(phase_train_data, kb, kba))
+        timed(phase_train_faceformer_render, kb, kba)
+        timed(phase_train_pirender)
         if args.profile:
             profile_emote_and_prior_steps()
         emit({"phases": "train", "phase_s": phase_s, "total_s": time.perf_counter() - t_start})
         return finish(name, phases="train")
+    if args.phases == "pirender":
+        assets = synthetic_assets(num_vertices=5023, n_shape=300, n_exp=50, num_faces=9976)
+        pipe = AviTalkingPipeline.random_init(PipelineConfig(), assets, seed=0)
+        timed(phase_portrait, pipe, kb)
+        del pipe
+        timed(phase_train_faceformer_render, kb, kba)
+        timed(phase_train_pirender)
+        emit({"phases": "pirender", "phase_s": phase_s,
+              "total_s": time.perf_counter() - t_start})
+        return finish(name, phases="pirender")
     k3_rows = timed(phase_bias_kernels, peaks)
     grad_rows = timed(phase_attention_grads, peaks)
 
@@ -3906,6 +4482,9 @@ def main() -> int:
     vert = timed(phase_train_faceformer_vert, kb, kba, kras, peaks, profile=args.profile)
     timed(phase_train_prior)
     data = timed(phase_train_data, kb, kba)
+    portrait = timed(phase_portrait, pipe, kb)
+    render = timed(phase_train_faceformer_render, kb, kba)
+    timed(phase_train_pirender)
     if args.profile:
         timed(phase_profile, pipe, gen_out["vertices"], faces)
 
@@ -4198,6 +4777,60 @@ def main() -> int:
         "path": "train-faceformer --root (MEAD windows and crops read from disk, FAN "
                 "conditioning)",
         "launches": data["ff_launches"]["fused_bias_attention"],  # the command's run
+        "max_abs_err": ff_k3["max_abs_err"],
+        "ms": ff_k3["ms"],
+        "device_ms": ff_k3["device_ms"],
+        "library_device_ms": ff_k3["library_device_ms"],
+        "plain_ms": ff_k3["plain_ms"],
+        "bound_ms": ff_k3["bound_ms"],
+        "bound_by": ff_k3["bound_by"],
+        "library_ms": ff_k3["library_ms"],
+        "shape": ff_k3["shape"],
+        "bias_shape": ff_k3["bias_shape"],
+        "peaks": peaks_line,
+    }, {
+        "name": "keybias_attention",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/bias_attention.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:114",
+        "path": "generate -> portrait (the coefficients' generate; PIRender launches none)",
+        "launches": portrait["k1_launches"],  # the phase's generate
+        "max_abs_err": main_row["max_abs_err"],
+        "ms": main_row["ms"],
+        "device_ms": main_row["device_ms"],
+        "library_device_ms": main_row["library_device_ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "shape": main_row["shape"],
+        "peaks": peaks_line,
+    }, {
+        "name": "keybias_attention",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/bias_attention.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:114",
+        "path": "train-faceformer --root --render-loss --emo-loss (12 forwards and 12 "
+                "recompute backwards a step)",
+        "launches": render["launches"]["keybias_attention"],  # the command's run
+        "max_abs_err": ff_k1["max_abs_err"],
+        "ms": ff_k1["ms"],
+        "device_ms": ff_k1["device_ms"],
+        "library_device_ms": ff_k1["library_device_ms"],
+        "plain_ms": ff_k1["plain_ms"],
+        "bound_ms": ff_k1["bound_ms"],
+        "bound_by": ff_k1["bound_by"],
+        "library_ms": ff_k1["library_ms"],
+        "shape": ff_k1["shape"],
+        "peaks": peaks_line,
+    }, {
+        "name": "fused_bias_attention",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/bias_attention.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:185",
+        "path": "train-faceformer --root --render-loss --emo-loss (2 forwards and 2 recompute "
+                "backwards a step)",
+        "launches": render["launches"]["fused_bias_attention"],  # the command's run
         "max_abs_err": ff_k3["max_abs_err"],
         "ms": ff_k3["ms"],
         "device_ms": ff_k3["device_ms"],

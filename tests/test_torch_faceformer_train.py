@@ -66,11 +66,19 @@ def test_three_adamw_steps_match_optax():
 
 
 def test_trainer_refuses_terms_not_ported():
+    """The render and emotion terms, once refused, are taken: their values
+    join the metrics at weights 0.015 / 0.15 (their parity with JAX is held
+    in ``test_torch_render_loss.py``)."""
     tm = tff.FaceFormerCoeff.random_init(tff.FaceFormerConfig.tiny(), device="cpu")
-    opt = adamw(tm.parameters(), 1e-4)
-    for kw in ({"render_loss_fn": lambda p, b: 0.0}, {"emo_loss_fn": lambda p, b: 0.0}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FaceFormerTrainer(model=tm, optimizer=opt, **kw)
+    batch = next(synthetic_batches(tff.FaceFormerConfig.tiny(), 2, 8, seed=0, device="cpu"))
+    for kw, key in (({"render_loss_fn": lambda p, b: p.abs().mean()}, "render"),
+                    ({"emo_loss_fn": lambda p, b: p.abs().mean()}, "emo")):
+        trainer = FaceFormerTrainer(model=tm, optimizer=adamw(tm.parameters(), 1e-4), **kw)
+        loss, metrics = trainer.loss_fn(batch)
+        weight = 0.015 if key == "render" else 0.15
+        assert set(metrics) == {"coeff", key, "loss"}
+        np.testing.assert_allclose(float(loss), float(metrics["coeff"] + weight * metrics[key]),
+                                   rtol=1e-6)
 
 
 def test_trainer_takes_the_landmark_terms():
@@ -99,15 +107,37 @@ def test_cli_train_faceformer_runs_on_cpu(capsys):
     assert np.isfinite(float(final[0].split("'loss': ")[1].rstrip("}")))
 
 
-# --root and --fan-checkpoint are ported: the flags still refused are refused
-# beside them too, before any data or weights are read
+# --root and --fan-checkpoint are ported, and since the render slice the render
+# flags: --root --render-loss runs (on a tree this test writes in place of the
+# "/data" placeholder), and without --root --render-loss, --emo-loss and
+# --emonet-checkpoint are ignored with a note, as JAX ignores them. The flags
+# still refused are refused beside the others too, before any data or weights
+# are read.
 @pytest.mark.parametrize("flag", [["--root", "/data", "--render-loss"], ["--render-loss"],
                                   ["--emo-loss"], ["--fan-checkpoint", "f.pt", "--bf16"],
                                   ["--emonet-checkpoint", "e.pt"], ["--bf16"],
                                   ["--checkpoint", "ck"]])
-def test_cli_train_faceformer_refuses_what_is_not_ported(flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        cli_main(["train-faceformer", "--tiny", "--device", "cpu", "--steps", "1", *flag])
+def test_cli_train_faceformer_refuses_what_is_not_ported(flag, tmp_path, capsys):
+    args = ["train-faceformer", "--tiny", "--device", "cpu", "--steps", "1"]
+    if "--bf16" in flag or "--checkpoint" in flag:
+        with pytest.raises(SystemExit, match="not ported"):
+            cli_main([*args, *flag])
+        return
+    if "--root" in flag:
+        from test_torch_train_data import CLIPS, _write_clip
+
+        rng = np.random.default_rng(0)
+        for name in CLIPS[:2]:
+            _write_clip(tmp_path, name, rng, "EMOCA_v2_lr_mse_20/processed_x/detections")
+        flag = ["--root", str(tmp_path), *flag[2:]]
+    assert cli_main([*args, "--batch-size", "1", "--seq-length", "4", *flag]) == 0
+    out, err = capsys.readouterr()
+    final = [line for line in out.splitlines() if line.startswith("final:")]
+    assert len(final) == 1
+    if "--root" in flag:
+        assert "'render'" in final[0] and "RANDOM-init PIRender" in err
+    else:
+        assert "'render'" not in final[0] and "ignored" in err
 
 
 def test_cli_train_faceformer_ckpt_dir_saves_the_weights(tmp_path, capsys):

@@ -204,8 +204,9 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # viz, cli (the importers too), data, the trainers, the host codecs' build and binding
-    assert int(out.stdout.strip()) >= 88
+    # viz, cli (the importers too), data, the trainers, the host codecs' build and binding,
+    # PIRender with its losses, discriminators, trainer and data
+    assert int(out.stdout.strip()) >= 98
 
 
 @pytest.mark.parametrize("start,end", [(10, 10), (0, 7), (6, 0)])
