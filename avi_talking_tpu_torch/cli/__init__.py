@@ -41,6 +41,13 @@ Subcommands:
              PIRender training (warp stage, then the editing stage with the
              style term, --gan: hinge GAN + feature matching) on synthetic
              pairs or a MEAD tree's video pairs (--root, --cross-id)
+  train-emoca
+             EMOCA / DECA self-supervised training over an image folder
+             (--root) or synthetic batches: the coarse stage (--exp-only,
+             --emo-loss) or the detail stage (--detail)
+  reconstruct
+             image(s) -> EMOCA codes -> FLAME -> shaded renders (--textured,
+             --detail: the UV-textured and detail-normal renders)
   import-prior / import-emote / import-clip
              the reference's published prior .pth, EMOTE .ckpt and CLIP
              vocab (+ HF text weights) -> checkpoints --checkpoint reads
@@ -55,9 +62,8 @@ random unless ``--checkpoint`` gives them (repeatable: each checkpoint's
 parts overwrite the seeded ones); ``--bf16`` computes in bfloat16 over
 float32 weights, as the JAX package's ``--bf16`` does; ``--flame-npz``
 gives real FLAME assets. The JAX package's other subcommands (bench,
-reconstruct, translate-captions, preprocess-mead, screen-videos, train-emoca,
-train-flint)
-are still to port.
+translate-captions, preprocess-mead, screen-videos, train-flint) are still
+to port.
 """
 
 from __future__ import annotations
@@ -66,16 +72,16 @@ import argparse
 
 
 def main(argv=None) -> int:
-    from . import (importers, reconstruct, run, train, train_emote, train_faceformer_vert,
-                   train_pirender, train_prior)
+    from . import (importers, reconstruct, run, train, train_emoca, train_emote,
+                   train_faceformer_vert, train_pirender, train_prior)
     from ._common import common_args
 
     p = argparse.ArgumentParser(prog="avi-talking-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
     run.register(sub, common_args)
-    for mod in (train, train_faceformer_vert, train_emote, train_prior, train_pirender, importers,
-                reconstruct):
+    for mod in (train, train_faceformer_vert, train_emote, train_prior, train_pirender,
+                train_emoca, importers, reconstruct):
         mod.register(sub, common_args)
     args = p.parse_args(argv)
     return args.fn(args)

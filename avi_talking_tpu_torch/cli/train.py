@@ -50,19 +50,15 @@ def synthetic_batches(cfg, batch_size: int, seq_length: int, seed: int, device):
 
 def frozen_fan(args, image_size: int, device):
     """The conditioning FAN at the crops' size: ``--fan-checkpoint`` (a
-    reference-named state dict, loaded strictly, tensors only) or seeded
-    random weights (seed 1: a random FAN's single-channel ``conv6`` is dead
+    reference-named state dict, read as JAX reads it: ``infra.checkpoint.
+    load_frozen_tower``) or seeded random weights (seed 1: a random FAN's single-channel ``conv6`` is dead
     for seeds 0, 2 and 5, and its embeddings would not vary)."""
-    import torch
-
+    from ..infra.checkpoint import load_frozen_tower
     from ..models.fan_encoder import FanEncoder
 
     fan = FanEncoder.random_init(image_size, seed=1, device=device)
     if args.fan_checkpoint:
-        sd = torch.load(args.fan_checkpoint, map_location="cpu", weights_only=True)
-        if isinstance(sd, dict) and "state_dict" in sd:
-            sd = sd["state_dict"]
-        fan.load_state_dict(sd, strict=True)
+        load_frozen_tower(fan, args.fan_checkpoint)
     else:
         print("train-faceformer: no --fan-checkpoint; the frozen FanEncoder is RANDOM-init "
               "(smoke semantics)", file=sys.stderr)
@@ -136,8 +132,8 @@ def render_term(args, cfg, builder, device):
     the JAX command builds it: two frames a step, the dataset's statistics,
     a seeded random PIRender (seed 2) and VGG19 (seed 3; the tiny config
     taps ``relu_1_1`` at one scale), and with ``--emo-loss`` EmoNet (seed 4,
-    or ``--emonet-checkpoint``, a reference-named state dict read strictly,
-    tensors only). The frames are drawn from a generator seeded ``--seed``
+    or ``--emonet-checkpoint``, a reference-named state dict read as JAX
+    reads it). The frames are drawn from a generator seeded ``--seed``
     (JAX: ``PRNGKey(0)`` on every step). Reads one item first, as JAX's
     probe does, so the dataset's draws stay JAX's."""
     import dataclasses
@@ -145,6 +141,7 @@ def render_term(args, cfg, builder, device):
     import torch
 
     from ..data.stats import CoeffStats
+    from ..infra.checkpoint import load_frozen_tower
     from ..infra.init import random_module
     from ..models.emoca import EmoNetLoss, EmotionRecognitionModule
     from ..models.pirender import FaceGenerator, PIRenderConfig
@@ -167,10 +164,7 @@ def render_term(args, cfg, builder, device):
         emo = random_module(lambda: EmotionRecognitionModule(n_expression=8), device,
                             torch.Generator().manual_seed(4))
         if args.emonet_checkpoint:
-            sd = torch.load(args.emonet_checkpoint, map_location="cpu", weights_only=True)
-            if isinstance(sd, dict) and "state_dict" in sd:
-                sd = sd["state_dict"]
-            emo.load_state_dict(sd, strict=True)
+            load_frozen_tower(emo, args.emonet_checkpoint)
         else:
             print("train-faceformer: no --emonet-checkpoint; the frozen EmoNet is RANDOM-init "
                   "(smoke semantics)", file=sys.stderr)

@@ -199,19 +199,14 @@ def build_emo_cls(args, src: Source, device, frames: int):
     everywhere, and its ReLU then zeroes the feature for every image (seeds
     0, 2 and 5 at 64^2 and 224^2): the loss would be a constant with no
     gradient. Seed 1 gives a live tower at both sizes."""
-    import torch
-
-    from ..infra.checkpoint import restore_checkpoint
+    from ..infra.checkpoint import load_frozen_tower, restore_checkpoint
     from ..models.fan_encoder import FanEncoder
     from ..train.emo_cls import EmoClsHead, EmoClsLoss
 
     fan_size = 64 if args.tiny else 224
     fan = FanEncoder.random_init(fan_size, seed=1, device=device)
     if args.fan_checkpoint:
-        sd = torch.load(args.fan_checkpoint, map_location="cpu", weights_only=True)
-        if isinstance(sd, dict) and "state_dict" in sd:
-            sd = sd["state_dict"]
-        fan.load_state_dict(sd, strict=True)
+        load_frozen_tower(fan, args.fan_checkpoint)
     else:
         print("train-faceformer-vert: no --fan-checkpoint; the frozen FAN/cls towers are "
               "RANDOM-init (smoke semantics)", file=sys.stderr)

@@ -1,7 +1,8 @@
 """FLAME head model (port of ``avi_talking_tpu/core/flame.py``):
 ``FlameAssets``, linear blend skinning, and ``FlameModel`` with its
 landmarks (``vertices2landmarks``, the dynamic contour chosen from the neck
-chain's y rotation, the 68-point 2D / 3D and the mediapipe sets).
+chain's y rotation, the 68-point 2D / 3D and the mediapipe sets), and
+``FlameTex``, the PCA albedo.
 
 Pose layout [global(3), neck(3), jaw(3), eyes(6)] in axis-angle; betas =
 concat[shape, expression].
@@ -13,6 +14,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .rotations import batch_rodrigues, rot_mat_to_euler_y
@@ -237,3 +239,35 @@ class FlameModel:
                                         a.mediapipe_lmk_bary_coords)
             return vertices, landmarks2d, landmarks3d, lmk_mp
         return vertices, landmarks2d, landmarks3d
+
+
+@dataclasses.dataclass(frozen=True)
+class FlameTex:
+    """FLAME's PCA albedo model (gdl's FLAMETex): texture = mean + basis @
+    texcode, (B, side, side, 3) in [0, 1] (the npz holds [0, 255]).
+
+    The texture npz (``mean`` and ``tex_dir`` or ``basis``) is FLAME's
+    external texture download; ``n_tex`` keeps the leading components."""
+
+    texture_mean: torch.Tensor  # (side*side*3,)
+    texture_basis: torch.Tensor  # (side*side*3, n_components)
+    n_tex: int = 50
+
+    @classmethod
+    def from_npz(cls, path: str, n_tex: int = 50) -> "FlameTex":
+        z = np.load(path)
+        mean = np.asarray(z["mean"], np.float32).reshape(-1)
+        basis = np.asarray(z["tex_dir"] if "tex_dir" in z else z["basis"],
+                           np.float32).reshape(mean.shape[0], -1)
+        return cls(torch.from_numpy(mean), torch.from_numpy(np.ascontiguousarray(basis[:, :n_tex])),
+                   n_tex)
+
+    def to(self, device) -> "FlameTex":
+        return FlameTex(self.texture_mean.to(device), self.texture_basis.to(device), self.n_tex)
+
+    def __call__(self, texcode: torch.Tensor) -> torch.Tensor:
+        """(B, n_tex) -> (B, side, side, 3) albedo in [0, 1]."""
+        flat = self.texture_mean[None] + texcode @ self.texture_basis[:, :self.n_tex].t()
+        side = int(round((flat.shape[1] // 3) ** 0.5))
+        tex = flat.reshape(texcode.shape[0], side, side, 3)
+        return torch.clamp(tex / 255.0, 0.0, 1.0)

@@ -55,6 +55,33 @@ def load_torch_state_dict(path: str) -> Mapping[str, Any]:
     return obj
 
 
+def own_state(module: torch.nn.Module, sd: Mapping[str, Any],
+              prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``module``'s own keys out of ``sd`` (keys under ``prefix``), as the
+    JAX importers read a reference file: every other key is left out, a
+    BatchNorm's ``num_batches_tracked`` (no JAX importer reads one) is 0
+    where the file has none, and a key the module needs and the file lacks
+    raises, naming it (JAX's importers raise ``KeyError``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, ref in module.state_dict().items():
+        if prefix + k in sd:
+            out[k] = torch.as_tensor(sd[prefix + k])
+        elif k.endswith("num_batches_tracked"):
+            out[k] = torch.zeros_like(ref, device="cpu")
+        else:
+            raise RuntimeError(f"the state dict has no key {prefix + k!r} "
+                               f"({type(module).__name__} needs it)")
+    return out
+
+
+def load_frozen_tower(module: torch.nn.Module, path: str, prefix: str = "") -> torch.nn.Module:
+    """Load a frozen tower's reference checkpoint (FAN, EmoNet) as JAX reads
+    one: ``load_torch_state_dict``, then the module's own keys
+    (``own_state``)."""
+    module.load_state_dict(own_state(module, load_torch_state_dict(path), prefix), strict=True)
+    return module
+
+
 def _strip(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 

@@ -536,3 +536,42 @@ def vgg19_state_from_jax(params: Tree) -> State:
             idx += 2
         idx += 1
     return out
+
+
+def deca_encoder_state_from_jax(params: Tree, batch_stats: Tree) -> State:
+    """``models.emoca.DecaEncoder`` params + batch_stats -> port state
+    (``encoder.*``, ``layers.0`` / ``layers.2``)."""
+    out: State = {}
+    _put(out, "encoder.", resnet50_state_from_jax(params["encoder"], batch_stats["encoder"]))
+    _put(out, "layers.0.", _dense(params["layers_0"]))
+    _put(out, "layers.2.", _dense(params["layers_2"]))
+    return out
+
+
+def emoca_encoder_state_from_jax(variables: Tree) -> State:
+    """``models.emoca.EmocaEncoder`` variables -> port state: JAX's towers
+    ``coarse`` / ``expression`` / ``detail`` under the reference's
+    ``E_flame.`` / ``E_expression.`` / ``E_detail.``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: State = {}
+    for name, pre in (("coarse", "E_flame."), ("expression", "E_expression."),
+                      ("detail", "E_detail.")):
+        if name in params:
+            _put(out, pre, deca_encoder_state_from_jax(params[name], stats[name]))
+    return out
+
+
+def detail_generator_state_from_jax(variables: Tree) -> State:
+    """``models.deca_detail.DetailGenerator`` variables -> port state, under
+    the reference Generator's names (``l1.0``, ``conv_blocks.N``: BatchNorm
+    0, then per up-block i conv 2 + 4i and BatchNorm 3 + 4i, the last conv
+    21)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: State = {}
+    _put(out, "l1.0.", _dense(params["l1"]))
+    _put(out, "conv_blocks.0.", _batchnorm(params["bn_in"], stats["bn_in"]))
+    for i in range(5):
+        _put(out, f"conv_blocks.{2 + 4 * i}.", _conv_nd(params[f"conv{i}"]))
+        _put(out, f"conv_blocks.{3 + 4 * i}.", _batchnorm(params[f"bn{i}"], stats[f"bn{i}"]))
+    _put(out, "conv_blocks.21.", _conv_nd(params["conv_out"]))
+    return out

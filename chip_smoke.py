@@ -15,6 +15,10 @@
                                        # the build, the host codecs, K1's rows
                                        # and the portrait, render-loss and
                                        # train-pirender phases alone
+    python3 chip_smoke.py --phases emoca
+                                       # the build, the host codecs, K1's rows
+                                       # and the train-emoca and reconstruct
+                                       # phases alone
 
 Run it from the root of a checkout: it builds the port's CUDA kernels from
 the checkout's sources into build/, then
@@ -149,15 +153,27 @@ the checkout's sources into build/, then
             warp, full and --gan steps, synthetic and --root --cross-id; one
             step of each stage card vs CPU at B=1; the editing net's first
             full-stage update against optax's shared step count;
-27. the kernels summary line (K1 at the generate path's, the EMOTE step's,
+27. train_emoca: `train-emoca` at full width and its defaults (224^2,
+            B=8) on a folder of 24 PNG frames with landmarks: the coarse
+            stage, --exp-only (E_flame bit-unchanged), --emo-loss and
+            --detail from the coarse checkpoint (only E_detail and the
+            generator move, its running statistics too), K2 once a step;
+            one coarse and one detail step card vs CPU at B=2; K2 at the
+            render's launch (8 frames x 16 tiles) against its plain version;
+28. reconstruct: `reconstruct --detail --textured` on 16 frames at 256^2:
+            the files, K2's 2 launches, frames/s; 2 frames card vs CPU
+            (codes, vertices, the renders by the share of pixels that
+            agree); K2 at the renders' launch (16 frames x 64 tiles);
+29. the kernels summary line (K1 at the generate path's, the EMOTE step's,
             the vertex step's and the FaceFormer step's shapes, and its
             bf16 entry at generate --bf16's; K2 at the render path's (under
             the plain and the --flame-npz generate), the neural step's and
             the emotion loss's launches; K3 at the FaceFormer decoder's and
             the vertex decoder's; with the launches of each path that runs
-            them; and K1 / K3 under the render-loss step) and the card's name
-            and power limit;
-28. the result line.
+            them; K1 / K3 under the render-loss step; K2 under train-emoca's
+            two renders and reconstruct's) and the card's name and power
+            limit;
+30. the result line.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without the result line. It imports nothing of JAX.
@@ -1045,7 +1061,8 @@ def _neural_trainer(head, neural, lr):
 # The vertex gradient through render and towers, card vs CPU on identical
 # vertices, as a share of its largest entry: the towers' max-pools route a
 # near-tie's gradient by the last bits, and a +-1e-7 change of the rendered
-# video moves this gradient by 2.4e-4 on the CPU alone (PERF.md §6); twice
+# video moved this gradient by 2.4e-4 on the CPU alone (PERF.md §6; no
+# longer measured on each run, to keep the run inside its time); twice
 # that, rounded up.
 VERTEX_GRAD_REL = 5e-4
 
@@ -1103,20 +1120,17 @@ def _replay(init: dict, grads: dict, optimizer) -> dict:
     return {k: p.detach() for k, p in params.items()}
 
 
-def _neural_chain(neural, verts, gt_video, batch, perm, image_noise=None, backward=True):
+def _neural_chain(neural, verts, gt_video, batch, perm, backward=True):
     """The neural terms of predicted ``verts`` (2B, T, V, 3) against the
     rendered ``gt_video`` (B, T, H, W, 3) on ``neural``'s device: render,
     towers, losses; with ``backward`` also the gradient of the loss in the
-    vertices and in the rendered video. ``image_noise`` is added to the
-    rendered video first (a perturbation of the size of its rounding)."""
+    vertices and in the rendered video."""
     import torch
 
     dev = neural.renderer.device
     v = verts.to(dev).clone().requires_grad_(backward)
     with torch.set_grad_enabled(backward):
         video = neural.render_video(v)
-        if image_noise is not None:
-            video = video + image_noise.to(dev)
         if backward:
             video.retain_grad()
         terms = {}
@@ -1160,8 +1174,7 @@ def phase_train_emote_neural(kb, kras, peaks, profile=False):
     3. Identical vertices on both sides: winners equal, every term within
        1e-4, the render's backward from one image gradient within 1e-4;
        the vertex gradient through render and towers within
-       ``VERTEX_GRAD_REL`` of its largest, beside how far +-1e-7 on the
-       rendered video moves it on the CPU alone.
+       ``VERTEX_GRAD_REL`` of its largest.
     4. The step at B=2, 32 frames: median of 5 after a warm-up, K2
        launches per step and device ms, peak memory; K2 at the predicted
        video's launch against its plain version, with its bound; under
@@ -1286,17 +1299,11 @@ def phase_train_emote_neural(kb, kras, peaks, profile=False):
         gt_video = {d: suites[d].render_video(gt.to(d)) for d in ("cuda", "cpu")}
 
     # (3) identical vertices (the CPU's predicted ones) on both sides:
-    # winners, terms, the vertex gradient through render and towers; the
-    # CPU's own with the rendered video perturbed by +-1e-7, which shows how
-    # far the towers' max-pools let a rounding-sized change of the image move
-    # that gradient; and the card's render backward from the CPU's image
-    # gradient (on the CPU that is the chain's own vertex gradient)
-    noise = (torch.rand((2 * B, 8, 224, 224, 3), generator=torch.Generator().manual_seed(5))
-             - 0.5) * 2e-7
+    # winners, terms, the vertex gradient through render and towers; and the
+    # card's render backward from the CPU's image gradient (on the CPU that
+    # is the chain's own vertex gradient)
     chain = {d: _neural_chain(suites[d], verts["cpu"], gt_video[d], batch, perm)
              for d in ("cuda", "cpu")}
-    noisy = _neural_chain(suites["cpu"], verts["cpu"], gt_video["cpu"], batch, perm,
-                          image_noise=noise)
     v = verts["cpu"].cuda().requires_grad_()
     (suites["cuda"].render_video(v) * chain["cpu"]["video_grad"].cuda()).sum().backward()
     vg = {d: c["vertex_grad"] for d, c in chain.items()}
@@ -1305,7 +1312,6 @@ def phase_train_emote_neural(kb, kras, peaks, profile=False):
             "vertex_grad_rel": _max_rel(vg["cuda"], vg["cpu"]),
             "vertex_grad_l2_rel": float((vg["cuda"] - vg["cpu"]).norm() / vg["cpu"].norm()),
             "vertex_grad_limit": VERTEX_GRAD_REL,
-            "cpu_vertex_grad_rel_under_image_noise": _max_rel(noisy["vertex_grad"], vg["cpu"]),
             "video_grad_rel": _max_rel(chain["cuda"]["video_grad"], chain["cpu"]["video_grad"]),
             "render_backward_vertex_grad_rel": _max_rel(v.grad.cpu(), vg["cpu"])}
     # each side's neural terms at the card's predicted vertices; and the CPU's
@@ -1333,9 +1339,7 @@ def phase_train_emote_neural(kb, kras, peaks, profile=False):
           f"{same['render_backward_vertex_grad_rel']} of its largest")
     check(same["vertex_grad_rel"] < VERTEX_GRAD_REL,
           f"identical vertices: the vertex gradient through render and towers differs by "
-          f"{same['vertex_grad_rel']} of its largest, past {VERTEX_GRAD_REL} (the CPU alone "
-          f"moves it by {same['cpu_vertex_grad_rel_under_image_noise']} under +-1e-7 on the "
-          "rendered video)")
+          f"{same['vertex_grad_rel']} of its largest, past {VERTEX_GRAD_REL}")
     check(vert_err < 1e-4, f"one neural step: predicted vertices differ by {vert_err} of the "
           "largest")
     check(step_rel["loss"] < 1e-4 and all(v < 1e-4 for v in same_verts_rel.values()),
@@ -1352,7 +1356,7 @@ def phase_train_emote_neural(kb, kras, peaks, profile=False):
           f"{step['param_max_abs_diff_where_grad_ge_floor']} where |g| >= {step['grad_floor']} "
           f"(limit 1e-4), {step['param_max_abs_diff_where_grad_lt_floor']} elsewhere (limit "
           f"2·lr){pixel_note}")
-    del pair, suites, renderers, chain, noisy, head, gt_video, grads, replay
+    del pair, suites, renderers, chain, head, gt_video, grads, replay
 
     # (4) the timed step at B=2, T=32
     dev = torch.device("cuda")
@@ -3490,6 +3494,418 @@ def phase_train_pirender():
     return {"step_s_by_stage": {k: statistics.median(v) for k, v in stage_s.items()}}
 
 
+def _write_face_root(root, n, size, seed, landmarks=True):
+    """``n`` size^2 PNG frames (smooth colour ramps with noise) and, with
+    ``landmarks``, a landmarks.npy of 68 points in [-0.8, 0.8] each."""
+    import numpy as np
+
+    from avi_talking_tpu_torch.viz.pngio import write_png
+
+    os.makedirs(root, exist_ok=True)
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    for i in range(n):
+        c = r.uniform(0.2, 0.8, (3, 3)).astype(np.float32)
+        img = (c[0] + c[1] * xx[..., None] * 0.5 + c[2] * yy[..., None] * 0.5) / 1.5
+        img = img + r.normal(0, 0.03, img.shape).astype(np.float32)
+        write_png(os.path.join(root, f"frame_{i:04d}.png"),
+                  (np.clip(img, 0, 1) * 255).astype(np.uint8))
+    if landmarks:
+        np.save(os.path.join(root, "landmarks.npy"),
+                r.uniform(-0.8, 0.8, (n, 68, 2)).astype(np.float32))
+    return root
+
+
+def _emoca_flame_npz(path):
+    """The synthetic full-size FLAME (5023 / 9976, n_shape 100, n_exp 50, 68
+    landmark tables) as the npz ``--flame-npz`` reads."""
+    import numpy as np
+
+    from avi_talking_tpu_torch.core.assets import synthetic_assets
+
+    if not os.path.exists(path):
+        a = synthetic_assets(num_vertices=5023, n_shape=100, n_exp=50, num_faces=9976,
+                             n_static_landmarks=51)
+        np.savez(path, **{f.name: getattr(a, f.name).numpy() for f in dataclasses.fields(a)})
+    return path
+
+
+def _kernel_route(device):
+    """The renders' rasterization through the kernel route on ``device``:
+    K2 on the card, its plain version on the CPU (whose own route is the
+    plain binned one: with the synthetic FLAME's overflowing bins, another
+    visibility)."""
+    import functools
+    from unittest import mock
+
+    from avi_talking_tpu_torch.viz import shading
+    from avi_talking_tpu_torch.viz.rasterizer import rasterize_auto
+
+    if device.type == "cuda":
+        return contextlib.nullcontext()
+    return mock.patch.object(shading, "rasterize_auto",
+                             functools.partial(rasterize_auto, backend="kernel"))
+
+
+def _k2_row(case, ndc, faces, size, tile, kras, peaks):
+    """K2 at a render's launch (``ndc`` (N, V, 3) on the card): bit-equal to
+    its plain version, its times, its bound and the bins' overflow."""
+    import torch
+
+    from avi_talking_tpu_torch.viz.rasterizer import _visibility_inputs, bin_overflow
+
+    _, tri, valid, px, py, *_ = _visibility_inputs(ndc, faces, size, size, tile, 1024)
+    z, s = kras.rasterize_tiles_visibility(tri, valid, px, py)
+    rz, rs = kras.rasterize_tiles_visibility_reference(tri, valid, px, py, chunk=64)
+    err = float((z - rz).abs().max())
+    check(torch.equal(s, rs) and torch.equal(z, rz),
+          f"K2 at {case}: not bit-equal to the plain version ({int((s != rs).sum())} slots "
+          f"differ, max |dz| {err})")
+    del z, s, rz, rs
+    most, share = bin_overflow(ndc, faces, size, size, tile, 1024)
+
+    def kernel():
+        return kras.rasterize_tiles_visibility(tri, valid, px, py)
+
+    row = {"case": case, "shape": list(tri.shape[:2]) + [px.shape[1]], "frames": int(ndc.shape[0]),
+           "faces": int(faces.shape[0]), "valid_slots": int(valid.sum()),
+           "live_slots_per_tile": live_slot_stats(valid),
+           "bin_overflow": {"most_faces_in_a_tile": int(most), "tiles_over_cap": float(share),
+                            "cap": 1024, "overflow_load": bool(most > 1024)},
+           "max_abs_err": err, "ms": time_ms(kernel, iters=5, reps=5),
+           "device_ms": device_ms(kernel, "rasterize_visibility", iters=5),
+           "plain_ms": time_ms(lambda: kras.rasterize_tiles_visibility_reference(
+               tri, valid, px, py, chunk=64), iters=1, reps=3),
+           "library_ms": None}
+    row.update(visibility_bound(tri, valid, px, py, peaks))
+    emit({"phase": "kernel_check", "kernel": "rasterize_tiles_visibility", **row})
+    return row
+
+
+def _emoca_step_record(record, kras):
+    """A wrapper of the EMOCA trainers' ``train_step`` that records each
+    step's seconds (synchronised), terms and K2 launches."""
+    import torch
+
+    def wrap(orig):
+        def train_step(self, optimizer, batch):
+            torch.cuda.synchronize()
+            before, t0 = kras.launches, time.perf_counter()
+            out = orig(self, optimizer, batch)
+            torch.cuda.synchronize()
+            record.setdefault("step_s", []).append(time.perf_counter() - t0)
+            record.setdefault("k2", []).append(kras.launches - before)
+            return out
+        return train_step
+    return wrap
+
+
+def _emoca_cli(argv, kras, trainer_cls):
+    """One train-emoca run with its steps recorded: (record, final terms)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    record = {}
+    kras.launches = 0
+    with _patched(trainer_cls, "train_step", _emoca_step_record(record, kras)):
+        out, _, wall = _run_cli(["train-emoca", *argv])
+    record.update(argv=" ".join(argv), wall_s=wall, launches=kras.launches,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  final=_final_metrics(out))
+    check(all(math.isfinite(v) for v in record["final"].values()),
+          f"train-emoca {record['argv']}: {record['final']}")
+    return record
+
+
+def _emoca_one_step(make, batch, lr):
+    """One EMOCA / DECA step on the card and on the CPU (the renders through
+    the kernel route on both) from the same seeded weights: the terms, the
+    trained tensors (with their gradients) and the card's update against
+    Adam replayed on the CPU with the card's gradients."""
+    import functools
+
+    import torch
+
+    from avi_talking_tpu_torch.train.optim import adam
+
+    out = {}
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        trainer, trained = make(dev)
+        init = {k: t.detach().cpu().clone() for k, t in trained.items()}
+        opt = trainer.make_optimizer(lr)
+        with _kernel_route(dev):
+            terms = trainer.train_step(opt, {k: v.to(dev) for k, v in batch.items()})
+        out[dev.type] = {"terms": {k: float(v) for k, v in terms.items()}, "trained": trained,
+                         "init": init, "trainer": trainer}
+    card = out["cuda"]
+    grads = {k: t.grad.cpu() for k, t in card["trained"].items() if t.grad is not None}
+    replay = _replay(card["init"], grads, functools.partial(adam, lr=lr))
+    update = max(float(((card["trained"][k].detach().cpu() - w).abs()
+                        / (lr / 100 + 1e-6 * w.abs())).max()) for k, w in replay.items())
+    terms_rel = {k: abs(v - out["cpu"]["terms"][k]) / max(abs(out["cpu"]["terms"][k]), 1e-8)
+                 for k, v in card["terms"].items()}
+    step = step_diffs({d: (o["terms"]["total"], o["trained"]) for d, o in out.items()},
+                      rel_floor=1e-3)
+    return out, {"terms": {d: o["terms"] for d, o in out.items()}, "terms_rel_diff": terms_rel,
+                 "update_vs_adam_on_the_cards_gradients_over_limit": update,
+                 "independent_step": step}
+
+
+def phase_train_emoca(kras, peaks):
+    """EMOCA / DECA training at full width (EmocaEncoder(): three ResNet-50
+    towers, the synthetic full-size FLAME 5023 / 9976 with 68-point
+    landmark tables, planar UVs, flat grey albedo) through `train-emoca` at
+    its defaults (224^2, B=8, lr 1e-4; the detail stage's n_detail 128, UV
+    256^2, generator init_size 8) on a `--root` folder of 24 PNG frames
+    with landmarks.npy:
+
+    a. the coarse stage, `--exp-only` (from its checkpoint: E_flame
+       bit-unchanged), `--emo-loss` (a frozen seeded EmoNet) and `--detail`
+       (the coarse checkpoint grafted: E_flame / E_expression bit-unchanged,
+       E_detail and the generator moved, its running statistics with
+       them): K2's launches per step (1: the textured / detail render),
+       the steps' seconds and the peak memory of each run;
+    b. one coarse step and one detail step at B=2 on the card and on the
+       CPU (the renders through the kernel route on both) from the same
+       weights and batch: the seeded encoder's codes within 1e-4 of their
+       largest, the terms within 1e-3, the card's update within lr / 100 (+
+       1e-6 |w|) of Adam replayed on the CPU with the card's gradients, the
+       gradients within 1e-3 of the model's largest (the CPU tests' rule
+       against JAX) and the weights by the 2·lr rule (1e-4 where |g| is at
+       least 1e-3 of the largest);
+    c. K2 at the B=8 render's launch (8 frames x 16 tiles of 56^2: the
+       textured and the detail render rasterize the same coarse geometry)
+       against its plain version, with the bins' overflow."""
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.cli.train_emoca import uv_assets
+    from avi_talking_tpu_torch.core.assets import load_flame_assets
+    from avi_talking_tpu_torch.core.flame import FlameModel
+    from avi_talking_tpu_torch.infra.checkpoint import restore_checkpoint
+    from avi_talking_tpu_torch.infra.init import random_module
+    from avi_talking_tpu_torch.models.deca_detail import DecaDetailModel, DetailGenerator
+    from avi_talking_tpu_torch.models.emoca import EmocaEncoder
+    from avi_talking_tpu_torch.train import emoca_trainer as tet
+
+    cuda = torch.device("cuda")
+    out_dir = os.path.join(HERE, "build", "chip_smoke", "emoca")
+    os.makedirs(out_dir, exist_ok=True)
+    npz = _emoca_flame_npz(os.path.join(out_dir, "flame.npz"))
+    root = _write_face_root(os.path.join(out_dir, "faces224"), 24, 224, seed=31)
+    ck = {m: os.path.join(out_dir, "ck_" + m) for m in ("coarse", "exp", "detail")}
+    base = ["--root", root, "--flame-npz", npz, "--log-every", "100"]
+
+    # (a) the command in its four modes
+    runs = {"coarse": _emoca_cli([*base, "--steps", "3", "--ckpt-dir", ck["coarse"]], kras,
+                                 tet.EmocaTrainer)}
+    runs["exp_only"] = _emoca_cli([*base, "--steps", "2", "--exp-only", "--checkpoint",
+                                   ck["coarse"], "--ckpt-dir", ck["exp"]], kras, tet.EmocaTrainer)
+    runs["emo_loss"] = _emoca_cli([*base, "--steps", "2", "--emo-loss"], kras, tet.EmocaTrainer)
+    runs["detail"] = _emoca_cli([*base, "--steps", "3", "--detail", "--checkpoint", ck["coarse"],
+                                 "--ckpt-dir", ck["detail"]], kras, tet.DecaDetailTrainer)
+    for name, r in runs.items():
+        check(r["k2"] == [1] * len(r["k2"]) and r["launches"] == len(r["k2"]),
+              f"train-emoca {name}: K2 launched {r['k2']} a step ({r['launches']} in all), "
+              "not once a step")
+    check("emotion" in runs["emo_loss"]["final"] and runs["emo_loss"]["final"]["emotion"] > 0,
+          f"--emo-loss: {runs['emo_loss']['final']}")
+    coarse = restore_checkpoint(ck["coarse"])["encoder"]
+    exp = restore_checkpoint(ck["exp"])["encoder"]
+    detail = restore_checkpoint(ck["detail"])
+    check(all(torch.equal(exp[k], v) for k, v in coarse.items() if k.startswith("E_flame.")),
+          "--exp-only moved E_flame")
+    check(not torch.equal(exp["E_expression.layers.2.weight"],
+                          coarse["E_expression.layers.2.weight"]), "--exp-only left E_expression")
+    check(all(torch.equal(detail["encoder"][k], v) for k, v in coarse.items()),
+          "--detail moved the coarse towers")
+    gen0 = DetailGenerator.random_init(3 + 50 + 128, init_size=8, seed=1, device="cpu").state_dict()
+    moved = {k: not torch.equal(detail["generator"][k], v) for k, v in gen0.items()
+             if not k.endswith("num_batches_tracked")}
+    e_detail0 = random_module(lambda: EmocaEncoder(with_detail=True), torch.device("cpu"),
+                              torch.Generator().manual_seed(0)).E_detail.layers[2].weight
+    check(all(moved.values()) and not torch.equal(
+        detail["encoder"]["E_detail.layers.2.weight"], e_detail0),
+          f"--detail left {[k for k, m in moved.items() if not m]} or E_detail as they were")
+    del coarse, exp, detail
+
+    # (b) one coarse and one detail step, card vs CPU, at B=2
+    Bc, lr = 2, 1e-4
+    assets = load_flame_assets(npz, 100, 50)
+    uv, uvf = uv_assets(None, assets)
+    g = np.random.default_rng(5)
+    batch = {"images": torch.from_numpy(g.uniform(0, 1, (Bc, 224, 224, 3)).astype(np.float32)),
+             "lmk": torch.from_numpy(g.uniform(-0.8, 0.8, (Bc, 68, 2)).astype(np.float32))}
+
+    def coarse_trainer(dev):
+        enc = random_module(lambda: EmocaEncoder(), dev, torch.Generator().manual_seed(0))
+        t = tet.EmocaTrainer(encoder=enc, flame=FlameModel(assets.to(dev)), uv_coords=uv.to(dev),
+                             uv_faces=uvf.to(dev), image_size=224)
+        return t, {k: p for k, p in enc.named_parameters()}
+
+    def detail_trainer(dev):
+        enc = random_module(lambda: EmocaEncoder(with_detail=True), dev,
+                            torch.Generator().manual_seed(0))
+        gen = DetailGenerator.random_init(181, init_size=8, seed=1, device=dev)
+        flame = FlameModel(assets.to(dev))
+        dm = DecaDetailModel(generator=gen, faces=flame.assets.faces, uv_coords=uv.to(dev),
+                             uv_faces=uvf.to(dev), uv_size=256)
+        t = tet.DecaDetailTrainer(encoder=enc, detail_model=dm, flame=flame, image_size=224)
+        trained = {"E_detail." + k: p for k, p in enc.E_detail.named_parameters()}
+        trained.update({"generator." + k: p for k, p in gen.named_parameters()})
+        trained.update({"generator." + k: b for k, b in gen.named_buffers()
+                        if k.endswith(("running_mean", "running_var"))})
+        return t, trained
+
+    with torch.no_grad():  # the seeded encoder's codes, before any step
+        codes = {d.type: coarse_trainer(d)[0].encoder(batch["images"].to(d).permute(0, 3, 1, 2))
+                 for d in (cuda, torch.device("cpu"))}
+    codes_rel = max(float((codes["cuda"][k].cpu() - v).abs().max() / v.abs().max())
+                    for k, v in codes["cpu"].items())
+    check(codes_rel < 1e-4, f"the encoder's codes card vs CPU: {codes_rel}")
+    del codes
+    steps = {}
+    for name, make in (("coarse", coarse_trainer), ("detail", detail_trainer)):
+        t0 = time.perf_counter()
+        sides, rep = _emoca_one_step(make, batch, lr)
+        rep["seconds"] = time.perf_counter() - t0
+        steps[name] = rep
+        ind = rep["independent_step"]
+        check(all(v < 1e-3 for v in rep["terms_rel_diff"].values()),
+              f"{name} step card vs CPU: terms {rep['terms_rel_diff']}")
+        check(rep["update_vs_adam_on_the_cards_gradients_over_limit"] <= 1.0,
+              f"{name} step: the card's update lies "
+              f"{rep['update_vs_adam_on_the_cards_gradients_over_limit']} x (lr / 100) from Adam "
+              "on its own gradients")
+        check(ind["grad_max_abs_diff_over_largest_grad"] < 1e-3
+              and ind["param_max_abs_diff_where_grad_ge_floor"] < 1e-4
+              and ind["param_max_abs_diff_where_grad_lt_floor"] <= 2 * lr + 1e-6,
+              f"{name} step card vs CPU: gradients {ind['grad_max_abs_diff_over_largest_grad']} "
+              f"of the largest, weights {ind['param_max_abs_diff_where_grad_ge_floor']} (|g| >= "
+              f"floor) and {ind['param_max_abs_diff_where_grad_lt_floor']} (the others)")
+        if name == "detail":
+            enc0 = random_module(lambda: EmocaEncoder(with_detail=True), torch.device("cpu"),
+                                 torch.Generator().manual_seed(0))
+            enc = sides["cuda"]["trainer"].encoder
+            frozen = all(torch.equal(t.cpu(), enc0.state_dict()[k])
+                         for k, t in enc.state_dict().items() if not k.startswith("E_detail."))
+            check(frozen, "the detail step moved the coarse towers")
+        del sides
+
+    # (c) K2 at the B=8 render's launch
+    enc = random_module(lambda: EmocaEncoder(), cuda, torch.Generator().manual_seed(0))
+    trainer = tet.EmocaTrainer(encoder=enc, flame=FlameModel(assets.to(cuda)),
+                               uv_coords=uv.cuda(), uv_faces=uvf.cuda(), image_size=224)
+    g8 = torch.from_numpy(np.random.default_rng(6).uniform(0, 1, (8, 224, 224, 3))
+                          .astype(np.float32)).cuda()
+    with torch.no_grad():
+        ndc = trainer.decode(enc(g8.permute(0, 3, 1, 2)))["trans_verts"]
+    row = _k2_row("emoca_224_tile56", ndc, trainer.flame.assets.faces, 224, 56, kras, peaks)
+    del trainer, enc
+    summary = {name: {"k2_launches_per_step": r["k2"], "step_s": r["step_s"],
+                      "step_s_median_after_first": statistics.median(r["step_s"][1:]),
+                      "peak_gib": r["peak_gib"], "wall_s": r["wall_s"], "argv": r["argv"],
+                      "final": r["final"]} for name, r in runs.items()}
+    emit({"phase": "train_emoca", "config": "EmocaEncoder() (3 ResNet-50 towers with the detail "
+          "stage's E_detail), synthetic FLAME 5023 / 9976, planar UVs, grey albedo, 224^2, "
+          "towers and generator at seeded random init", "batch": 8, "lr": lr, "runs": summary,
+          "card_vs_cpu_B2": steps, "codes_rel_diff_card_vs_cpu": codes_rel,
+          "k2_row": row["case"]})
+    return {"runs": runs, "row": row}
+
+
+def phase_reconstruct(kras, peaks):
+    """`reconstruct --detail --textured` at full width on a folder of 16
+    PNG frames at 256^2 (the synthetic full-size FLAME, planar UVs, grey
+    albedo, seeded encoder and generator): the files written, K2's launches
+    (2: the shaded and the textured render of all frames) and frames per
+    second of the compute (a second call, warm); the first 2 frames on the
+    card against the CPU (the renders through the kernel route on both):
+    the codes within 1e-3 of their largest (the encoder's JAX tolerance),
+    the vertices within 1e-4, and each render by the share of pixels that
+    agree within 1e-3 (at least 0.999: a pixel whose winner changes with
+    the codes' rounding differs); K2 at the renders' launch (16 frames x 64
+    tiles of 32^2) against its plain version."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.cli.reconstruct import RECONSTRUCT_CAM, reconstruct_frames
+    from avi_talking_tpu_torch.cli.train_emoca import uv_assets
+    from avi_talking_tpu_torch.core.assets import load_flame_assets
+    from avi_talking_tpu_torch.core.projection import batch_orth_proj
+    from avi_talking_tpu_torch.models.deca_detail import world2uv
+
+    out_dir = os.path.join(HERE, "build", "chip_smoke", "emoca")
+    os.makedirs(out_dir, exist_ok=True)
+    npz = _emoca_flame_npz(os.path.join(out_dir, "flame.npz"))
+    frames = _write_face_root(os.path.join(out_dir, "faces256"), 16, 256, seed=41,
+                              landmarks=False)
+    res = os.path.join(out_dir, "reconstruct")
+    kras.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out, _, wall = _run_cli(["reconstruct", "--image", frames, "--detail", "--textured",
+                             "--flame-npz", npz, "--out-dir", res])
+    cli_launches = kras.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    names = sorted(os.listdir(res))
+    check(cli_launches == 2, f"reconstruct launched K2 {cli_launches} times, not 2")
+    check(len(names) == 1 + 3 * 16 and "faces256_codes.npz" in names,
+          f"reconstruct wrote {len(names)} files: {names[:6]}")
+
+    args = argparse.Namespace(tiny=False, checkpoint=None, flame_npz=npz, size=256, detail=True,
+                              detail_checkpoint=None, uv_obj=None, textured=True, tex_npz=None)
+    from avi_talking_tpu_torch.viz.pngio import read_image_normalized
+
+    paths = sorted(os.path.join(frames, p) for p in os.listdir(frames) if p.endswith(".png"))
+    x = torch.from_numpy(np.stack([read_image_normalized(p) for p in paths]) * 0.5 + 0.5)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    reconstruct_frames(args, x.cuda(), cuda)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = reconstruct_frames(args, x.cuda(), cuda)
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with _kernel_route(cpu):
+        ref = reconstruct_frames(args, x[:2], cpu)
+    cpu_s = time.perf_counter() - t0
+    codes_rel = max(float((card[0][k][:2].cpu() - v).abs().max() / v.abs().max())
+                    for k, v in ref[0].items())
+    verts_rel = float((card[1][:2].cpu() - ref[1]).abs().max() / ref[1].abs().max())
+    close = {name: (card[i][:2].cpu() - ref[i]).abs().amax(-1) <= 1e-3
+             for i, name in ((2, "shaded"), (3, "textured"), (4, "detail_normals"))}
+    agree = {name: float(c.float().mean()) for name, c in close.items()}
+    # the detail normals at the edge of the planar UVs' coverage come from
+    # zero-area triangles, whose direction is rounding: held inside it
+    assets = load_flame_assets(npz, 100, 50)
+    faces = assets.faces.cuda()
+    uv, uvf = uv_assets(None, assets)
+    with torch.no_grad():
+        empty = world2uv(card[1][:2], faces, uv.cuda(), uvf.cuda(), 256).abs().sum(-1) == 0
+    inside = (torch.nn.functional.max_pool2d(empty.float()[:, None], 3, 1, 1)[:, 0] == 0).cpu()
+    agree["detail_normals_inside_coverage"] = float(close.pop("detail_normals")[inside]
+                                                    .float().mean())
+    agree["uv_coverage_inside_share"] = float(inside.float().mean())
+    check(codes_rel < 1e-3, f"reconstruct codes card vs CPU: {codes_rel}")
+    check(verts_rel < 1e-4, f"reconstruct vertices card vs CPU: {verts_rel}")
+    check(all(agree[k] >= 0.999 for k in ("shaded", "textured", "detail_normals_inside_coverage")),
+          f"reconstruct renders card vs CPU: {agree}")
+    check(all(bool(torch.isfinite(t).all()) for t in card[2:]), "non-finite reconstruct renders")
+
+    proj = batch_orth_proj(card[1], torch.tensor([RECONSTRUCT_CAM], device=cuda))
+    ndc = torch.stack([proj[..., 0], -proj[..., 1], -proj[..., 2]], dim=-1)
+    row = _k2_row("reconstruct_256_tile32", ndc, faces, 256, 32, kras, peaks)
+    emit({"phase": "reconstruct", "frames": 16, "size": 256, "cli_wall_s": wall,
+          "cli_k2_launches": cli_launches, "peak_gib": peak, "compute_s": compute_s,
+          "frames_per_s": 16 / compute_s, "cpu_s_2_frames": cpu_s,
+          "card_vs_cpu_2_frames": {"codes_rel_diff": codes_rel, "vertices_rel_diff": verts_rel,
+                                   "pixels_agreeing_within_1e-3": agree},
+          "k2_row": row["case"]})
+    return {"launches": cli_launches, "row": row}
+
+
 def phase_generate(pipe, kb):
     import numpy as np
 
@@ -4384,11 +4800,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Chip check of the PyTorch / CUDA port.")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one generate, one render and each training step")
-    ap.add_argument("--phases", choices=("all", "train", "pirender"), default="all",
+    ap.add_argument("--phases", choices=("all", "train", "pirender", "emoca"), default="all",
                     help="train: only the build, K1's rows, the K1 / K3 gradient rows and the "
-                         "EMOTE (geometric and neural), vertex FaceFormer, prior, data-backed "
-                         "and PIRender training phases; pirender: only the build and the "
-                         "portrait, render-loss and train-pirender phases")
+                         "EMOTE (geometric and neural), vertex FaceFormer, prior, data-backed, "
+                         "PIRender and EMOCA training phases; pirender: only the build and the "
+                         "portrait, render-loss and train-pirender phases; emoca: only the build "
+                         "and the train-emoca and reconstruct phases")
     args = ap.parse_args()
     try:
         import torch
@@ -4438,10 +4855,16 @@ def main() -> int:
         check_faceformer_row(rows, timed(phase_train_data, kb, kba))
         timed(phase_train_faceformer_render, kb, kba)
         timed(phase_train_pirender)
+        timed(phase_train_emoca, kras, peaks)
         if args.profile:
             profile_emote_and_prior_steps()
         emit({"phases": "train", "phase_s": phase_s, "total_s": time.perf_counter() - t_start})
         return finish(name, phases="train")
+    if args.phases == "emoca":
+        timed(phase_train_emoca, kras, peaks)
+        timed(phase_reconstruct, kras, peaks)
+        emit({"phases": "emoca", "phase_s": phase_s, "total_s": time.perf_counter() - t_start})
+        return finish(name, phases="emoca")
     if args.phases == "pirender":
         assets = synthetic_assets(num_vertices=5023, n_shape=300, n_exp=50, num_faces=9976)
         pipe = AviTalkingPipeline.random_init(PipelineConfig(), assets, seed=0)
@@ -4485,6 +4908,8 @@ def main() -> int:
     portrait = timed(phase_portrait, pipe, kb)
     render = timed(phase_train_faceformer_render, kb, kba)
     timed(phase_train_pirender)
+    emoca = timed(phase_train_emoca, kras, peaks)
+    recon = timed(phase_reconstruct, kras, peaks)
     if args.profile:
         timed(phase_profile, pipe, gen_out["vertices"], faces)
 
@@ -4842,7 +5267,32 @@ def main() -> int:
         "shape": ff_k3["shape"],
         "bias_shape": ff_k3["bias_shape"],
         "peaks": peaks_line,
-    }], "keybias_attention_backward": {k: v for k, v in grad_rows[0].items() if k != "kernel"},
+    }] + [{
+        "name": "rasterize_tiles_visibility",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/rasterize_visibility.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/rasterize.py:111",
+        "path": path,
+        "launches": launches,  # the command's run
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "device_ms": row["device_ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "bound_ms_no_fma": row["bound_ms_no_fma"],
+        "library_ms": None,  # no PyTorch call computes z-buffer visibility
+        "shape": row["shape"],
+        "bin_overflow": row["bin_overflow"],
+        "peaks": peaks_line,
+    } for path, launches, row in (
+        ("train-emoca (the textured render under the coarse step's gradient, 3 steps)",
+         emoca["runs"]["coarse"]["launches"], emoca["row"]),
+        ("train-emoca --detail (the detail render under the detail step's gradient, 3 steps)",
+         emoca["runs"]["detail"]["launches"], emoca["row"]),
+        ("reconstruct --detail --textured (the shaded and the textured render of 16 frames)",
+         recon["launches"], recon["row"]))],
+        "keybias_attention_backward": {k: v for k, v in grad_rows[0].items() if k != "kernel"},
         "phase_s": phase_s, "total_s": time.perf_counter() - t_start})
     return finish(name)
 
