@@ -48,6 +48,16 @@ Subcommands:
   reconstruct
              image(s) -> EMOCA codes -> FLAME -> shaded renders (--textured,
              --detail: the UV-textured and detail-normal renders)
+  preprocess-mead
+             raw frame folders or videos (--videos, through ffmpeg) -> the
+             EMOCA-preprocessed MEAD layout: pseudo-GT codes, FAN landmarks,
+             the full-frame face crop (--full-frames, S3FD boxes with
+             --sfd-ckpt) and BiSeNet masks (--parse-faces)
+  screen-videos
+             CelebV-Text screening: expressive clips and their action
+             intervals (--curated: the packaged action table)
+  translate-captions
+             Style-B CelebV-Text prose -> Style-A instructions, offline
   import-prior / import-emote / import-clip
              the reference's published prior .pth, EMOTE .ckpt and CLIP
              vocab (+ HF text weights) -> checkpoints --checkpoint reads
@@ -62,8 +72,7 @@ random unless ``--checkpoint`` gives them (repeatable: each checkpoint's
 parts overwrite the seeded ones); ``--bf16`` computes in bfloat16 over
 float32 weights, as the JAX package's ``--bf16`` does; ``--flame-npz``
 gives real FLAME assets. The JAX package's other subcommands (bench,
-translate-captions, preprocess-mead, screen-videos, train-flint) are still
-to port.
+train-flint) are still to port.
 """
 
 from __future__ import annotations
@@ -72,7 +81,7 @@ import argparse
 
 
 def main(argv=None) -> int:
-    from . import (importers, reconstruct, run, train, train_emoca, train_emote,
+    from . import (importers, reconstruct, run, screen_videos, train, train_emoca, train_emote,
                    train_faceformer_vert, train_pirender, train_prior)
     from ._common import common_args
 
@@ -81,7 +90,7 @@ def main(argv=None) -> int:
     sub = p.add_subparsers(dest="cmd", required=True)
     run.register(sub, common_args)
     for mod in (train, train_faceformer_vert, train_emote, train_prior, train_pirender,
-                train_emoca, importers, reconstruct):
+                train_emoca, importers, reconstruct, screen_videos):
         mod.register(sub, common_args)
     args = p.parse_args(argv)
     return args.fn(args)

@@ -1,10 +1,13 @@
 """Importers of the reference's published files into the port's checkpoints
-(port of ``avi_talking_tpu/cli/importers.py`` but ``translate-captions``).
+(port of ``avi_talking_tpu/cli/importers.py``), and ``translate-captions``.
 
 Each writes a pipeline checkpoint (``infra.checkpoint``: ``<out>/state.pt``
 holding the parts it has) that ``--checkpoint`` reads; several can be given
 together. ``import-clip`` vendors the CLIP BPE vocab, and with ``--weights``
-also imports an HF ``CLIPTextModel`` state dict.
+also imports an HF ``CLIPTextModel`` state dict. ``translate-captions``
+turns Style-B CelebV-Text prose into Style-A instructions offline
+(``data.caption_translate``), on the host; its ``--device`` follows the
+port's rule all the same.
 """
 
 from __future__ import annotations
@@ -116,6 +119,37 @@ def cmd_import_emote(args) -> int:
     return 0
 
 
+def cmd_translate_captions(args) -> int:
+    """Style-B (CelebV-Text prose) -> Style-A (MEAD instruction) captions,
+    offline (the reference's style_celebv2meadtext.py without its LLM)."""
+    from ..infra.device import resolve_device
+
+    resolve_device(args.device)
+    from ..data.caption_translate import (
+        build_translation_prompt,
+        translate_style_b_to_a,
+    )
+
+    with open(args.input) as f:
+        if args.input.endswith(".json"):
+            data = json.load(f)
+            sentences = data if isinstance(data, list) else data["captions"]
+        else:
+            sentences = [ln.strip() for ln in f if ln.strip()]
+    if args.emit_prompt:
+        print(build_translation_prompt(sentences))
+        return 0
+    outs = [translate_style_b_to_a(s, seed=args.seed) for s in sentences]
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(outs, f, indent=1)
+        print(f"wrote {len(outs)} captions -> {args.out}")
+    else:
+        for s in outs:
+            print(s)
+    return 0
+
+
 def register(sub, common):
     ip = sub.add_parser("import-prior", help="reference prior .pth -> checkpoint")
     ip.add_argument("--pth", required=True)
@@ -139,3 +173,14 @@ def register(sub, common):
     ie.add_argument("--tiny", action="store_true")
     ie.add_argument("--config", default=None, help="EmoteConfig JSON matching the ckpt layout")
     ie.set_defaults(fn=cmd_import_emote)
+
+    tc = sub.add_parser("translate-captions",
+                        help="Style-B prose -> Style-A instructions (offline)")
+    tc.add_argument("--input", required=True, help=".json list or .txt lines")
+    tc.add_argument("--out", default=None)
+    tc.add_argument("--seed", type=int, default=0)
+    tc.add_argument("--emit-prompt", action="store_true",
+                    help="print the LLM translation prompt instead")
+    tc.add_argument("--device", default=None,
+                    help="torch device; the default is the CUDA card, and no card is an error")
+    tc.set_defaults(fn=cmd_translate_captions)

@@ -1,4 +1,14 @@
-"""train-emoca: EMOCA / DECA self-supervised training over an image folder
+"""preprocess-mead and train-emoca.
+
+preprocess-mead: raw frame folders (or videos, ``--videos``) -> the
+EMOCA-preprocessed MEAD layout that the ``--root`` commands read
+(``data.preprocess``): the EMOCA encoder's pseudo-GT codes, with FAN
+landmarks (``--fan-ckpt`` / ``--fan-detect``), the full-frame face crop
+(``--full-frames``, with S3FD boxes first given ``--sfd-ckpt``) and
+BiSeNet's photometric masks (``--bisenet-ckpt`` / ``--parse-faces``).
+Without weights each net is seeded random ("RANDOM-init" on stderr).
+
+train-emoca: EMOCA / DECA self-supervised training over an image folder
 (the reference's EMOCA training stage, ``train.emoca_trainer``): the
 coarse stage (``--exp-only``: EMOCA's expression tower alone; ``--emo-loss``:
 the emotion-consistency term through a frozen EmoNet) or the detail stage
@@ -208,7 +218,197 @@ def cmd_train_emoca(args) -> int:
     return 0
 
 
+_EMOCA_PREFIXES = ("deca.", "model.", "")
+
+
+def _preprocess_encoder(args, device):
+    """The EMOCA encoder of preprocess-mead: seeded (seed 0), then
+    ``--checkpoint``'s weights: a port checkpoint directory (its
+    ``encoder``, as reconstruct reads it) or a reference torch file, its
+    towers found under ``deca.`` / ``model.`` / no prefix."""
+    import torch
+
+    from ..infra.checkpoint import load_torch_state_dict, own_state, restore_checkpoint
+    from ..infra.init import random_module
+    from ..models.emoca import EmocaEncoder, emoca_encoder_state_from_torch
+
+    enc = random_module(lambda: EmocaEncoder(n_exp=6 if args.tiny else 50), device,
+                        torch.Generator().manual_seed(0))
+    if not args.checkpoint:
+        print("preprocess-mead: no --checkpoint; EMOCA encoder is RANDOM-init (smoke "
+              "semantics — codes are meaningless)", file=sys.stderr)
+    elif os.path.isdir(args.checkpoint):
+        enc.load_state_dict(own_state(enc, restore_checkpoint(args.checkpoint)["encoder"]))
+    else:
+        sd = load_torch_state_dict(args.checkpoint)
+        pref = next((c for c in _EMOCA_PREFIXES if any(k.startswith(c + "E_flame.") for k in sd)),
+                    "")
+        enc.load_state_dict(emoca_encoder_state_from_torch(sd, prefix=pref))
+    return enc
+
+
+def _seeded(factory, device, seed, ckpt=None, importer=None):
+    """``factory()`` on ``device`` with seeded weights, or ``ckpt``'s through
+    ``importer`` (a ``*_state_from_torch``)."""
+    import torch
+
+    from ..infra.checkpoint import load_torch_state_dict
+    from ..infra.init import random_module
+
+    module = random_module(factory, device, torch.Generator().manual_seed(seed))
+    if ckpt:
+        module.load_state_dict(importer(load_torch_state_dict(ckpt)))
+    return module
+
+
+def preprocess_nets(args, device):
+    """(EmocaPreprocessor, FAN detector or None, BiSeNet parser or None,
+    S3FD detector or None, FLAME or None) for preprocess-mead's flags."""
+    from ..data.preprocess import EmocaPreprocessor
+
+    pre = EmocaPreprocessor(encoder=_preprocess_encoder(args, device), max_b=args.max_b)
+    detector = None
+    if args.fan_ckpt or args.fan_detect:
+        from ..models.fan_landmarks import (FanLandmarkDetector, FanLandmarkNet,
+                                            fan_landmarks_state_from_torch)
+
+        if args.fan_ckpt:
+            fan = _seeded(FanLandmarkNet, device, 1, args.fan_ckpt,
+                          fan_landmarks_state_from_torch)
+            fan_size = 256  # 2DFAN4's depth-4 hourglass needs 256 px inputs
+        else:
+            print("preprocess-mead: --fan-detect without --fan-ckpt; FAN is RANDOM-init "
+                  "(smoke semantics)", file=sys.stderr)
+            fan = _seeded(lambda: FanLandmarkNet(num_modules=1, depth=2, stem_features=8,
+                                                 features=16), device, 1)
+            fan_size = None  # the tiny net takes any size divisible by 4
+        detector = FanLandmarkDetector(fan, max_b=args.max_b, input_size=fan_size)
+    if args.full_frames and detector is None:
+        raise SystemExit("--full-frames needs --fan-ckpt or --fan-detect")
+    parser = None
+    if args.bisenet_ckpt or args.parse_faces:
+        from ..models.bisenet import BiSeNet, FaceParser, bisenet_state_from_torch
+
+        if not args.bisenet_ckpt:
+            print("preprocess-mead: --parse-faces without --bisenet-ckpt; BiSeNet is "
+                  "RANDOM-init (smoke semantics)", file=sys.stderr)
+        net = _seeded(BiSeNet, device, 2, args.bisenet_ckpt, bisenet_state_from_torch)
+        parser = FaceParser(net, size=512 if args.bisenet_ckpt else 64, max_b=args.max_b)
+    box_detector = None
+    if args.sfd_ckpt:
+        if not args.full_frames:
+            raise SystemExit("--sfd-ckpt only applies with --full-frames")
+        from ..models.sfd import S3FD, SfdDetector, sfd_state_from_torch
+
+        box_detector = SfdDetector(_seeded(S3FD, device, 3, args.sfd_ckpt, sfd_state_from_torch),
+                                   threshold=args.sfd_threshold)
+    flame = None
+    if args.tiny or args.flame_npz:
+        from ..core.assets import load_flame_assets, synthetic_assets
+        from ..core.flame import FlameModel
+
+        if args.tiny:
+            flame = FlameModel(synthetic_assets(n_shape=8, n_exp=6, n_static_landmarks=51
+                                                ).to(device), n_shape=8, n_exp=6)
+        else:
+            flame = FlameModel(load_flame_assets(args.flame_npz, 100, 50).to(device),
+                               n_shape=100, n_exp=50)
+    return pre, detector, parser, box_detector, flame
+
+
+def cmd_preprocess_mead(args) -> int:
+    """Raw frame folders -> the EMOCA-preprocessed MEAD layout (the
+    reference's MEADDataModule / EmocaPreprocessor offline pass)."""
+    from ..data.preprocess import preprocess_clip_folder, preprocess_clip_video
+    from ..infra.device import resolve_device
+
+    device = resolve_device(args.device)
+    pre, detector, parser, box_detector, flame = preprocess_nets(args, device)
+    opts = dict(write_detections=not args.no_detections, flame=flame, detector=detector,
+                crop_full_frames=args.full_frames, crop_size=args.size,
+                crop_scale=args.crop_scale, crop_smooth_sigma=args.crop_smooth_sigma,
+                box_detector=box_detector, parser=parser)
+    if args.videos:
+        from ..data.videoio import have_ffmpeg
+
+        if not have_ffmpeg():
+            raise SystemExit("preprocess-mead --videos: ffmpeg not found on PATH — video "
+                             "decode needs it; extract frames to PNG folders and re-run "
+                             "without --videos")
+        exts = (".mp4", ".avi", ".mov", ".mkv", ".webm")
+        clips = sorted(f for f in os.listdir(args.src) if f.lower().endswith(exts)
+                       and os.path.isfile(os.path.join(args.src, f)))
+        runner = lambda clip: preprocess_clip_video(
+            pre, os.path.join(args.src, clip), args.out,
+            fps=args.fps if args.fps > 0 else None, **opts)
+    else:
+        clips = sorted(d for d in os.listdir(args.src)
+                       if os.path.isdir(os.path.join(args.src, d)))
+        runner = lambda clip: preprocess_clip_folder(pre, os.path.join(args.src, clip),
+                                                     args.out, **opts)
+    done = 0
+    for clip in clips:
+        out = runner(clip)
+        if out:
+            done += 1
+            print(f"[{done}/{len(clips)}] {clip} -> {out}")
+    print(f"preprocessed {done}/{len(clips)} clips -> {args.out}")
+    return 0 if done else 1
+
+
+def _register_preprocess(sub):
+    pm = sub.add_parser("preprocess-mead",
+                        help="raw frame folders -> EMOCA-preprocessed MEAD layout")
+    pm.add_argument("--src", required=True,
+                    help="root of <clip>/*.png (+ optional <clip>/*.wav, validity.npy), or of "
+                         "video files with --videos")
+    pm.add_argument("--out", required=True)
+    pm.add_argument("--videos", action="store_true",
+                    help="treat --src entries as VIDEO FILES (mp4/avi/...): decode through an "
+                         "ffmpeg rawvideo pipe (data.videoio), demux audio to 16 kHz wav")
+    pm.add_argument("--fps", type=float, default=25.0,
+                    help="with --videos: resample to this frame rate (reference trains at 25 "
+                         "fps); <=0 keeps source")
+    pm.add_argument("--checkpoint", default=None,
+                    help="EMOCA encoder weights: a checkpoint directory or a torch ckpt")
+    pm.add_argument("--size", type=int, default=224)
+    pm.add_argument("--max-b", type=int, default=32, help="frames per encoder call")
+    pm.add_argument("--no-detections", action="store_true",
+                    help="skip writing detections/*.png crops")
+    pm.add_argument("--flame-npz", default=None,
+                    help="FLAME assets: also export pseudo landmarks.npy per clip (train-emoca "
+                         "--root fine-tune source)")
+    pm.add_argument("--fan-ckpt", default=None,
+                    help="face_alignment 2DFAN4 torch weights: detect landmarks + per-frame "
+                         "validity")
+    pm.add_argument("--fan-detect", action="store_true",
+                    help="run the FAN detector even without weights (random-init smoke)")
+    pm.add_argument("--full-frames", action="store_true",
+                    help="source PNGs are FULL video frames: detect + warp-crop the face box "
+                         "to --size before encoding (requires --fan-ckpt or --fan-detect)")
+    pm.add_argument("--crop-scale", type=float, default=1.25,
+                    help="face-box scale for --full-frames (reference 1.25)")
+    pm.add_argument("--crop-smooth-sigma", type=float, default=3.0,
+                    help="gaussian smoothing of the face-box track over time (reference "
+                         "sigma=3; 0 disables); interpolates over failed detections first")
+    pm.add_argument("--sfd-ckpt", default=None,
+                    help="S3FD torch weights: stage-1 face-box detection before FAN (for "
+                         "frames where the face does not dominate); requires --full-frames")
+    pm.add_argument("--sfd-threshold", type=float, default=0.5,
+                    help="S3FD keep threshold (reference filter_threshold)")
+    pm.add_argument("--bisenet-ckpt", default=None,
+                    help="face-parsing BiSeNet torch weights: write photometric masks/ per "
+                         "clip (train-emoca useSeg)")
+    pm.add_argument("--parse-faces", action="store_true",
+                    help="run the face parser even without weights (random-init smoke)")
+    pm.add_argument("--tiny", action="store_true")
+    pm.add_argument("--device", default=None,
+                    help="torch device; the default is the CUDA card, and no card is an error")
+    pm.set_defaults(fn=cmd_preprocess_mead)
+
+
 def register(sub, common):
+    _register_preprocess(sub)
     tm = sub.add_parser("train-emoca",
                         help="EMOCA coarse self-supervised training over an image folder")
     tm.add_argument("--root", default=None,

@@ -1,6 +1,8 @@
-"""Host-side batching (port of ``pad_to_bucket``, ``batch_iterator`` and
-``default_collate`` from ``avi_talking_tpu/data/batching.py``): numpy
-batches, drawn in the JAX package's order for the same seed."""
+"""Host-side batching (port of ``pad_to_bucket``, ``batch_iterator``,
+``default_collate`` and ``chunked_apply`` from
+``avi_talking_tpu/data/batching.py``): numpy batches, drawn in the JAX
+package's order for the same seed, and the preprocessors' fixed-size frame
+chunks."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ import itertools
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def pad_to_bucket(x: np.ndarray, buckets: Sequence[int], axis: int = 0) -> np.ndarray:
@@ -57,3 +60,57 @@ def default_collate(items: List[Any]) -> Dict[str, Any]:
         else:
             out[k] = vals
     return out
+
+
+def _fetch(n: int, res) -> Any:
+    """A chunk's result, its first ``n`` rows, as numpy: dict, or tuple."""
+    if isinstance(res, dict):
+        return {k: v.detach().cpu().numpy()[:n] for k, v in res.items()}
+    if not isinstance(res, tuple):
+        res = (res,)
+    return tuple(r.detach().cpu().numpy()[:n] for r in res)
+
+
+def chunked_apply(fn: Callable, frames, max_b: int, inflight: int = 2,
+                  device: Optional[torch.device] = None):
+    """Run ``fn`` over ``frames`` in chunks of exactly ``max_b`` rows.
+
+    The tail chunk is padded by repeating its last frame, so every call of
+    ``fn`` sees one shape. ``frames`` is a numpy array (copied to
+    ``device``: on CUDA from pinned host memory with ``non_blocking``) or a
+    tensor (used where it lies). Up to ``inflight`` chunk results stay
+    unfetched, and so unsynchronised, while later chunks are copied and
+    launched; ``inflight=0`` fetches each chunk before the next.
+
+    ``fn(chunk) -> tensor | tuple of tensors | dict``; the results are cut
+    back to the true length and concatenated as numpy, one array (or a
+    tuple, or a dict) as ``fn`` returns."""
+    T = frames.shape[0]
+    if T == 0:
+        raise ValueError("chunked_apply: empty frame batch")
+    on_host = isinstance(frames, np.ndarray)
+    if device is None:
+        device = torch.device("cpu") if on_host else frames.device
+    pending: List[Any] = []  # (n, result) not yet fetched
+    outs: List[Any] = []
+    for i in range(0, T, max_b):
+        chunk = frames[i:i + max_b]
+        n = chunk.shape[0]
+        if on_host:
+            if n < max_b:
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], max_b - n, axis=0)])
+            chunk = torch.from_numpy(np.ascontiguousarray(chunk))
+            if device.type == "cuda":
+                chunk = chunk.pin_memory().to(device, non_blocking=True)
+            else:
+                chunk = chunk.to(device)
+        elif n < max_b:
+            chunk = torch.cat([chunk, chunk[-1:].expand(max_b - n, *chunk.shape[1:])])
+        pending.append((n, fn(chunk)))
+        while len(pending) > max(0, inflight):
+            outs.append(_fetch(*pending.pop(0)))
+    outs.extend(_fetch(*p) for p in pending)
+    if isinstance(outs[0], dict):
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+    cat = tuple(np.concatenate([o[k] for o in outs]) for k in range(len(outs[0])))
+    return cat if len(cat) > 1 else cat[0]

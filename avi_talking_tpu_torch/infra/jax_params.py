@@ -575,3 +575,133 @@ def detail_generator_state_from_jax(variables: Tree) -> State:
         _put(out, f"conv_blocks.{3 + 4 * i}.", _batchnorm(params[f"bn{i}"], stats[f"bn{i}"]))
     _put(out, "conv_blocks.21.", _conv_nd(params["conv_out"]))
     return out
+
+
+def _bn_wrapped(p: Tree, s: Tree, name: str) -> State:
+    """A BatchNorm under flax's ``_BN`` wrapper (``{name: {"bn": ...}}``)."""
+    return _batchnorm(p[name]["bn"], s[name]["bn"])
+
+
+def fan_landmarks_state_from_jax(variables: Tree) -> State:
+    """``models.fan_landmarks.FanLandmarkNet`` variables -> port state, under
+    face_alignment's names."""
+    p, s = variables["params"], variables["batch_stats"]
+    out: State = {}
+    _put(out, "conv1.", _conv_nd(p["conv1"]))
+    _put(out, "bn1.", _bn_wrapped(p, s, "bn1"))
+    for name in ("conv2", "conv3", "conv4"):
+        _put(out, name + ".", _fan_convblock(p[name], s[name]))
+    i = 0
+    while f"m{i}" in p:
+        for blk in p[f"m{i}"]:
+            _put(out, f"m{i}.{blk}.", _fan_convblock(p[f"m{i}"][blk], s[f"m{i}"][blk]))
+        _put(out, f"top_m_{i}.", _fan_convblock(p[f"top_m_{i}"], s[f"top_m_{i}"]))
+        _put(out, f"bn_end{i}.", _bn_wrapped(p, s, f"bn_end{i}"))
+        for name in (f"conv_last{i}", f"l{i}", f"bl{i}", f"al{i}"):
+            if name in p:
+                _put(out, name + ".", _conv_nd(p[name]))
+        i += 1
+    return out
+
+
+def sfd_state_from_jax(variables: Tree) -> State:
+    """``models.sfd.S3FD`` params -> port state (face_alignment's names; the
+    L2Norm scales as they are)."""
+    out: State = {}
+    for name, p in variables["params"].items():
+        if "kernel" in p:
+            _put(out, name + ".", _conv_nd(p))
+        else:
+            out[name + ".weight"] = _a(p["weight"])
+    return out
+
+
+def _cbr(p: Tree, s: Tree) -> State:
+    out = _conv_nd(p["conv"])
+    return {"conv." + k: v for k, v in out.items()} | {
+        "bn." + k: v for k, v in _bn_wrapped(p, s, "bn").items()}
+
+
+def bisenet_state_from_jax(variables: Tree) -> State:
+    """``models.bisenet.BiSeNet`` variables -> port state, under
+    face-parsing.PyTorch's names (``cp.resnet.*``, ``cp.arm16``, ``ffm.*``,
+    ``conv_out.*``)."""
+    p, s = variables["params"], variables["batch_stats"]
+    out: State = {}
+    rp, rs = p["resnet"], s["resnet"]
+    _put(out, "cp.resnet.conv1.", _conv_nd(rp["conv1"]))
+    _put(out, "cp.resnet.bn1.", _bn_wrapped(rp, rs, "bn1"))
+    for L in range(1, 5):
+        for b in range(2):
+            bp, bs, pre = rp[f"layer{L}_{b}"], rs[f"layer{L}_{b}"], f"cp.resnet.layer{L}.{b}."
+            for c in ("1", "2"):
+                _put(out, f"{pre}conv{c}.", _conv_nd(bp[f"conv{c}"]))
+                _put(out, f"{pre}bn{c}.", _bn_wrapped(bp, bs, f"bn{c}"))
+            if "down_conv" in bp:
+                _put(out, pre + "downsample.0.", _conv_nd(bp["down_conv"]))
+                _put(out, pre + "downsample.1.", _bn_wrapped(bp, bs, "down_bn"))
+    for arm in ("arm16", "arm32"):
+        _put(out, f"cp.{arm}.conv.", _cbr(p[arm]["conv"], s[arm]["conv"]))
+        _put(out, f"cp.{arm}.conv_atten.", _conv_nd(p[arm]["conv_atten"]))
+        _put(out, f"cp.{arm}.bn_atten.", _bn_wrapped(p[arm], s[arm], "bn_atten"))
+    for head in ("conv_head16", "conv_head32", "conv_avg"):
+        _put(out, f"cp.{head}.", _cbr(p[head], s[head]))
+    _put(out, "ffm.convblk.", _cbr(p["ffm"]["convblk"], s["ffm"]["convblk"]))
+    _put(out, "ffm.conv1.", _conv_nd(p["ffm"]["conv1"]))
+    _put(out, "ffm.conv2.", _conv_nd(p["ffm"]["conv2"]))
+    _put(out, "conv_out.conv.", _cbr(p["conv_out"]["conv"], s["conv_out"]["conv"]))
+    _put(out, "conv_out.conv_out.", _conv_nd(p["conv_out"]["conv_out"]))
+    return out
+
+
+def resnet_se_state_from_jax(variables: Tree) -> State:
+    """``models.resnet_se.ResNetSE`` variables -> port state, under the
+    reference's names (``layer{l}.{b}.se.fc.0``, ``attention.0`` / ``.2`` /
+    ``.3``)."""
+    p, s = variables["params"], variables["batch_stats"]
+    out: State = {}
+    _put(out, "conv1.", _conv_nd(p["conv1"]))
+    _put(out, "bn1.", _batchnorm(p["bn1"], s["bn1"]))
+    li = 1
+    while f"layer{li}_0" in p:
+        bi = 0
+        while f"layer{li}_{bi}" in p:
+            bp, bs, pre = p[f"layer{li}_{bi}"], s[f"layer{li}_{bi}"], f"layer{li}.{bi}."
+            for c in ("1", "2"):
+                _put(out, f"{pre}conv{c}.", _conv_nd(bp[f"conv{c}"]))
+                _put(out, f"{pre}bn{c}.", _batchnorm(bp[f"bn{c}"], bs[f"bn{c}"]))
+            _put(out, pre + "se.fc.0.", _dense(bp["se"]["fc0"]))
+            _put(out, pre + "se.fc.2.", _dense(bp["se"]["fc2"]))
+            if "down_conv" in bp:
+                _put(out, pre + "downsample.0.", _conv_nd(bp["down_conv"]))
+                _put(out, pre + "downsample.1.", _batchnorm(bp["down_bn"], bs["down_bn"]))
+            bi += 1
+        li += 1
+    _put(out, "attention.0.", _conv(p["att0"]))
+    _put(out, "attention.2.", _batchnorm(p["att2"], s["att2"]))
+    _put(out, "attention.3.", _conv(p["att3"]))
+    _put(out, "fc.", _dense(p["fc"]))
+    return out
+
+
+def d3dfr_state_from_jax(variables: Tree) -> State:
+    """``viz.bfm.D3dfrReconNet`` variables -> port state: ``backbone.*`` and
+    the heads as 1x1 convs ``final_layers.{i}``."""
+    p, s = variables["params"], variables["batch_stats"]
+    out: State = {}
+    _put(out, "backbone.", resnet50_state_from_jax(p["backbone"], s["backbone"]))
+    i = 0
+    while f"head{i}" in p:
+        out[f"final_layers.{i}.weight"] = _a(np.asarray(p[f"head{i}"]["kernel"]).T[:, :, None, None])
+        out[f"final_layers.{i}.bias"] = _a(p[f"head{i}"]["bias"])
+        i += 1
+    return out
+
+
+def wav2vec2_ser_state_from_jax(params: Tree) -> State:
+    """``audio.ser.Wav2Vec2SER`` params -> port state."""
+    out: State = {}
+    _put(out, "wav2vec2.", wav2vec2_state_from_jax(params["wav2vec2"]))
+    _put(out, "projector.", _dense(params["projector"]))
+    _put(out, "classifier.", _dense(params["classifier"]))
+    return out

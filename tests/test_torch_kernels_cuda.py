@@ -454,6 +454,44 @@ def _head_ellipsoid(n_lat=72, n_lon=72, frames=2):
     return verts, faces, per_vertex, per_corner
 
 
+def _bfm_size_ndc(frames=2):
+    """A closed ellipsoid at BFM09's front-face size (188 x 188: 70,688
+    faces) posed as ``viz.bfm.render_bfm`` sees it at 224^2: world radii
+    1.0 / 1.25 / 0.8, camera at z = 10, focal 1015; its poles fall outside
+    the image, so no 32^2 tile holds more than the cap of 4096 faces."""
+    verts, faces, _, _ = _head_ellipsoid(188, 188, frames)
+    x, y = verts[..., 0] / 0.58, verts[..., 1] * 1.25 / 0.78
+    depth = 10.0 - (verts[..., 2] - 0.6) * 0.8 / 0.5
+    ndc = np.stack([2 * (1015 * x / depth + 112) / 224 - 1, 2 * (1015 * y / depth + 112) / 224 - 1,
+                    depth], -1).astype(np.float32)
+    return torch.from_numpy(ndc).cuda(), torch.from_numpy(faces).cuda()
+
+
+@pytest.mark.cuda
+def test_visibility_kernel_bit_equal_at_cap_4096():
+    """K2 at render_bfm's launch: a ~70.7k-face closed mesh at 224^2, tile
+    32, cap 4096 (the kernel loops over the cap in staged chunks): bit-equal
+    to the plain version, no tile over the cap, one launch."""
+    from avi_talking_tpu_torch.viz.rasterizer import _visibility_inputs as binned_inputs
+    from avi_talking_tpu_torch.viz.rasterizer import bin_overflow
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    ndc, faces = _bfm_size_ndc()
+    assert faces.shape[0] >= 70000
+    most, share = bin_overflow(ndc, faces, 224, 224, 32, 4096)
+    assert int(most) <= 4096 and float(share) == 0.0
+    _, tri, valid, px, py, *_ = binned_inputs(ndc, faces, 224, 224, 32, 4096)
+    assert tri.shape[1] == 4096 and int(valid.reshape(valid.shape[0], -1).sum(1).max()) > 1024
+    before = kras.launches
+    z, s = kras.rasterize_tiles_visibility(tri, valid, px, py)
+    torch.cuda.synchronize()
+    assert kras.launches == before + 1
+    rz, rs = kras.rasterize_tiles_visibility_reference(tri, valid, px, py, chunk=64)
+    assert torch.equal(s, rs) and torch.equal(z, rz)
+    assert int(s.max()) > 1024  # winners past the old cap of 1024
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("per_corner", [False, True])
 def test_kernel_route_gradients_match_cpu(per_corner):
