@@ -11,7 +11,14 @@ Points kept from the JAX module:
 
 * the per-channel ``GroupNorm(C, C)`` sits on conv layer 0 only, and sees
   the padded length of a bucket-padded batch;
-* the resample runs before the feature projection;
+* the resample runs before the feature projection, and ``resample=False``
+  skips it whatever the rates;
+* ``mask_time_indices`` (SpecAugment, ``audio.specaugment``) replaces the
+  masked frames by the learned ``masked_spec_embed`` after the projection
+  and before the ``valid_len`` zeroing. JAX creates that parameter only in
+  a model initialised with a mask, and the importers drop it as train-only,
+  so the port registers it only in a model built with ``mask_time=True``:
+  every other state dict loads as it did;
 * the positional conv is one ``Conv1d(k=128, groups=16, padding=64)`` with
   the last frame trimmed for the even kernel (the JAX group unrolling only
   works around XLA's partitioner);
@@ -202,20 +209,28 @@ class Encoder(nn.Module):
 
 
 class Wav2Vec2Model(nn.Module):
-    """Conv extractor -> (resample) -> projection -> transformer.
+    """Conv extractor -> (resample) -> projection -> (time mask) ->
+    transformer.
 
-    ``forward(input_values (B, samples), output_len, valid_len)`` returns
-    features (B, output_len or native frames, hidden_size).
+    ``forward(input_values (B, samples), output_len, valid_len, resample,
+    mask_time_indices)`` returns features (B, output_len or native frames,
+    hidden_size). ``mask_time=True`` adds the ``masked_spec_embed``
+    parameter (drawn from U[0, 1) at a seeded init, as JAX's
+    ``uniform(1.0)``) that ``mask_time_indices`` needs.
     """
 
     def __init__(self, cfg: Wav2Vec2Config, model_expected_fps: int = 50,
-                 target_fps: int = 25, dtype: torch.dtype = torch.float32):
+                 target_fps: int = 25, dtype: torch.dtype = torch.float32,
+                 mask_time: bool = False):
         super().__init__()
         self.cfg = cfg
         self.model_expected_fps = model_expected_fps
         self.target_fps = target_fps
         self.feature_extractor = FeatureExtractor(cfg)
         self.feature_projection = FeatureProjection(cfg)
+        if mask_time:
+            self.masked_spec_embed = nn.Parameter(torch.empty(cfg.hidden_size))
+            self.uniform_init = {"masked_spec_embed": (0.0, 1.0)}
         self.encoder = Encoder(cfg)
         set_compute_dtype(self, dtype)
 
@@ -224,15 +239,22 @@ class Wav2Vec2Model(nn.Module):
         input_values: torch.Tensor,
         output_len: Optional[int] = None,
         valid_len: Optional[torch.Tensor] = None,  # (B,) valid OUTPUT frames
+        resample: bool = True,
+        mask_time_indices: Optional[torch.Tensor] = None,  # (B, T) bool
     ) -> torch.Tensor:
         """``valid_len`` masks padded tail frames out of self-attention (the
         HF attention_mask path)."""
         x = self.feature_extractor(input_values)
-        if self.model_expected_fps != self.target_fps or output_len is not None:
+        if resample and (self.model_expected_fps != self.target_fps or output_len is not None):
             if output_len is None:
                 output_len = int(x.shape[1] / self.model_expected_fps * self.target_fps)
             x = linear_interpolate(x, output_len, axis=1)
         x = self.feature_projection(x)
+        if mask_time_indices is not None:
+            if not hasattr(self, "masked_spec_embed"):
+                raise ValueError("mask_time_indices needs a model built with mask_time=True")
+            embed = self.masked_spec_embed.to(x.dtype)
+            x = torch.where(mask_time_indices.to(x.device)[..., None], embed, x)
         B, T = x.shape[:2]
         if valid_len is None:
             key_bias = torch.zeros(B, T, dtype=x.dtype, device=x.device)

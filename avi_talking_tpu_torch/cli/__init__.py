@@ -24,6 +24,9 @@ Subcommands:
              (--root) or MEAD (--mead-root) batches, with the disentangle
              shuffle terms and the rendered emotion loss through the frozen
              FAN tower (--emo-cls, --emo-cls-pretrain)
+  train-flint
+             FLINT motion-prior training (VAE, or VQ-VAE with --vq) on
+             synthetic motion or a MEAD tree's exp + jaw windows (--root)
   train-emote
              staged EMOTE training (geometric, then condition exchange at
              lr / 2) on synthetic batches or a MEAD tree (--root, split by
@@ -71,8 +74,7 @@ a card and without ``--device`` the commands raise. Weights are seeded
 random unless ``--checkpoint`` gives them (repeatable: each checkpoint's
 parts overwrite the seeded ones); ``--bf16`` computes in bfloat16 over
 float32 weights, as the JAX package's ``--bf16`` does; ``--flame-npz``
-gives real FLAME assets. The JAX package's other subcommands (bench,
-train-flint) are still to port.
+gives real FLAME assets. The JAX package's ``bench`` is still to port.
 """
 
 from __future__ import annotations

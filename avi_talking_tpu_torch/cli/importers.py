@@ -12,10 +12,8 @@ port's rule all the same.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
-import typing
 from pathlib import Path
 
 
@@ -84,33 +82,18 @@ def cmd_import_clip(args) -> int:
     return 0
 
 
-def _config_from_dict(cls, d):
-    """A (nested) config dataclass from a JSON dict; unknown fields raise."""
-    hints = typing.get_type_hints(cls)
-    names = {f.name for f in dataclasses.fields(cls)}
-    kwargs = {}
-    for k, v in d.items():
-        if k not in names:
-            raise KeyError(f"unknown config field {cls.__name__}.{k}")
-        t = hints.get(k)
-        if dataclasses.is_dataclass(t) and isinstance(v, dict):
-            kwargs[k] = _config_from_dict(t, v)
-        else:
-            kwargs[k] = tuple(v) if isinstance(v, list) else v
-    return cls(**kwargs)
-
-
 def cmd_import_emote(args) -> int:
     """An EMOTE torch checkpoint -> a checkpoint with the ``head`` part
     (Lightning or bare prefixes, both squashers, FLINT's nesting)."""
     from ..infra.checkpoint import load_torch_state_dict, save_checkpoint
+    from ..infra.config import from_dict
     from ..infra.emote_import import emote_state_from_torch
     from ..models.emote import EmoteConfig
 
     sd = load_torch_state_dict(args.ckpt)
     if args.config:
         with open(args.config) as f:
-            cfg = _config_from_dict(EmoteConfig, json.load(f))
+            cfg = from_dict(EmoteConfig, json.load(f))
     else:
         cfg = EmoteConfig.tiny() if args.tiny else EmoteConfig()
     state = {"head": emote_state_from_torch(sd, cfg)}

@@ -7,7 +7,11 @@ EMOCA-preprocessed MEAD tree (``data.train_batches.EmoteBatchBuilder``),
 split by clip into train and val (``--val-fraction``). ``--bf16`` builds
 the head and the towers at a bfloat16 compute dtype over float32 weights,
 as the JAX command does: K1's bfloat16 kernel runs in every wav2vec2 layer
-of the step, and its backward is the float32 recompute."""
+of the step, and its backward is the float32 recompute.
+
+train-flint: FLINT, EMOTE's stage-0 motion prior, trained as a VAE (or a
+VQ-VAE with ``--vq``) on synthetic motion, or with ``--root`` on the
+exp + jaw windows of a MEAD tree."""
 
 from __future__ import annotations
 
@@ -172,6 +176,53 @@ def cmd_train_emote(args) -> int:
     return 0
 
 
+def flint_config(tiny: bool):
+    """``FlintConfig()``, or the JAX command's tiny one."""
+    from ..models.flint import FlintConfig
+
+    return (FlintConfig(feature_dim=32, bottleneck_dim=32, quant_factor=2, nhead=4,
+                        intermediate_size=64, out_dim=9, n_exp=6)
+            if tiny else FlintConfig())
+
+
+def flint_batches(args, fcfg, T: int):
+    """The command's endless (B, T, out_dim) float32 motion batches: the
+    exp + jaw windows of ``--root`` (``EmoteBatchBuilder``), else N(0, 0.1^2)
+    drawn from ``default_rng(--seed)``, as the JAX command draws them."""
+    import numpy as np
+
+    B = args.batch_size
+    if args.root:
+        from ..data.mead import MeadEmocaDataset
+        from ..data.train_batches import EmoteBatchBuilder, emote_batches
+
+        builder = EmoteBatchBuilder(MeadEmocaDataset(root=args.root, seq_length=T), frames=T,
+                                    n_exp=fcfg.n_exp, n_shape=8 if args.tiny else 300)
+        if len(builder) == 0:
+            raise SystemExit(f"no usable MEAD clips under {args.root}")
+        print(f"data root: {len(builder)} clips")
+        for b in emote_batches(builder, min(B, len(builder)), epochs=None):
+            yield np.concatenate([b["gt_exp"], b["gt_jaw"]], axis=-1)
+    else:
+        rng = np.random.default_rng(args.seed)
+        while True:
+            yield rng.standard_normal((B, T, fcfg.out_dim)).astype(np.float32) * 0.1
+
+
+def cmd_train_flint(args) -> int:
+    from ..infra.device import resolve_device
+    from ..train.driver import train_flint_vae
+
+    device = resolve_device(args.device)
+    fcfg = flint_config(args.tiny)
+    T = args.frames - args.frames % fcfg.latent_frame_size
+    res = train_flint_vae(flint_batches(args, fcfg, T), total_steps=args.steps, flint_cfg=fcfg,
+                          lr=args.lr, logdir=args.logdir, ckpt_dir=args.ckpt_dir,
+                          seed=args.seed, quantizer="vq" if args.vq else None, device=device)
+    print("final:", res["metrics"])
+    return 0
+
+
 def register(sub, common):
     te = sub.add_parser("train-emote", help="staged EMOTE training loop")
     te.add_argument("--steps", type=int, default=200, help="steps per stage")
@@ -197,3 +248,14 @@ def register(sub, common):
     te.add_argument("--device", default=None,
                     help="torch device; the default is the CUDA card, and no card is an error")
     te.set_defaults(fn=cmd_train_emote)
+    tl = sub.add_parser("train-flint", help="FLINT motion-prior (VAE / VQ-VAE) training")
+    tl.add_argument("--steps", type=int, default=200)
+    tl.add_argument("--batch-size", type=int, default=32)
+    tl.add_argument("--frames", type=int, default=64)
+    tl.add_argument("--lr", type=float, default=1e-4)
+    tl.add_argument("--root", default=None, help="EMOCA-preprocessed MEAD root")
+    tl.add_argument("--vq", action="store_true", help="VQ-VAE mode")
+    tl.add_argument("--logdir", default=None)
+    tl.add_argument("--ckpt-dir", default=None)
+    common(tl)
+    tl.set_defaults(fn=cmd_train_flint)

@@ -101,8 +101,11 @@ def lbs(
     betas: torch.Tensor,  # (B, n_shape + n_exp)
     pose: torch.Tensor,  # (B, J*3) axis-angle
     assets: FlameAssets,
+    detach_pose_correctives: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Linear blend skinning -> (vertices (B, V, 3), posed joints (B, J, 3))."""
+    """Linear blend skinning -> (vertices (B, V, 3), posed joints (B, J, 3)).
+    ``detach_pose_correctives`` stops the gradient through the pose-corrective
+    offsets (JAX's ``stop_gradient``)."""
     B = betas.shape[0]
     J = assets.num_joints
     v_shaped = assets.v_template[None] + blend_shapes(betas, assets.shapedirs)
@@ -111,7 +114,10 @@ def lbs(
     rot_mats = batch_rodrigues(pose.reshape(-1, 3)).reshape(B, J, 3, 3)
     ident = torch.eye(3, dtype=betas.dtype, device=betas.device)
     pose_feature = (rot_mats[:, 1:] - ident).reshape(B, -1)
-    v_posed = v_shaped + (pose_feature @ assets.posedirs).reshape(B, -1, 3)
+    pose_offsets = (pose_feature @ assets.posedirs).reshape(B, -1, 3)
+    if detach_pose_correctives:
+        pose_offsets = pose_offsets.detach()
+    v_posed = v_shaped + pose_offsets
 
     posed_joints, rel_tf = _rigid_transform_chain(rot_mats, joints, FLAME_PARENTS[:J])
     T = torch.einsum("vj,bjpq->bvpq", assets.lbs_weights, rel_tf)

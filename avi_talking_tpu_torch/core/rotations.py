@@ -1,5 +1,7 @@
 """Rotations (port of ``avi_talking_tpu/core/rotations.py``:
-``batch_rodrigues`` and ``rot_mat_to_euler_y``)."""
+``batch_rodrigues``, ``axis_angle_to_matrix``, the 6D representation
+(``rotation_6d_to_matrix``, ``matrix_to_rotation_6d``) and
+``rot_mat_to_euler_y``)."""
 
 from __future__ import annotations
 
@@ -25,3 +27,23 @@ def rot_mat_to_euler_y(rot_mats: torch.Tensor) -> torch.Tensor:
     ``atan2(-R[2,0], sqrt(R[0,0]^2 + R[1,0]^2))``."""
     sy = torch.sqrt(rot_mats[..., 0, 0] ** 2 + rot_mats[..., 1, 0] ** 2)
     return torch.atan2(-rot_mats[..., 2, 0], sy)
+
+
+def axis_angle_to_matrix(aa: torch.Tensor) -> torch.Tensor:
+    """(..., 3) axis-angle -> (..., 3, 3)."""
+    return batch_rodrigues(aa.reshape(-1, 3)).reshape(*aa.shape[:-1], 3, 3)
+
+
+def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
+    """(..., 6) -> (..., 3, 3) by Gram-Schmidt (Zhou et al. 2019); the rows
+    are b1, b2, b1 x b2."""
+    a1, a2 = d6[..., :3], d6[..., 3:]
+    b1 = a1 / torch.linalg.norm(a1, dim=-1, keepdim=True)
+    b2 = a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1
+    b2 = b2 / torch.linalg.norm(b2, dim=-1, keepdim=True)
+    return torch.stack([b1, b2, torch.linalg.cross(b1, b2, dim=-1)], dim=-2)
+
+
+def matrix_to_rotation_6d(mat: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 6): the first two rows."""
+    return mat[..., :2, :].reshape(*mat.shape[:-2], 6)

@@ -1,12 +1,14 @@
 """Host-side batching (port of ``pad_to_bucket``, ``batch_iterator``,
-``default_collate`` and ``chunked_apply`` from
+``default_collate``, ``chunked_apply`` and ``prefetch_to_device`` from
 ``avi_talking_tpu/data/batching.py``): numpy batches, drawn in the JAX
-package's order for the same seed, and the preprocessors' fixed-size frame
-chunks."""
+package's order for the same seed, the preprocessors' fixed-size frame
+chunks, and batches copied to the card ahead of the step."""
 
 from __future__ import annotations
 
 import itertools
+import queue
+import threading
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -114,3 +116,74 @@ def chunked_apply(fn: Callable, frames, max_b: int, inflight: int = 2,
         return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
     cat = tuple(np.concatenate([o[k] for o in outs]) for k in range(len(outs[0])))
     return cat if len(cat) > 1 else cat[0]
+
+
+def _to_device(tree: Any, device: torch.device, moved: List[torch.Tensor]) -> Any:
+    """Array leaves of nested dicts / lists / tuples copied to ``device``
+    (recorded in ``moved``); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device, moved) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device, moved) for v in tree)
+    if isinstance(tree, np.ndarray):
+        tree = torch.from_numpy(tree)
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    if device.type == "cuda" and tree.device.type == "cpu":
+        tree = tree.pin_memory()
+    out = tree.to(device, non_blocking=device.type == "cuda")
+    moved.append(out)
+    return out
+
+
+def prefetch_to_device(iterator: Iterator[Any], size: int = 2,
+                       device: Optional[Any] = None) -> Iterator[Any]:
+    """Batches of ``iterator`` with their array leaves (numpy arrays and
+    tensors) on ``device`` (the card unless given), copied ahead of use.
+
+    A daemon thread pulls batches and keeps up to ``size`` in flight, so the
+    host's decoding and the copy overlap the step. On the card each batch is
+    copied from pinned memory on a side stream; before a batch is yielded
+    the consumer's stream waits for that copy's event, and each copied
+    tensor is marked used on the consumer's stream (``record_stream``) so
+    its memory is not reused while the step reads it. Other leaves (paths,
+    strings) pass through; an error of ``iterator`` is raised in the
+    consumer. JAX's ``sharding`` argument (a dp batch split over a mesh)
+    waits for the port's data-parallel layer."""
+    from ..infra.device import resolve_device
+
+    device = resolve_device(device)
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, size))
+    end = object()
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def producer():
+        try:
+            for batch in iterator:
+                moved: List[torch.Tensor] = []
+                if side is None:
+                    q.put((_to_device(batch, device, moved), None, moved))
+                    continue
+                with torch.cuda.stream(side):
+                    out = _to_device(batch, device, moved)
+                    copied = torch.cuda.Event()
+                    copied.record(side)
+                q.put((out, copied, moved))
+            q.put(end)
+        except BaseException as e:  # noqa: BLE001  handed to the consumer, which raises it
+            q.put(e)
+
+    threading.Thread(target=producer, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is end:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        out, copied, moved = item
+        if copied is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(copied)
+            for t in moved:
+                t.record_stream(stream)
+        yield out

@@ -33,8 +33,11 @@ def init_module_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     * Linear / Conv weights (and spectral-norm ``weight_orig``): LeCun normal
       (std ``fan_in ** -0.5``), biases 0;
     * Embedding tables: normal with std 0.02;
+    * recurrent layers (``nn.GRU``): each ``weight_*`` LeCun normal over its
+      input width, each ``bias_*`` 0;
     * any other parameter (null embeddings, null KV, learned query): normal
-      with std 1.
+      with std 1, or uniform over ``[low, high)`` where the module's
+      ``uniform_init`` maps its name to ``(low, high)``.
     """
     with torch.no_grad():
         for mod in module.modules():
@@ -48,6 +51,14 @@ def init_module_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                     _fill(p, 1.0 / math.sqrt(fan_in), generator)
                 elif isinstance(mod, nn.Embedding):
                     _fill(p, 0.02, generator)
+                elif isinstance(mod, nn.RNNBase):
+                    if name.startswith("bias"):
+                        p.zero_()
+                    else:
+                        _fill(p, 1.0 / math.sqrt(p.shape[1]), generator)
+                elif name in getattr(mod, "uniform_init", {}):
+                    low, high = mod.uniform_init[name]
+                    p.copy_(torch.rand(p.shape, generator=generator) * (high - low) + low)
                 else:
                     _fill(p, 1.0, generator)
             for name, b in mod.named_buffers(recurse=False):

@@ -130,8 +130,12 @@ def faceformer_vert_state_from_jax(params: Tree) -> State:
 
 
 def wav2vec2_state_from_jax(params: Tree) -> State:
-    """``audio.wav2vec2.Wav2Vec2Model`` params -> port (HF-named) state."""
+    """``audio.wav2vec2.Wav2Vec2Model`` params -> port (HF-named) state;
+    ``masked_spec_embed`` where the JAX tree has it (a model initialised
+    with a time mask; the port's is built with ``mask_time=True``)."""
     out: State = {}
+    if "masked_spec_embed" in params:
+        out["masked_spec_embed"] = _a(params["masked_spec_embed"])
     fe = params["feature_extractor"]
     for i in range(_count(fe, "conv_layers_")):
         layer, pre = fe[f"conv_layers_{i}"], f"feature_extractor.conv_layers.{i}."
@@ -173,6 +177,79 @@ def flint_state_from_jax(params: Tree, batch_stats: Tree) -> State:
         if name in params:
             _put(out, name + ".", _dense(params[name]))
     _put(out, "cross_smooth_layer.", _conv(params["cross_smooth_layer"]))
+    return out
+
+
+def flint_vae_state_from_jax(variables: Tree) -> State:
+    """``models.flint_vae.FlintVAE`` / ``FlintVQVAE`` variables ({"params",
+    "batch_stats"}) -> port state, in ``L2lVqVae``'s names (``squasher.{i}``
+    in the encoder, ``expander.{i}`` in the decoder)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    enc, enc_stats = params["encoder"], stats["encoder"]
+    out: State = {}
+    i = 0
+    while f"squasher_{i}_conv" in enc:
+        _put(out, f"encoder.squasher.{i}.0.", _conv(enc[f"squasher_{i}_conv"]))
+        _put(out, f"encoder.squasher.{i}.2.", _batchnorm(
+            enc[f"squasher_{i}_post"]["bn"], enc_stats[f"squasher_{i}_post"]["bn"]))
+        i += 1
+    _put(out, "encoder.encoder_linear_embedding.", _dense(enc["encoder_linear_embedding"]))
+    _put(out, "encoder.encoder_transformer.",
+         transformer_encoder_state_from_jax(enc["encoder_transformer"]))
+    for name in ("mean", "logvar"):
+        if name in params:
+            _put(out, name + ".", _dense(params[name]))
+    if "quantizer" in params:
+        out["quantizer.embedding"] = _a(params["quantizer"]["embedding"])
+    _put(out, "decoder.", flint_state_from_jax(params["decoder"], stats["decoder"]))
+    return out
+
+
+def feed_forward_decoder_state_from_jax(params: Tree) -> State:
+    """``models.decoders.FeedForwardDecoder`` params -> port state."""
+    out: State = {}
+    _put(out, "decoder.", _dense(params["decoder"]))
+    for i in range(_count(params, "mlp_")):
+        _put(out, f"mlp.{i}.", _dense(params[f"mlp_{i}"]))
+    if "bert_decoder" in params:
+        _put(out, "bert_decoder.", transformer_encoder_state_from_jax(params["bert_decoder"]))
+    return out
+
+
+def _gru_direction(cell: Tree, suffix: str) -> State:
+    """flax ``GRUCell`` (dense ``ir iz in`` on the input, ``hr hz hn`` on the
+    state; a recurrent bias on ``hn`` only) -> ``torch.nn.GRU``'s packed
+    (r, z, n) weights of one direction; ``b_hr`` and ``b_hz`` are 0."""
+    hn_bias = np.asarray(cell["hn"]["bias"])
+    zero = np.zeros_like(hn_bias)
+    return {
+        f"weight_ih_l0{suffix}": _a(np.concatenate(
+            [np.asarray(cell[g]["kernel"]).T for g in ("ir", "iz", "in")])),
+        f"weight_hh_l0{suffix}": _a(np.concatenate(
+            [np.asarray(cell[g]["kernel"]).T for g in ("hr", "hz", "hn")])),
+        f"bias_ih_l0{suffix}": _a(np.concatenate(
+            [np.asarray(cell[g]["bias"]) for g in ("ir", "iz", "in")])),
+        f"bias_hh_l0{suffix}": _a(np.concatenate([zero, zero, hn_bias])),
+    }
+
+
+def sequence_encoder_state_from_jax(params: Tree) -> State:
+    """``models.sequence_encoders`` (linear, transformer, GRU or TCN) params
+    -> port state; the kind is read from the tree's keys."""
+    out: State = {}
+    if "GRUCell_0" in params:
+        _put(out, "gru.", _gru_direction(params["GRUCell_0"], ""))
+        if "GRUCell_1" in params:
+            _put(out, "gru.", _gru_direction(params["GRUCell_1"], "_reverse"))
+        return out
+    if "linear" in params:
+        _put(out, "linear.", _dense(params["linear"]))
+        return out
+    _put(out, "in_proj.", _dense(params["in_proj"]))
+    if "encoder" in params:
+        _put(out, "encoder.", transformer_encoder_state_from_jax(params["encoder"]))
+    for i in range(_count(params, "conv")):
+        _put(out, f"convs.{i}.", _conv(params[f"conv{i}"]))
     return out
 
 

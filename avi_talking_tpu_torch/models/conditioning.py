@@ -15,6 +15,10 @@ from torch import nn
 
 from ..ops.layers import Linear
 
+AFFECTNET_EMOTIONS = (
+    "Neutral", "Happy", "Sad", "Surprise", "Fear", "Disgust", "Anger", "Contempt",
+)
+
 # width of StyleCondition.make()'s concat: 8 + 3 + 32 + 300
 DEFAULT_CONDITION_DIM = 343
 

@@ -193,20 +193,32 @@ class DiffusionPrior:
         cond_scale: float = 1.0,
         noise_init: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        eta: float = 0.0,
+        noise_steps: Optional[torch.Tensor] = None,  # (steps, *shape), used when eta > 0
     ) -> torch.Tensor:
-        """Deterministic DDIM (eta = 0) over a strided subset of timesteps."""
+        """DDIM over a strided subset of timesteps: deterministic given the
+        initial noise at ``eta = 0``; at ``eta > 0`` each step adds
+        ``sigma * noise_steps[i]`` with JAX's
+        ``sigma = eta * sqrt((1 - a_prev) / (1 - a_t) * (1 - a_t / a_prev))``
+        (float32)."""
         T = self.scheduler.num_timesteps
         times = np.linspace(-1, T - 1, steps + 1).astype(int)[::-1]
         acp = self.scheduler.alphas_cumprod.astype(np.float32)
+        device = text_embed.device
         if noise_init is None:
-            noise_init = torch.randn(shape, generator=generator, device=text_embed.device)
-        x = noise_init.to(text_embed.device)
-        one = np.float32(1.0)
-        for t, t_prev in zip(times[:-1], times[1:]):
+            noise_init = torch.randn(shape, generator=generator, device=device)
+        if eta > 0 and noise_steps is None:
+            noise_steps = torch.randn((steps, *shape), generator=generator, device=device)
+        x = noise_init.to(device)
+        one, zero = np.float32(1.0), np.float32(0.0)
+        for i, (t, t_prev) in enumerate(zip(times[:-1], times[1:])):
             x_start = self._predict_x_start(x, int(t), text_embed, cond_scale)
             a_t = acp[t]
             a_prev = acp[t_prev] if t_prev >= 0 else one
             eps = (x - float(np.sqrt(a_t)) * x_start) / float(np.sqrt(one - a_t))
+            sigma = np.float32(eta) * np.sqrt((one - a_prev) / (one - a_t) * (one - a_t / a_prev))
             x = (float(np.sqrt(a_prev)) * x_start
-                 + float(np.sqrt(np.maximum(one - a_prev, np.float32(0.0)))) * eps)
+                 + float(np.sqrt(np.maximum(one - a_prev - sigma * sigma, zero))) * eps)
+            if eta > 0:
+                x = x + float(sigma) * noise_steps[i].to(device)
         return x / self.embed_scale

@@ -8,6 +8,9 @@ LeakyReLU(0.2) + BatchNorm normalised by its running statistics (the JAX
 encoding, a post-LN transformer encoder and a ``Conv1d(k5, p2)`` smoothing
 layer to exp (n_exp) + jaw (3). Parameter names follow the reference's
 ``L2lDecoder`` (``expander.{i}.0`` conv, ``expander.{i}.2`` BatchNorm).
+``FlintDecoder(cfg, batch_stats=True)`` is the motion prior's own decoder
+(``models.flint_vae``): its BatchNorms are ``FlaxBatchNorm1d``, which in
+train mode normalise by the batch and update the running statistics.
 """
 
 from __future__ import annotations
@@ -65,21 +68,49 @@ class RunningStatsBatchNorm1d(nn.BatchNorm1d):
         return ((x - col(self.running_mean)) * mul + col(self.bias)).to(self.compute_dtype)
 
 
+class FlaxBatchNorm1d(RunningStatsBatchNorm1d):
+    """flax's ``BatchNorm(momentum=0.9)`` as the motion prior trains it: in
+    eval mode the running statistics, as ``RunningStatsBatchNorm1d``; in
+    train mode the batch's mean and *biased* variance over every axis but the
+    channels (flax's ``mean(x^2) - mean(x)^2``, clipped at 0), with the
+    gradient through both, and the running statistics updated outside
+    autograd as ``0.9 * running + 0.1 * batch`` (torch's ``F.batch_norm``
+    would store the unbiased variance). The statistics stay buffers: the
+    optimizer never sees them, as optax sees only JAX's ``params``."""
+
+    momentum_flax = 0.9
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, C, T)
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.dim()))
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum_flax
+            self.running_mean.mul_(m).add_(mean.detach() * (1 - m))
+            self.running_var.mul_(m).add_(var.detach() * (1 - m))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var.reshape(shape) + self.eps) * self.weight.reshape(shape)
+        return (x - mean.reshape(shape)) * mul + self.bias.reshape(shape)
+
+
 class FlintDecoder(nn.Module):
-    def __init__(self, cfg: FlintConfig):
+    def __init__(self, cfg: FlintConfig, batch_stats: bool = False):
         super().__init__()
         c = self.cfg = cfg
         f = c.feature_dim
+        norm = FlaxBatchNorm1d if batch_stats else RunningStatsBatchNorm1d
         stages = [nn.Sequential(
             ConvTranspose1d(c.bottleneck_dim, f, 5, stride=2, padding=2, output_padding=1),
             LeakyReLU(0.2),
-            RunningStatsBatchNorm1d(f, eps=1e-5),
+            norm(f, eps=1e-5),
         )]
         for _ in range(1, c.quant_factor):
             stages.append(nn.Sequential(
                 Conv1d(f, f, 5, padding=2, padding_mode="replicate"),
                 LeakyReLU(0.2),
-                RunningStatsBatchNorm1d(f, eps=1e-5),
+                norm(f, eps=1e-5),
             ))
         self.expander = nn.ModuleList(stages)
         self.decoder_linear_embedding = Linear(f, f)

@@ -1,4 +1,5 @@
-"""Feature-rate resampling (port of ``avi_talking_tpu/ops/resample.py``).
+"""Feature-rate resampling (port of ``avi_talking_tpu/ops/resample.py``:
+``linear_interpolate`` and ``resample_features``).
 
 wav2vec2 features are resampled from the model's 50 fps to the 25 fps video
 rate with ``align_corners=True`` linear interpolation; lip sync depends on
@@ -8,6 +9,8 @@ lerp) exactly as the JAX version does, rather than calling
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -38,3 +41,13 @@ def linear_interpolate(x: torch.Tensor, output_len: int, axis: int = 1) -> torch
     shape = [1] * x.dim()
     shape[axis] = output_len
     return x_lo + (x_hi - x_lo) * frac.reshape(shape)
+
+
+def resample_features(features: torch.Tensor, input_fps: float, output_fps: float,
+                      output_len: Optional[int] = None) -> torch.Tensor:
+    """(B, T, F) features from ``input_fps`` to ``output_fps``: ``output_len``
+    frames, ``int(T / input_fps * output_fps)`` when not given (the
+    reference's ``linear_interpolation``)."""
+    if output_len is None:
+        output_len = int(features.shape[1] / float(input_fps) * output_fps)
+    return linear_interpolate(features, output_len, axis=1)

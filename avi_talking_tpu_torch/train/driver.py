@@ -1,6 +1,5 @@
-"""The diffusion-prior training loop (port of ``train_prior`` in
-``avi_talking_tpu/train/driver.py``; ``train_flint_vae`` waits, ROADMAP
-Queue 1).
+"""The diffusion-prior and motion-prior training loops (port of
+``train_prior`` and ``train_flint_vae`` in ``avi_talking_tpu/train/driver.py``).
 
 Each batch holds ``voxel`` (B, 768) CLIP text means and ``style_target``
 (B, 128) style embeddings, as numpy arrays or tensors (the caption corpus's
@@ -13,11 +12,17 @@ stream (seed + 99,991), logs under ``prior_val/``, writes
 ``<ckpt_dir>/best`` ({"params", "step"}) when the validation loss improves;
 ``resume`` continues from ``last``. Step i draws from a generator seeded by
 (seed, i), so a resumed run draws what an unbroken one would.
+
+``train_flint_vae`` trains FLINT (``models.flint_vae``) as a Gaussian VAE
+or, with ``quantizer="vq"``, a VQ-VAE: AdamW over the parameters, the
+BatchNorms in train mode (batch statistics, running statistics updated by
+flax's rule and saved beside the parameters as ``batch_stats``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import time
 from typing import Any, Callable, Dict, Iterator, Optional
@@ -28,12 +33,13 @@ import torch
 from ..infra.checkpoint import restore_checkpoint, save_checkpoint
 from ..infra.device import resolve_device
 from ..infra.init import random_module
-from ..infra.meters import ScalarWriter, write_metrics
+from ..infra.meters import Meter, ScalarWriter, write_metrics
 from ..infra.run_dir import EarlyStopping, snapshot_config
 from ..models.brain import BrainNetwork
 from ..models.diffusion import DiffusionPrior, NoiseScheduler
 from ..models.prior_transformer import PriorTransformerNetwork
 from .losses import cosine_anneal
+from .optim import adamw
 from .prior import PriorTrainer, PriorTrainState, make_prior_optimizer
 
 Batch = Dict[str, np.ndarray]
@@ -201,3 +207,79 @@ def train_prior(
         "best_ckpt": best_dir if (ckpt_dir and cfg.val_every) else None,
         "last_ckpt": last_dir if (ckpt_dir and cfg.val_every) else ckpt_dir,
     }
+
+
+def _batch_stats(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v for k, v in module.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def train_flint_vae(
+    motion_batches: Iterator[Any],
+    total_steps: int,
+    flint_cfg=None,
+    lr: float = 1e-4,
+    kl_weight: float = 0.01,
+    logdir: Optional[str] = None,
+    ckpt_dir: Optional[str] = None,
+    seed: int = 0,
+    quantizer: Optional[str] = None,  # None (Gaussian VAE) | "vq"
+    codebook_size: int = 256,
+    beta: float = 0.25,
+    device=None,
+    vae: Optional[torch.nn.Module] = None,
+    noise: Optional[Callable[[int, tuple], torch.Tensor]] = None,
+) -> Dict[str, Any]:
+    """Motion-prior training on (B, T, out_dim) motion batches (numpy or
+    tensors) for ``total_steps`` steps, on the card unless ``device`` says
+    otherwise. ``vae`` (built with the same ``quantizer``) is trained in
+    place of a seeded one; ``noise(step, shape)`` gives the VAE's sampling
+    noise (a generator seeded ``seed`` on the device when None). Metrics are
+    logged under ``flint/`` every 50 steps; ``ckpt_dir`` receives
+    ``{"params", "batch_stats"}``. Returns the module, the last step's
+    metrics, and the parameters and statistics."""
+    from ..models.flint import FlintConfig
+    from ..models.flint_vae import FlintVAE, FlintVQVAE
+
+    device = resolve_device(device)
+    if quantizer not in (None, "vq"):
+        raise ValueError(f"unknown quantizer {quantizer!r}")
+    cfg = flint_cfg or FlintConfig()
+    if vae is None:
+        vae = random_module((lambda: FlintVQVAE(cfg, codebook_size=codebook_size, beta=beta))
+                            if quantizer else (lambda: FlintVAE(cfg)),
+                            device, torch.Generator().manual_seed(seed))
+    if noise is None:
+        g = torch.Generator(device=device).manual_seed(seed)
+        noise = lambda i, shape: torch.randn(shape, generator=g, device=device)  # noqa: E731
+    optimizer = adamw(vae.parameters(), lr)
+    vae.train()
+    writer = ScalarWriter(logdir) if logdir else None
+    metrics: Dict[str, torch.Tensor] = {}
+    try:
+        for i, motion in enumerate(itertools.islice(motion_batches, total_steps)):
+            motion = torch.as_tensor(motion, dtype=torch.float32).to(device)
+            if quantizer:
+                loss, metrics = vae.loss(motion)
+            else:
+                loss, metrics = vae.loss(motion, noise(i, vae.latent_shape(motion.shape)),
+                                         kl_weight)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optimizer.step()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if writer is not None and (i + 1) % 50 == 0:
+                for k, v in metrics.items():
+                    meter = Meter("flint/" + k, writer)
+                    meter.write(v)
+                    meter.flush(i + 1)
+    finally:
+        if writer is not None:
+            writer.close()
+    vae.eval()
+    params = {k: v.detach() for k, v in vae.named_parameters()}
+    stats = _batch_stats(vae)
+    if ckpt_dir:
+        save_checkpoint(ckpt_dir, {"params": params, "batch_stats": stats})
+    return {"vae": vae, "params": params, "batch_stats": stats,
+            "metrics": {k: float(v) for k, v in metrics.items()}}

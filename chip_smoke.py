@@ -23,6 +23,10 @@
                                        # the build, the host codecs, K1's rows
                                        # and the preprocess, bfm and
                                        # support_nets phases alone
+    python3 chip_smoke.py --phases flint
+                                       # the build, the host codecs, K1's rows
+                                       # and the train_flint, specaugment,
+                                       # ablation and infra phases alone
 
 Run it from the root of a checkout: it builds the port's CUDA kernels from
 the checkout's sources into build/, then
@@ -181,7 +185,20 @@ the checkout's sources into build/, then
             vs CPU;
 31. support_nets: `ResNetSE` (SAP, ASP) and `Wav2Vec2SER` on an 8 s clip,
             card vs CPU, K1 12 launches at the shape its encoder saw;
-32. the kernels summary line (K1 at the generate path's, the EMOTE step's,
+32. train_flint: `train-flint` at FlintConfig() (B=32, T=64): the VAE
+            for 50 steps, --vq for 20 and --root (the 18-clip tree) for 6; step
+            seconds, peak memory; one step of each mode card vs CPU (the
+            2 lr rule, the running statistics within 1e-5) and the
+            checkpoint loaded back bit-equal;
+33. specaugment: wav2vec2-base with SpecAugment masks (8 s; B=8 over 64
+            frames) and with resample=False (8 s, 399 frames): K1 12
+            launches each, card vs CPU, the mask moves the output;
+34. ablation: the four decoder kinds at EMOTE's widths (flame_bert on the
+            full-size FLAME) and the four sequence encoders, card vs CPU;
+35. infra: prefetch_to_device onto the card, checkify_step on a planted
+            NaN, profile_region in a profiler trace, trace's file,
+            ddim_sample_loop(eta=0.5) card vs CPU;
+36. the kernels summary line (K1 at the generate path's, the EMOTE step's,
             the vertex step's and the FaceFormer step's shapes, and its
             bf16 entry at generate --bf16's; K2 at the render path's (under
             the plain and the --flame-npz generate), the neural step's and
@@ -189,8 +206,10 @@ the checkout's sources into build/, then
             the vertex decoder's; with the launches of each path that runs
             them; K1 / K3 under the render-loss step; K2 under train-emoca's
             two renders, reconstruct's and the BFM render's; K1 under the SER
-            head, at its own shape) and the card's name and power limit;
-33. the result line.
+            head, at its own shape, and under the masked and resample=False
+            wav2vec2 forwards, at theirs) and the card's name and power
+            limit;
+37. the result line.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without the result line. It imports nothing of JAX.
@@ -503,6 +522,7 @@ def phase_kernels(peaks):
         ("vert_train", 4, 12, 100, 100, 64, (100,) * 4),  # train-faceformer-vert's step
         ("faceformer_train", 16, 12, 25, 25, 64, (25,) * 16),  # train-faceformer's step
         ("ser_8s", 1, 12, 199, 199, 64, (199,)),  # Wav2Vec2SER on 8 s (399 frames at 25 fps)
+        ("w2v_native_8s", 1, 12, 399, 399, 64, (399,)),  # wav2vec2 on 8 s, resample=False
     ]
     rows = []
     for name, B, H, T, S, d, lens in cases:
@@ -5411,6 +5431,318 @@ def profile_train_step():
           **profile_call(lambda: trainer.train_step(batch))})
 
 
+def _synced_stamps(stamps: list):
+    """A wrapper of a batch generator function whose batches are handed out
+    after a synchronise, each stamped: step i of the loop that takes them
+    lasts from stamp i to stamp i + 1."""
+    import torch
+
+    def wrap(orig):
+        def batches(*args, **kwargs):
+            for b in orig(*args, **kwargs):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                yield b
+        return batches
+    return wrap
+
+
+def _flint_step_s(stamps: list, warmup: int = 2) -> dict:
+    steps = [b - a for a, b in zip(stamps, stamps[1:])][warmup:]
+    return {"step_s_median": statistics.median(steps), "step_s_all": steps}
+
+
+def phase_train_flint():
+    """`train-flint` at its defaults (FlintConfig(), B=32, T=64): the VAE
+    for 50 steps (the flint/ scalars at step 50), --vq for 20, and --root
+    on the 18-clip MEAD tree for 6; step seconds (median after two, each
+    ending in a synchronise), peak memory. One step of each mode card vs
+    CPU from the same weights, batch and noise (``one_step_card_vs_cpu``:
+    the loss within 1e-4, the weights by the 2 lr rule; the BatchNorms'
+    running statistics, updated by the step, within 1e-5), and the card's
+    checkpoint loaded back bit-equal. No kernel of the port runs here:
+    FLINT's encoder layers keep the plain attention, as JAX's do."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.cli import train_emote as cli_train_emote
+    from avi_talking_tpu_torch.infra.checkpoint import restore_checkpoint
+    from avi_talking_tpu_torch.infra.init import random_module
+    from avi_talking_tpu_torch.models.flint import FlintConfig
+    from avi_talking_tpu_torch.models.flint_vae import FlintVAE, FlintVQVAE
+    from avi_talking_tpu_torch.train.driver import train_flint_vae
+
+    out_dir = os.path.join(HERE, "build", "chip_smoke", "flint")
+    runs = {}
+    # --root's step is the host's batch (7,200 npy loads for B=18, ROADMAP S2b): 6 steps
+    for name, extra, steps in (("vae", [], 50), ("vq", ["--vq"], 20),
+                               ("root", ["--root", _mead_data_root()], 6)):
+        stamps = []
+        logdir = os.path.join(out_dir, name, "logs")
+        torch.cuda.reset_peak_memory_stats()
+        with _patched(cli_train_emote, "flint_batches", _synced_stamps(stamps)):
+            out, _, wall = _run_cli(["train-flint", "--steps", str(steps), "--ckpt-dir",
+                                     os.path.join(out_dir, name, "ck"), "--logdir", logdir]
+                                    + extra)
+        final = _final_metrics(out)
+        check(all(math.isfinite(v) for v in final.values()), f"train-flint {name}: {final}")
+        check(len(stamps) == steps, f"train-flint {name} took {len(stamps)} batches")
+        runs[name] = {"final": final, "wall_s": wall, **_flint_step_s(stamps),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    with open(os.path.join(out_dir, "vae", "logs", "scalars.jsonl")) as f:
+        logged = sorted(k for line in f for k in json.loads(line) if k.startswith("flint/"))
+    check(logged == ["flint/kl", "flint/loss", "flint/recon"],
+          f"train-flint logged {logged} at step 50")
+
+    cfg, lr = FlintConfig(), 1e-4
+    rng = np.random.default_rng(31)
+    motion = (rng.standard_normal((32, 64, cfg.out_dim)) * 0.1).astype(np.float32)
+    noise = torch.from_numpy(rng.standard_normal((32, 8, cfg.feature_dim)).astype(np.float32))
+    held = {}
+    for quantizer, factory in ((None, lambda: FlintVAE(cfg)), ("vq", lambda: FlintVQVAE(cfg))):
+        base = random_module(factory, torch.device("cpu"), torch.Generator().manual_seed(32))
+        pair, stats, res = {}, {}, {}
+        ck = os.path.join(out_dir, f"card_vs_cpu_{quantizer or 'vae'}")
+        for dev in ("cuda", "cpu"):
+            m = copy.deepcopy(base).to(dev)
+            res[dev] = train_flint_vae(iter([motion]), 1, cfg, lr=lr, quantizer=quantizer,
+                                       device=dev, vae=m, noise=lambda i, s, d=dev: noise.to(d),
+                                       ckpt_dir=ck if dev == "cuda" else None)
+            pair[dev] = (res[dev]["metrics"]["loss"], dict(m.named_parameters()))
+            stats[dev] = {k: v.cpu() for k, v in res[dev]["batch_stats"].items()}
+        d = one_step_card_vs_cpu(pair, lr, loss_tol=1e-4)
+        start = dict(base.named_buffers())
+        stats_err = max(float((stats["cuda"][k] - v).abs().max()) for k, v in stats["cpu"].items())
+        stats_moved = min(float((v - start[k]).abs().max()) for k, v in stats["cpu"].items())
+        check(stats_err < 1e-5 and stats_moved > 0,
+              f"flint {quantizer or 'vae'}: running statistics card vs CPU {stats_err}, "
+              f"moved {stats_moved}")
+        saved = restore_checkpoint(ck)
+        fresh = random_module(factory, torch.device("cuda"), torch.Generator().manual_seed(0))
+        missing, unexpected = fresh.load_state_dict({**saved["params"], **saved["batch_stats"]},
+                                                    strict=False)
+        check(not unexpected and all(k.endswith("num_batches_tracked") for k in missing),
+              f"flint checkpoint keys: missing {missing}, unexpected {unexpected}")
+        for k, v in res["cuda"]["vae"].state_dict().items():
+            check(torch.equal(fresh.state_dict()[k], v), f"flint checkpoint round trip: {k}")
+        held[quantizer or "vae"] = {**d, "stats_max_abs_diff": stats_err,
+                                    "stats_min_moved": stats_moved}
+    emit({"phase": "train_flint", "config": "FlintConfig() B=32 T=64", "runs": runs,
+          "card_vs_cpu": held, "checkpoint_round_trip": "bit-equal"})
+    return runs
+
+
+def _w2v_forward(model, kb, audio, **kw):
+    """One forward on the card with K1's count zeroed before it and read
+    after it, and the first encoder layer's input shape."""
+    import torch
+
+    seen = {}
+    hook = model.encoder.layers[0].register_forward_pre_hook(
+        lambda mod, a: seen.__setitem__("shape", list(a[0].shape)))
+    try:
+        kb.launches = 0
+        out = model(audio, **kw)
+        torch.cuda.synchronize()
+        launches = kb.launches
+    finally:
+        hook.remove()
+    return out, launches, seen["shape"]
+
+
+def phase_specaugment(kb):
+    """wav2vec2-base at full width built with ``mask_time=True`` (seeded,
+    ``masked_spec_embed`` from U[0, 1)): an 8 s clip with a
+    ``compute_mask_indices`` mask (p 0.5, length 2, as the JAX test draws)
+    over its 199 frames at 25 fps, B=8 over 64 frames with a mask each, and
+    ``resample=False`` on the 8 s clip (399 frames at 50 fps). Each forward:
+    K1 12 launches, the shape K1 saw, card vs CPU within 1e-3 of the CPU's
+    largest value, and its milliseconds; the masked forwards against the
+    unmasked on the card (the mask moves the output)."""
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.audio.specaugment import compute_mask_indices
+    from avi_talking_tpu_torch.audio.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
+    from avi_talking_tpu_torch.infra.init import random_module
+
+    cfg = Wav2Vec2Config()
+    cpu_model = random_module(lambda: Wav2Vec2Model(cfg, mask_time=True), torch.device("cpu"),
+                              torch.Generator().manual_seed(41))
+    model = random_module(lambda: Wav2Vec2Model(cfg, mask_time=True), torch.device("cuda"),
+                          torch.Generator().manual_seed(41))
+    wav = torch.from_numpy(synthetic_wav(8.0, 42)[None])
+    batch = torch.from_numpy(np.stack([synthetic_wav(64 / 25, 43 + b) for b in range(8)]))
+    cases = {
+        "masked_8s": (wav, dict(mask_time_indices=torch.from_numpy(
+            compute_mask_indices((1, 199), 0.5, 2, rng=np.random.default_rng(3))))),
+        "masked_b8_t64": (batch, dict(output_len=64, mask_time_indices=torch.from_numpy(
+            compute_mask_indices((8, 64), 0.5, 2, rng=np.random.default_rng(4))))),
+        "native_8s": (wav, dict(resample=False)),
+    }
+    res = {}
+    with torch.no_grad():
+        for name, (audio, kw) in cases.items():
+            want = cpu_model(audio, **kw)
+            dev_kw = {k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+            got, launches, shape = _w2v_forward(model, kb, audio.cuda(), **dev_kw)
+            rel = float((got.cpu() - want).abs().max() / want.abs().max())
+            row = {"launches": launches, "encoder_input": shape, "rel": rel,
+                   "k1_shape": [shape[0], cfg.num_attention_heads, shape[1], shape[1],
+                                cfg.hidden_size // cfg.num_attention_heads],
+                   "ms": time_ms(lambda: model(audio.cuda(), **dev_kw), iters=3, reps=3)}
+            check(launches == 12, f"wav2vec2 {name} launched K1 {launches} times, not 12")
+            check(rel < 1e-3 and bool(torch.isfinite(got).all()),
+                  f"wav2vec2 {name} card vs CPU: {rel}")
+            if "mask_time_indices" in kw:
+                plain = model(audio.cuda(), **{k: v for k, v in dev_kw.items()
+                                               if k != "mask_time_indices"})
+                row["masked_frames"] = int(kw["mask_time_indices"].sum())
+                row["mask_moves_output"] = float((got - plain).abs().max())
+                check(row["mask_moves_output"] > 1e-3, f"wav2vec2 {name}: the mask moved nothing")
+            res[name] = row
+    check(res["native_8s"]["encoder_input"][1] == 399 and res["masked_8s"]["encoder_input"][1] == 199,
+          f"wav2vec2 frame counts {res}")
+    emit({"phase": "specaugment", "seconds_of_audio": 8.0, **res})
+    return res
+
+
+def phase_ablation():
+    """EMOTE's ablation decoders at EMOTE's widths (feature 128, 15069
+    vertex offsets; ``flame_bert`` decoding the synthetic full-size FLAME)
+    and the four sequence encoders at 128 over wav2vec2-base's 768 features,
+    on B=8, T=64, card vs CPU within 1e-3 of the CPU's largest value; the
+    zero-initialised heads redrawn so that they reach the output."""
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.core.assets import synthetic_assets
+    from avi_talking_tpu_torch.infra.init import random_module
+    from avi_talking_tpu_torch.models.decoders import DecoderConfig, FeedForwardDecoder
+    from avi_talking_tpu_torch.models.sequence_encoders import sequence_encoder_from_name
+
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    rng = np.random.default_rng(51)
+    hidden = torch.from_numpy(rng.standard_normal((8, 64, 128)).astype(np.float32))
+    style = torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32))
+    feats = torch.from_numpy(rng.standard_normal((8, 64, 768)).astype(np.float32))
+    assets = synthetic_assets(num_vertices=5023, n_shape=300, n_exp=50, num_faces=9976)
+    res = {}
+
+    def held(name, make, *inputs, flame=None):
+        m = random_module(make, cpu, torch.Generator().manual_seed(52))
+        if hasattr(m, "decoder"):
+            with torch.no_grad():
+                m.decoder.weight.normal_(0.0, 128 ** -0.5,
+                                         generator=torch.Generator().manual_seed(53))
+        with torch.no_grad():
+            want = m(*inputs)
+            m = m.to(cuda)
+            if flame is not None:  # the assets are the caller's to place, as the EMOTE head's
+                m.flame_assets = flame.to(cuda)
+            got = m(*(x.to(cuda) for x in inputs))
+            torch.cuda.synchronize()
+            ms = time_ms(lambda: m(*(x.to(cuda) for x in inputs)), iters=3, reps=3)
+        if not isinstance(want, dict):
+            want, got = {"out": want}, {"out": got}
+        rel = {k: float((got[k].cpu() - w).abs().max() / w.abs().max()) for k, w in want.items()}
+        res[name] = {"rel": rel, "ms": ms, "shapes": {k: list(v.shape) for k, v in got.items()}}
+        check(all(r < 1e-3 for r in rel.values()), f"{name} card vs CPU: {rel}")
+
+    for kind in ("linear", "mlp", "bert", "flame_bert"):
+        dcfg = DecoderConfig(kind=kind, feature_dim=128, vertices_dim=15069, nhead=8)
+        fa = assets if kind == "flame_bert" else None
+        held(f"decoder_{kind}", lambda: FeedForwardDecoder(dcfg, flame_assets=fa), hidden, style,
+             flame=fa)
+    check(res["decoder_flame_bert"]["shapes"]["vertices"] == [8, 64, 5023, 3],
+          f"flame_bert vertices {res['decoder_flame_bert']['shapes']}")
+    for name in ("linear", "transformer", "gru", "tcn"):
+        held(f"encoder_{name}", lambda: sequence_encoder_from_name(name, 128, input_dim=768), feats)
+    emit({"phase": "ablation", "B": 8, "T": 64, **res})
+    return res
+
+
+def phase_infra():
+    """``prefetch_to_device`` onto the card (order kept, array leaves on
+    CUDA, other leaves passed, the iterator's error raised);
+    ``checkify_step`` finds a NaN planted inside a step on the card and
+    nothing in a clean one; ``profile_region``'s name in a torch.profiler
+    trace of CUDA work, and ``trace`` writes its file;
+    ``ddim_sample_loop(eta=0.5)`` at the prior's full width, card vs CPU on
+    the same draws, within 1e-3 of the CPU's largest value."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from avi_talking_tpu_torch.data.batching import prefetch_to_device
+    from avi_talking_tpu_torch.infra.guards import checkify_step
+    from avi_talking_tpu_torch.infra.init import random_module
+    from avi_talking_tpu_torch.infra.meters import profile_region, trace
+    from avi_talking_tpu_torch.models.diffusion import DiffusionPrior, NoiseScheduler
+    from avi_talking_tpu_torch.models.prior_transformer import PriorTransformerNetwork
+
+    def batches():
+        for i in range(6):
+            yield {"audio": np.full((8, 40960), i, np.float32), "clip": f"clip{i}",
+                   "gt": (torch.full((8, 64, 53), float(i)),)}
+        raise OSError("the reader failed")
+
+    seen, raised = [], None
+    try:
+        for b in prefetch_to_device(batches(), size=2):
+            check(b["audio"].is_cuda and b["gt"][0].is_cuda, "prefetch left a leaf on the host")
+            seen.append((float((b["audio"] * 2).mean()) / 2, float(b["gt"][0].mean()), b["clip"]))
+    except OSError as e:
+        raised = str(e)
+    check(seen == [(float(i), float(i), f"clip{i}") for i in range(6)] and raised,
+          f"prefetch_to_device: {seen}, raised {raised}")
+
+    x = torch.tensor([1.0, -1.0, 2.0], device="cuda")
+    err, out = checkify_step(lambda t: torch.nan_to_num(torch.log(t)).sum())(x)
+    clean, _ = checkify_step(lambda t: torch.log(t).sum())(x.abs())
+    check(err.get() is not None and "nan generated by aten.log" in err.get()
+          and clean.get() is None and math.isfinite(float(out)),
+          f"checkify_step: {err.get()!r}, clean {clean.get()!r}")
+
+    a = torch.randn(512, 512, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile_region("flint_profile_region") as region:
+            (a @ a).sum()
+            torch.cuda.synchronize()
+    check(any(e.key == "flint_profile_region" for e in prof.key_averages()),
+          "profile_region's range is not in the trace")
+    tdir = os.path.join(HERE, "build", "chip_smoke", "trace")
+    with trace(tdir):
+        (a @ a).sum()
+        torch.cuda.synchronize()
+    traced = [f for f in os.listdir(tdir) if f.endswith(".pt.trace.json")]
+    check(bool(traced), f"trace wrote nothing under {tdir}")
+
+    net = random_module(lambda: PriorTransformerNetwork(), torch.device("cpu"),
+                        torch.Generator().manual_seed(61))
+    rng = np.random.default_rng(62)
+    shape, steps = (4, 1, 128), 20
+    text = torch.from_numpy(rng.standard_normal((4, 128)).astype(np.float32))
+    init = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    draws = torch.from_numpy(rng.standard_normal((steps, *shape)).astype(np.float32))
+    outs = {}
+    with torch.no_grad():
+        for dev in ("cpu", "cuda"):
+            prior = DiffusionPrior(net=net.to(dev), scheduler=NoiseScheduler.create(100))
+            outs[dev] = prior.ddim_sample_loop(shape, text.to(dev), steps=steps, eta=0.5,
+                                               noise_init=init, noise_steps=draws).cpu()
+        plain = prior.ddim_sample_loop(shape, text.cuda(), steps=steps, noise_init=init).cpu()
+    ddim_rel = float((outs["cuda"] - outs["cpu"]).abs().max() / outs["cpu"].abs().max())
+    eta_moves = float((outs["cuda"] - plain).abs().max())
+    check(ddim_rel < 1e-3 and eta_moves > 1e-3,
+          f"ddim eta=0.5 card vs CPU {ddim_rel}, against eta=0 {eta_moves}")
+    emit({"phase": "infra", "prefetch_batches": len(seen), "prefetch_error": raised,
+          "checkify": err.get(), "profile_region_s": region.elapsed, "trace_files": traced,
+          "ddim_eta_rel": ddim_rel, "ddim_eta_vs_deterministic": eta_moves})
+
+
 def check_emote_row(rows, emote) -> dict:
     """K1's row at the EMOTE step's shape, checked against the shape the
     train_emote phase saw."""
@@ -5436,6 +5768,20 @@ def check_faceformer_row(rows, data) -> dict:
     check(row["shape"] == data["ff_k1_shape"],
           f"K1 measured at {row['shape']}, the train-faceformer step runs {data['ff_k1_shape']}")
     return row
+
+
+def check_spec_rows(rows, spec) -> dict:
+    """K1's rows at the shapes the specaugment phase's three forwards saw:
+    the masked 8 s clip (T=S=199, Wav2Vec2SER's row), the masked batch (B=8
+    T=S=64, the EMOTE step's) and resample=False (T=S=399)."""
+    out = {}
+    for case, key in (("ser_8s", "masked_8s"), ("emote_train", "masked_b8_t64"),
+                      ("w2v_native_8s", "native_8s")):
+        row = next(r for r in rows if r["case"] == case)
+        check(row["shape"] == spec[key]["k1_shape"],
+              f"K1 measured at {row['shape']}, the {key} forward runs {spec[key]['k1_shape']}")
+        out[key] = row
+    return out
 
 
 def check_ser_row(rows, support) -> dict:
@@ -5465,14 +5811,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Chip check of the PyTorch / CUDA port.")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one generate, one render and each training step")
-    ap.add_argument("--phases", choices=("all", "train", "pirender", "emoca", "preprocess"),
+    ap.add_argument("--phases",
+                    choices=("all", "train", "pirender", "emoca", "preprocess", "flint"),
                     default="all",
                     help="train: only the build, K1's rows, the K1 / K3 gradient rows and the "
                          "EMOTE (geometric and neural), vertex FaceFormer, prior, data-backed, "
                          "PIRender and EMOCA training phases; pirender: only the build and the "
                          "portrait, render-loss and train-pirender phases; emoca: only the build "
                          "and the train-emoca and reconstruct phases; preprocess: only the build "
-                         "and the preprocess-mead, BFM and support-net phases")
+                         "and the preprocess-mead, BFM and support-net phases; flint: only the "
+                         "build and the train-flint, SpecAugment, ablation and infra phases")
     args = ap.parse_args()
     try:
         import torch
@@ -5539,6 +5887,13 @@ def main() -> int:
         emit({"phases": "preprocess", "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start})
         return finish(name, phases="preprocess")
+    if args.phases == "flint":
+        timed(phase_train_flint)
+        check_spec_rows(rows, timed(phase_specaugment, kb))
+        timed(phase_ablation)
+        timed(phase_infra)
+        emit({"phases": "flint", "phase_s": phase_s, "total_s": time.perf_counter() - t_start})
+        return finish(name, phases="flint")
     if args.phases == "pirender":
         assets = synthetic_assets(num_vertices=5023, n_shape=300, n_exp=50, num_faces=9976)
         pipe = AviTalkingPipeline.random_init(PipelineConfig(), assets, seed=0)
@@ -5587,6 +5942,10 @@ def main() -> int:
     timed(phase_preprocess)
     bfm = timed(phase_bfm, kras, peaks)
     support = timed(phase_support_nets, kb)
+    timed(phase_train_flint)
+    spec = timed(phase_specaugment, kb)
+    timed(phase_ablation)
+    timed(phase_infra)
     if args.profile:
         timed(phase_profile, pipe, gen_out["vertices"], faces)
 
@@ -5604,6 +5963,7 @@ def main() -> int:
     vert_k2 = vert["k2_row"]  # K2 at the emotion loss's launch: 20 frames x 16 tiles
     ff_k1 = check_faceformer_row(rows, data)  # K1 at train-faceformer's step: B=16 T=S=25
     ser_k1 = check_ser_row(rows, support)  # K1 at Wav2Vec2SER's forward: B=1 T=S=199
+    spec_k1 = check_spec_rows(rows, spec)  # K1 under the masked and resample=False forwards
     ff_k3 = k3_rows[0]  # K3's self-attention at train-faceformer's step: B=16 H=4 T=S=25 d=32
     emit({"kernels": [{
         "name": "keybias_attention",
@@ -5963,6 +6323,28 @@ def main() -> int:
         "shape": ser_k1["shape"],
         "peaks": peaks_line,
     }] + [{
+        "name": "keybias_attention",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/bias_attention.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:114",
+        "path": path,
+        "launches": spec[key]["launches"],  # the phase's forward
+        "max_abs_err": spec_k1[key]["max_abs_err"],
+        "ms": spec_k1[key]["ms"],
+        "device_ms": spec_k1[key]["device_ms"],
+        "library_device_ms": spec_k1[key]["library_device_ms"],
+        "plain_ms": spec_k1[key]["plain_ms"],
+        "bound_ms": spec_k1[key]["bound_ms"],
+        "bound_by": spec_k1[key]["bound_by"],
+        "library_ms": spec_k1[key]["library_ms"],
+        "shape": spec_k1[key]["shape"],
+        "peaks": peaks_line,
+    } for key, path in (
+        ("masked_8s", "Wav2Vec2Model(mask_time_indices=compute_mask_indices(p 0.5, length 2)) "
+                      "on 8 s (wav2vec2-base)"),
+        ("masked_b8_t64", "Wav2Vec2Model(mask_time_indices) at B=8 over 64 frames "
+                          "(wav2vec2-base)"),
+        ("native_8s", "Wav2Vec2Model(resample=False) on 8 s (wav2vec2-base, 50 fps)"))] + [{
         "name": "rasterize_tiles_visibility",
         "route": "cuda",
         "source": "avi_talking_tpu_torch/csrc/rasterize_visibility.cu",

@@ -147,6 +147,27 @@ def test_emote_import_bit_equal_to_jax(variant):
     head.load_state_dict(got)  # every key the port's head has, nothing else
 
 
+def test_import_emote_config_file(tmp_path):
+    """``import-emote --config`` reads the file with ``infra.config.from_dict``
+    (nested dataclasses, lists as tuples) as JAX's ``load_config`` does: a
+    conv-squasher config written by ``save_config`` imports bit-equal to the
+    importer called with the config itself; an unknown field raises."""
+    from avi_talking_tpu_torch.infra.config import save_config
+
+    _, tcfg = _emote_cfg("conv")
+    torch.save({"state_dict": reference_emote_sd(tcfg, squash="conv")}, tmp_path / "e.ckpt")
+    save_config(tcfg, str(tmp_path / "cfg.json"))
+    assert main(["import-emote", "--ckpt", str(tmp_path / "e.ckpt"), "--config",
+                 str(tmp_path / "cfg.json"), "--out", str(tmp_path / "ck")]) == 0
+    got = tckpt.restore_checkpoint(str(tmp_path / "ck"))["head"]
+    want = emote_state_from_torch(reference_emote_sd(tcfg, squash="conv"), tcfg)
+    assert_states_bit_equal(got, _as_np(want))
+    (tmp_path / "bad.json").write_text('{"no_such_field": 1}')
+    with pytest.raises(KeyError, match="unknown config field EmoteConfig.no_such_field"):
+        main(["import-emote", "--ckpt", str(tmp_path / "e.ckpt"), "--config",
+              str(tmp_path / "bad.json"), "--out", str(tmp_path / "ck2")])
+
+
 def test_emote_import_forward_matches_jax():
     """One tiny forward on the imported weights, condition through the
     style encoder: port vs JAX at the JAX suite's EMOTE import tolerance

@@ -33,6 +33,7 @@ CASES = [
     (1, 2, 40, 70, 128, (70,)),  # d=128 with T, S not multiples of 16
     (1, 12, 600, 600, 64, (600,)),  # the FaceFormer encoder's shape
     (8, 12, 64, 64, 64, (64,) * 8),  # train-emote's step (B=8, 64 frames after the resample)
+    (1, 12, 399, 399, 64, (399,)),  # wav2vec2 on 8 s with resample=False (50 fps)
 ]
 
 

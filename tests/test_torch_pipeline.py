@@ -208,8 +208,10 @@ def test_port_imports_no_jax():
     # PIRender with its losses, discriminators, trainer and data, EMOCA / DECA's encoders,
     # detail branch, losses, trainer, mesh IO and train-emoca, the preprocessing nets and
     # data (FAN landmarks, S3FD, BiSeNet, face crops, yuv, video, preprocess-mead), the BFM
-    # visualizer, ResNetSE, the SER head, the preprocessors, CelebV and caption translation
-    assert int(out.stdout.strip()) >= 117
+    # visualizer, ResNetSE, the SER head, the preprocessors, CelebV and caption translation,
+    # the FLINT VAE, the ablation decoders and sequence encoders, SpecAugment, the loop
+    # utilities, the config and guard modules
+    assert int(out.stdout.strip()) >= 124
 
 
 @pytest.mark.parametrize("start,end", [(10, 10), (0, 7), (6, 0)])

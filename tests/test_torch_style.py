@@ -172,6 +172,41 @@ def test_ddim_sample_loop_matches_jax(prior_pair, steps, cond_scale):
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
 
 
+def jax_ddim_eta_noise(key, shape, steps):
+    """The draws of jax ``ddim_sample_loop(eta > 0)`` for ``key``: the initial
+    noise, then one split of the loop key a step."""
+    k_init, k_loop = jax.random.split(key)
+    draws = []
+    for _ in range(steps):
+        k_loop, r = jax.random.split(k_loop)
+        draws.append(np.asarray(jax.random.normal(r, shape, jnp.float32)))
+    return np.asarray(jax.random.normal(k_init, shape)), np.stack(draws)
+
+
+@pytest.mark.parametrize("eta,cond_scale", [(0.5, 1.0), (1.0, 2.0)])
+def test_ddim_sample_loop_eta_matches_jax(prior_pair, eta, cond_scale):
+    """Stochastic DDIM (sigma from ``eta``) < 1e-4 with JAX's own draws, and
+    away from the deterministic loop."""
+    jp, params, tp = prior_pair
+    shape, steps = (2, 1, 32), 5
+    text = np.random.default_rng(6).standard_normal((2, 32)).astype(np.float32)
+    key = jax.random.PRNGKey(13)
+    ref = np.asarray(jax.jit(lambda p, te, k: jp.ddim_sample_loop(
+        p, shape, te, k, steps=steps, eta=eta, cond_scale=cond_scale))(
+        params, jnp.asarray(text), key))
+    init, draws = jax_ddim_eta_noise(key, shape, steps)
+    with torch.no_grad():
+        got = tp.ddim_sample_loop(shape, torch.from_numpy(text), steps=steps,
+                                  cond_scale=cond_scale, eta=eta,
+                                  noise_init=torch.from_numpy(init),
+                                  noise_steps=torch.from_numpy(draws)).numpy()
+        plain = tp.ddim_sample_loop(shape, torch.from_numpy(text), steps=steps,
+                                    cond_scale=cond_scale,
+                                    noise_init=torch.from_numpy(init)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+    assert np.abs(got - plain).max() > 1e-2
+
+
 def test_sampler_draws_from_generator_when_no_noise(prior_pair):
     _, _, tp = prior_pair
     text = torch.zeros(1, 32)

@@ -63,6 +63,62 @@ def test_wav2vec2_native_rate_without_output_len(models):
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
 
 
+def test_wav2vec2_resample_false_matches_jax(models):
+    """``resample=False`` keeps the native 50 fps frames even with
+    ``output_len`` given."""
+    jm, params, tm = models
+    x = np.random.default_rng(11).standard_normal((2, 6400)).astype(np.float32)
+    ref = np.asarray(jax.jit(lambda p, a: jm.apply(p, a, output_len=5, resample=False))(
+        params, jnp.asarray(x)))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), output_len=5, resample=False).numpy()
+    assert got.shape == ref.shape and got.shape[1] > 5
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("valid", [None, (16, 9)])
+def test_wav2vec2_time_mask_matches_jax(models, valid):
+    """SpecAugment frames (``compute_mask_indices``, p 0.5, length 2) replaced
+    by ``masked_spec_embed`` before the ``valid_len`` zeroing: < 1e-5 on a
+    JAX tree holding the embedding (carried by ``wav2vec2_state_from_jax``
+    into a ``mask_time=True`` model), and the mask changes the output."""
+    from avi_talking_tpu_torch.audio.specaugment import compute_mask_indices
+
+    jm, params, _ = models
+    hidden = jw.Wav2Vec2Config.tiny().hidden_size
+    embed = np.random.default_rng(12).random(hidden).astype(np.float32)
+    mparams = {"params": {**params["params"], "masked_spec_embed": embed}}
+    tm = _port(lambda: tw.Wav2Vec2Model(tw.Wav2Vec2Config.tiny(), mask_time=True),
+               wav2vec2_state_from_jax(mparams["params"]))
+    x = np.random.default_rng(13).standard_normal((2, 16 * 640)).astype(np.float32)
+    mask = compute_mask_indices((2, 16), 0.5, 2, rng=np.random.default_rng(3))
+    vl = None if valid is None else np.asarray(valid, np.int32)
+    ref = np.asarray(jax.jit(lambda p, a, m, v: jm.apply(
+        p, a, output_len=16, mask_time_indices=m, valid_len=v))(
+        mparams, jnp.asarray(x), jnp.asarray(mask), None if vl is None else jnp.asarray(vl)))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), output_len=16, mask_time_indices=torch.from_numpy(mask),
+                 valid_len=None if vl is None else torch.from_numpy(vl)).numpy()
+        plain = tm(torch.from_numpy(x), output_len=16,
+                   valid_len=None if vl is None else torch.from_numpy(vl)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    assert mask.any() and np.abs(got - plain).max() > 1e-3
+
+
+def test_wav2vec2_mask_needs_the_embedding(models):
+    """A model built without ``mask_time`` has no ``masked_spec_embed`` (every
+    existing state dict loads as before) and refuses a mask; a seeded one
+    draws it from U[0, 1), as JAX's ``uniform(1.0)``."""
+    _, _, tm = models
+    assert "masked_spec_embed" not in tm.state_dict()
+    with pytest.raises(ValueError, match="mask_time=True"):
+        tm(torch.zeros(1, 6400), mask_time_indices=torch.ones(1, 10, dtype=torch.bool))
+    seeded = random_module(lambda: tw.Wav2Vec2Model(tw.Wav2Vec2Config.tiny(), mask_time=True),
+                           torch.device("cpu"), torch.Generator().manual_seed(0))
+    e = seeded.masked_spec_embed.detach()
+    assert float(e.min()) >= 0.0 and float(e.max()) < 1.0 and float(e.std()) > 0.1
+
+
 @pytest.mark.parametrize("k,groups,D", [(16, 2, 32), (128, 16, 64), (5, 1, 8)])
 def test_pos_conv_weight_map(k, groups, D):
     """One grouped Conv1d with weight[o, i, t] = kernel[t, i, o] equals the
