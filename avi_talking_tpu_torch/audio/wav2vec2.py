@@ -177,17 +177,20 @@ class EncoderLayer(nn.Module):
         self.final_layer_norm = LayerNorm(d, eps=cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
+        """Under tensor parallelism (``parallel.shard_params``) q / k / v
+        carry this rank's d / tp features: its h / tp heads of width d / h,
+        which the attention kernel runs on, and the row-parallel
+        ``out_proj`` sums the ranks' outputs."""
         B, T, d = x.shape
-        h = self.heads
-        hd = d // h
+        hd = d // self.heads
         a = self.attention
 
         def heads(t):
-            return t.reshape(B, T, h, hd).transpose(1, 2).contiguous()
+            return t.reshape(B, T, t.shape[-1] // hd, hd).transpose(1, 2).contiguous()
 
         q = heads(a.q_proj(x) * scalar(hd ** -0.5, x.dtype))
         ctx = keybias_attention(q, heads(a.k_proj(x)), heads(a.v_proj(x)), key_bias)
-        ctx = a.out_proj(ctx.transpose(1, 2).reshape(B, T, d))
+        ctx = a.out_proj(ctx.transpose(1, 2).reshape(B, T, q.shape[1] * hd))
         x = self.layer_norm(x + ctx)
         ff = self.feed_forward
         y = ff.output_dense(_gelu(ff.intermediate_dense(x)))

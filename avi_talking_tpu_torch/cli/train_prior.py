@@ -6,15 +6,17 @@ by clip (``--val-fraction``, read when ``--val-every`` is set). The towers'
 weights come from ``--pipeline-checkpoint`` (its ``clip`` part, with the
 real CLIP tokenizer required) and ``--emote-checkpoint`` (the style
 encoder of an ``import-emote`` or pipeline checkpoint's ``head``, or of a
-``train-emote`` run checkpoint's ``params``), else from a seed."""
+``train-emote`` run checkpoint's ``params``), else from a seed.
+
+``--dp`` splits each batch over the processes of a
+``torch.distributed.run`` launch (``python -m torch.distributed.run
+--nproc_per_node N -m avi_talking_tpu_torch.cli train-prior --dp``; NCCL
+on the cards, gloo with ``--device cpu``); in one process it is the plain
+run, as JAX's is on one device."""
 
 from __future__ import annotations
 
 import sys
-
-REFUSED = {
-    "dp": "--dp needs the data-parallel port (ROADMAP Queue 1, item 7)",
-}
 
 
 def _style_encoder_state(ckpt) -> dict:
@@ -86,13 +88,18 @@ def build_prior_corpus(args, cfg, device):
 
 
 def cmd_train_prior(args) -> int:
+    import torch
+
     from ..infra.device import resolve_device
+    from ..parallel import init_distributed, is_main_process, make_mesh
     from ..train.driver import PriorTrainingConfig, train_prior
 
-    for name, why in REFUSED.items():
-        if getattr(args, name, None):
-            raise SystemExit(f"train-prior: not ported to avi_talking_tpu_torch yet: {why}")
+    mesh = None
+    if args.dp and init_distributed(device=args.device):
+        mesh = make_mesh(tp=1)
     device = resolve_device(args.device)
+    if device.type == "cuda" and mesh is not None:
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = PriorTrainingConfig(
         total_steps=args.steps, batch_size=args.batch_size, max_lr=args.lr,
         val_every=args.val_every, val_steps=args.val_steps, resume=args.resume,
@@ -101,8 +108,15 @@ def cmd_train_prior(args) -> int:
     batches = val_batches = None
     if args.json_dir or args.root:
         batches, val_batches = build_prior_corpus(args, cfg, device)
-    res = train_prior(cfg, batches=batches, val_batches=val_batches, logdir=args.logdir,
-                      ckpt_dir=args.ckpt_dir, device=device)
+    main = is_main_process()
+    try:
+        res = train_prior(cfg, batches=batches, val_batches=val_batches, logdir=args.logdir,
+                          ckpt_dir=args.ckpt_dir, device=device, mesh=mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+    if not main:
+        return 0
     print("final:", res["metrics"])
     if res["val_history"]:
         print(f"best val loss: {res['best_val_loss']:.4f} "
@@ -136,7 +150,8 @@ def register(sub, common):
     t.add_argument("--emote-checkpoint", default=None,
                    help="checkpoint with the EMOTE head (its style encoder) for --json-dir / "
                         "--root")
-    t.add_argument("--dp", action="store_true", help="(not ported yet)")
+    t.add_argument("--dp", action="store_true",
+                   help="split each batch over the processes of a torch.distributed.run launch")
     t.add_argument("--device", default=None,
                    help="torch device; the default is the CUDA card, and no card is an error")
     t.set_defaults(fn=cmd_train_prior)

@@ -118,17 +118,21 @@ def chunked_apply(fn: Callable, frames, max_b: int, inflight: int = 2,
     return cat if len(cat) > 1 else cat[0]
 
 
-def _to_device(tree: Any, device: torch.device, moved: List[torch.Tensor]) -> Any:
+def _to_device(tree: Any, device: torch.device, moved: List[torch.Tensor],
+               rows: Optional[Any] = None) -> Any:
     """Array leaves of nested dicts / lists / tuples copied to ``device``
-    (recorded in ``moved``); other leaves as they are."""
+    (recorded in ``moved``), only their ``rows`` (a ``BatchSharding``) when
+    given; other leaves as they are."""
     if isinstance(tree, dict):
-        return {k: _to_device(v, device, moved) for k, v in tree.items()}
+        return {k: _to_device(v, device, moved, rows) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device, moved) for v in tree)
+        return type(tree)(_to_device(v, device, moved, rows) for v in tree)
     if isinstance(tree, np.ndarray):
         tree = torch.from_numpy(tree)
     if not isinstance(tree, torch.Tensor):
         return tree
+    if rows is not None:
+        tree = rows(tree).contiguous()
     if device.type == "cuda" and tree.device.type == "cpu":
         tree = tree.pin_memory()
     out = tree.to(device, non_blocking=device.type == "cuda")
@@ -137,7 +141,8 @@ def _to_device(tree: Any, device: torch.device, moved: List[torch.Tensor]) -> An
 
 
 def prefetch_to_device(iterator: Iterator[Any], size: int = 2,
-                       device: Optional[Any] = None) -> Iterator[Any]:
+                       device: Optional[Any] = None, sharding: Optional[Any] = None
+                       ) -> Iterator[Any]:
     """Batches of ``iterator`` with their array leaves (numpy arrays and
     tensors) on ``device`` (the card unless given), copied ahead of use.
 
@@ -148,8 +153,9 @@ def prefetch_to_device(iterator: Iterator[Any], size: int = 2,
     tensor is marked used on the consumer's stream (``record_stream``) so
     its memory is not reused while the step reads it. Other leaves (paths,
     strings) pass through; an error of ``iterator`` is raised in the
-    consumer. JAX's ``sharding`` argument (a dp batch split over a mesh)
-    waits for the port's data-parallel layer."""
+    consumer. ``sharding`` (``parallel.batch_sharding(mesh)``, JAX's dp
+    split) takes this rank's rows of each array leaf before the copy, so
+    only they reach the device."""
     from ..infra.device import resolve_device
 
     device = resolve_device(device)
@@ -162,10 +168,10 @@ def prefetch_to_device(iterator: Iterator[Any], size: int = 2,
             for batch in iterator:
                 moved: List[torch.Tensor] = []
                 if side is None:
-                    q.put((_to_device(batch, device, moved), None, moved))
+                    q.put((_to_device(batch, device, moved, sharding), None, moved))
                     continue
                 with torch.cuda.stream(side):
-                    out = _to_device(batch, device, moved)
+                    out = _to_device(batch, device, moved, sharding)
                     copied = torch.cuda.Event()
                     copied.record(side)
                 q.put((out, copied, moved))

@@ -113,12 +113,20 @@ class DiffusionPrior:
     text_cond_drop_prob: float = 0.2
     image_cond_drop_prob: float = 0.2
     training_clamp_l2norm: bool = False
+    image_embed_scale: Optional[float] = None  # None: sqrt(dim)
+    sampling_clamp_l2norm: bool = False  # each step's x0 onto the sphere of embed_scale
+    init_image_embed_l2norm: bool = False  # the initial noise onto it
+    sampling_final_clamp_l2norm: bool = False  # the final sample onto it
 
     @property
     def embed_scale(self) -> float:
-        """image_embed_scale = sqrt(dim): dalle2's p_sample_loop un-scales
-        the sample by it (training targets were scaled by it)."""
-        return self.net.dim ** 0.5
+        """``image_embed_scale``, by default sqrt(dim): dalle2's
+        p_sample_loop un-scales the sample by it (training targets were
+        scaled by it)."""
+        return self.image_embed_scale if self.image_embed_scale is not None else self.net.dim ** 0.5
+
+    def _on_sphere(self, x: torch.Tensor, flag: bool) -> torch.Tensor:
+        return l2norm(x) * self.embed_scale if flag else x
 
     def p_losses(self, image_embed: torch.Tensor, times: torch.Tensor, text_embed: torch.Tensor,
                  noise: Optional[torch.Tensor] = None, brain_keep: Optional[torch.Tensor] = None,
@@ -155,7 +163,8 @@ class DiffusionPrior:
 
     def _predict_x_start(self, x, t: int, text_embed, cond_scale: float) -> torch.Tensor:
         tb = torch.full((x.shape[0],), t, dtype=torch.int32, device=x.device)
-        return self.net.forward_with_cond_scale(x, tb, text_embed, cond_scale).float()
+        x_start = self.net.forward_with_cond_scale(x, tb, text_embed, cond_scale).float()
+        return self._on_sphere(x_start, self.sampling_clamp_l2norm)
 
     def p_sample_loop(
         self,
@@ -173,7 +182,7 @@ class DiffusionPrior:
             noise_init = torch.randn(shape, generator=generator, device=device)
         if noise_steps is None:
             noise_steps = torch.randn((steps, *shape), generator=generator, device=device)
-        x = noise_init.to(device)
+        x = self._on_sphere(noise_init.to(device), self.init_image_embed_l2norm)
         noise_steps = noise_steps.to(device)
         for i in range(steps):
             t = steps - 1 - i
@@ -183,7 +192,7 @@ class DiffusionPrior:
                 x = mean + float(np.exp(_f32(0.5) * _f32(log_var))) * noise_steps[i]
             else:
                 x = mean
-        return x / self.embed_scale
+        return self._on_sphere(x, self.sampling_final_clamp_l2norm) / self.embed_scale
 
     def ddim_sample_loop(
         self,
@@ -209,7 +218,7 @@ class DiffusionPrior:
             noise_init = torch.randn(shape, generator=generator, device=device)
         if eta > 0 and noise_steps is None:
             noise_steps = torch.randn((steps, *shape), generator=generator, device=device)
-        x = noise_init.to(device)
+        x = self._on_sphere(noise_init.to(device), self.init_image_embed_l2norm)
         one, zero = np.float32(1.0), np.float32(0.0)
         for i, (t, t_prev) in enumerate(zip(times[:-1], times[1:])):
             x_start = self._predict_x_start(x, int(t), text_embed, cond_scale)
@@ -221,4 +230,4 @@ class DiffusionPrior:
                  + float(np.sqrt(np.maximum(one - a_prev - sigma * sigma, zero))) * eps)
             if eta > 0:
                 x = x + float(sigma) * noise_steps[i].to(device)
-        return x / self.embed_scale
+        return self._on_sphere(x, self.sampling_final_clamp_l2norm) / self.embed_scale

@@ -135,12 +135,14 @@ class LipReadingLoss:
         return self.from_features(self.features(pred_crops), fg, mask)
 
     def from_features(self, fp: torch.Tensor, fg: torch.Tensor,
-                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      mask: Optional[torch.Tensor] = None,
+                      mask_sum: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Loss from per-frame features computed once per distinct crop set;
         ``fg`` is detached here. The cosine clamps each side's norm at 1e-8
         on its own, as JAX does (``F.cosine_similarity`` clamps the
         product); the norm is ``jnp.linalg.norm``'s ``sqrt(sum(x * x))``,
-        rounded op by op below float32."""
+        rounded op by op below float32. ``mask_sum`` replaces the mask's
+        own count in the masked mean (the global count under dp)."""
         fg = fg.detach()
         if self.metric == "l1":
             per = (fp - fg).abs().mean(-1)
@@ -153,4 +155,5 @@ class LipReadingLoss:
         if mask is None:
             return per.mean()
         mask = mask.to(per.dtype)
-        return (per * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        return (per * mask).sum() / torch.clamp_min(mask.sum() if mask_sum is None else mask_sum,
+                                                    1.0)

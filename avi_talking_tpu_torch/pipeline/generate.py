@@ -27,6 +27,14 @@ Randomness: the prior's noise is drawn from a ``torch.Generator`` on the
 pipeline's device seeded by ``seed``, or passed explicitly as
 ``noise={"init": (B, 1, D), "steps": (timesteps, B, 1, D)}`` ("steps" only
 for DDPM) -- the way the tests feed both packages the same draws.
+
+``use_mesh(mesh)`` serves data-parallel over the mesh's "dp" axis (every
+rank holds the whole pipeline and runs its rows): ``sample_style`` and
+``generate_batch`` pad the batch to a dp multiple by repeating its first
+row, run this rank's rows and gather the outputs over dp in request order,
+so they return what the unsharded pipeline returns. The prior's noise is
+drawn for the unpadded global batch from the one seeded generator, then
+padded and sliced: it depends on neither the rank nor the padding.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from ..models.conditioning import EmotionStyleEncoder
 from ..models.emote import EmoteConfig, EmoteTalkingHead
 from ..models.prior_transformer import PriorTransformerNetwork
 from ..ops.layers import set_compute_dtype
+from ..parallel.mesh import batch_sharding, dp_gather, dp_size
 from ..text import ClipBpeTokenizer, find_tokenizer_assets
 from .postprocess import Intervals, apply_jaw_intervals
 
@@ -162,6 +171,7 @@ class AviTalkingPipeline:
     head: EmoteTalkingHead
     tokenizer: Any
     device: torch.device
+    mesh: Any = None  # use_mesh: a ("dp", "tp") DeviceMesh
 
     @classmethod
     def random_init(
@@ -256,15 +266,29 @@ class AviTalkingPipeline:
 
     # ------------------------------------------------------------------
 
+    def use_mesh(self, mesh) -> None:
+        """Serve data-parallel over ``mesh``'s "dp" axis (see the module
+        docstring); the weights stay whole on every rank."""
+        self.mesh = mesh
+
+    def _dp(self) -> int:
+        return dp_size(self.mesh)
+
+    def _local_rows(self, n: int) -> torch.Tensor:
+        """Indices into a batch of ``n`` rows: padded to a dp multiple with
+        the first row, then this rank's block."""
+        idx = torch.arange(n + (-n) % self._dp())
+        idx[n:] = 0
+        return idx[batch_sharding(self.mesh).rows(idx.shape[0])]
+
     def _token_ids(self, texts) -> torch.Tensor:
         return torch.from_numpy(np.asarray(self.tokenizer(list(texts)), np.int64)).to(self.device)
 
     def _style(self, token_ids: torch.Tensor, seed: int, cond_scale: float,
                sampler: str = "ddpm", ddim_steps: int = 20,
                noise: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
-        hidden = self.clip_model(token_ids)
-        clip_voxels, _ = self.brain(hidden.mean(dim=1))
-        shape = (token_ids.shape[0], 1, self.cfg.clip_size)
+        n = token_ids.shape[0]
+        shape = (n, 1, self.cfg.clip_size)
         gen = init = steps = None
         if noise is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -272,6 +296,20 @@ class AviTalkingPipeline:
             init = torch.tensor(np.asarray(noise["init"]), dtype=torch.float32)
             if noise.get("steps") is not None:
                 steps = torch.tensor(np.asarray(noise["steps"]), dtype=torch.float32)
+        if self.mesh is not None:
+            if gen is not None:  # the loops' own draws, in their order, for all n rows
+                init = torch.randn(shape, generator=gen, device=self.device)
+                if sampler == "ddpm":
+                    steps = torch.randn((self.cfg.timesteps, *shape), generator=gen,
+                                        device=self.device)
+                gen = None
+            rows = self._local_rows(n)
+            token_ids = token_ids[rows.to(token_ids.device)]
+            init = init[rows.to(init.device)]
+            steps = None if steps is None else steps[:, rows.to(steps.device)]
+            shape = (rows.shape[0], *shape[1:])
+        hidden = self.clip_model(token_ids)
+        clip_voxels, _ = self.brain(hidden.mean(dim=1))
         if sampler == "ddim":
             style = self.prior.ddim_sample_loop(shape, clip_voxels, steps=ddim_steps,
                                                 cond_scale=cond_scale, noise_init=init,
@@ -282,7 +320,7 @@ class AviTalkingPipeline:
                                              generator=gen)
         else:
             raise ValueError(f"unknown sampler {sampler!r}")
-        return style[:, 0]
+        return dp_gather(style[:, 0], self.mesh)[:n]
 
     @torch.inference_mode()
     def sample_style(self, instruction, seed: int = 0, cond_scale: float = 1.0,
@@ -349,16 +387,19 @@ class AviTalkingPipeline:
         results: list = [None] * len(wavs)
         for b, idxs in by_bucket.items():
             tb = time.perf_counter()
+            # dp: this rank's rows of the bucket padded with its first clip
+            local = [idxs[int(j)] for j in self._local_rows(len(idxs))]
             batch = np.stack([pad_to_bucket(normalize_audio(frames_list[i]).reshape(-1, 640),
-                                            [b], axis=0) for i in idxs])
-            vl = torch.tensor([lens[i] for i in idxs], device=self.device)
+                                            [b], axis=0) for i in local])
+            vl = torch.tensor([lens[i] for i in local], device=self.device)
             out = self.head(torch.from_numpy(batch).to(self.device),
-                            style_emb=styles[torch.tensor(idxs, device=self.device)],
+                            style_emb=styles[torch.tensor(local, device=self.device)],
                             valid_len=vl)
+            out = {k: dp_gather(v, self.mesh)[:len(idxs)] for k, v in out.items()
+                   if return_vertices or k != "vertices"}
             tf = time.perf_counter()
             st["prep_ms"] += (tf - tb) * 1e3
-            host = {k: v.float().cpu().numpy() for k, v in out.items()
-                    if return_vertices or k != "vertices"}
+            host = {k: v.float().cpu().numpy() for k, v in out.items()}
             st["device_fetch_ms"] += (time.perf_counter() - tf) * 1e3
             for j, i in enumerate(idxs):
                 T = lens[i]

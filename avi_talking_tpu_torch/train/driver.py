@@ -13,6 +13,11 @@ stream (seed + 99,991), logs under ``prior_val/``, writes
 ``resume`` continues from ``last``. Step i draws from a generator seeded by
 (seed, i), so a resumed run draws what an unbroken one would.
 
+With ``mesh`` (``parallel.make_mesh``; JAX's ``mesh=``) every rank reads
+the same global batches and steps on its own rows (``PriorTrainer``'s dp
+step, which equals the unsharded one); only rank 0 logs and writes
+checkpoints, and ``resume`` reads after a barrier.
+
 ``train_flint_vae`` trains FLINT (``models.flint_vae``) as a Gaussian VAE
 or, with ``quantizer="vq"``, a VQ-VAE: AdamW over the parameters, the
 BatchNorms in train mode (batch statistics, running statistics updated by
@@ -38,6 +43,7 @@ from ..infra.run_dir import EarlyStopping, snapshot_config
 from ..models.brain import BrainNetwork
 from ..models.diffusion import DiffusionPrior, NoiseScheduler
 from ..models.prior_transformer import PriorTransformerNetwork
+from ..parallel.mesh import batch_sharding, is_main_process
 from .losses import cosine_anneal
 from .optim import adamw
 from .prior import PriorTrainer, PriorTrainState, make_prior_optimizer
@@ -109,13 +115,16 @@ def train_prior(
     val_batches: Optional[Callable[[], Iterator[Batch]]] = None,
     run_dir: Optional[str] = None,
     device=None,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Run the loop on the card (or ``device``); returns the final state,
     the last step's metrics, the validation history and the checkpoints."""
     device = resolve_device(device)
+    main = is_main_process()
     if run_dir is not None:
-        os.makedirs(run_dir, exist_ok=True)
-        snapshot_config(run_dir, cfg)
+        if main:
+            os.makedirs(run_dir, exist_ok=True)
+            snapshot_config(run_dir, cfg)
         logdir = logdir or os.path.join(run_dir, "logs")
         ckpt_dir = ckpt_dir or os.path.join(run_dir, "checkpoints")
     if batches is None:
@@ -126,22 +135,28 @@ def train_prior(
             cfg.batch_size, cfg.val_steps, cfg.in_dim, cfg.clip_size, seed=seed + 99_991)
 
     state = build_state(cfg, seed, device)
-    trainer = PriorTrainer()
+    trainer = PriorTrainer(mesh=mesh)
     best_val_loss = float("inf")
     last_dir = os.path.join(ckpt_dir, "last") if ckpt_dir else None
     best_dir = os.path.join(ckpt_dir, "best") if ckpt_dir else None
+    if cfg.resume and mesh is not None:
+        torch.distributed.barrier()
     if cfg.resume and last_dir and os.path.isdir(last_dir):
         restored = restore_checkpoint(last_dir, map_location=device)
         state.load_state_dict(restored["state"])
         best_val_loss = float(restored["best_val_loss"])
-        print(f"resumed from {last_dir} at step {state.step} (best val loss {best_val_loss:.4f})")
+        if main:
+            print(f"resumed from {last_dir} at step {state.step} "
+                  f"(best val loss {best_val_loss:.4f})")
     start_step = state.step
     temps = cosine_anneal(cfg.nce_temp_start, cfg.nce_temp_end, max(cfg.total_steps, 2)).tolist()
 
+    rows = batch_sharding(mesh)
+
     def put(x) -> torch.Tensor:  # numpy, or a featurizer's tensor already on a device
         if isinstance(x, torch.Tensor):
-            return x.to(device=device, dtype=torch.float32)
-        return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+            return rows(x).to(device=device, dtype=torch.float32)
+        return torch.from_numpy(np.asarray(rows(x), np.float32)).to(device)
 
     def run_validation(step: int) -> Dict[str, float]:
         sums: Dict[str, float] = {}
@@ -158,7 +173,7 @@ def train_prior(
     def params() -> Dict[str, Any]:
         return {"brain": state.brain.state_dict(), "prior": state.prior.net.state_dict()}
 
-    writer = ScalarWriter(logdir) if logdir else None
+    writer = ScalarWriter(logdir) if logdir and main else None
     stopper = EarlyStopping(patience=cfg.early_stop_patience) if cfg.early_stop_patience else None
     metrics: Dict[str, Any] = {}
     val_history = []
@@ -170,7 +185,7 @@ def train_prior(
                                          temps[min(i, len(temps) - 1)],
                                          generator=step_generator(device, seed, i))
             i += 1
-            if i % cfg.log_every == 0:
+            if i % cfg.log_every == 0 and main:
                 m = {k: float(v) for k, v in metrics.items()}
                 write_metrics(writer, m, i, prefix="prior/")
                 print(f"step {i}: loss={m['loss']:.4f} nce={m['loss_nce']:.4f} "
@@ -181,20 +196,22 @@ def train_prior(
                 write_metrics(writer, val, i, prefix="prior_val/")
                 improved = val["loss"] < best_val_loss
                 best_val_loss = min(best_val_loss, val["loss"])
-                if ckpt_dir:
+                if ckpt_dir and main:
                     if improved:
                         save_checkpoint(best_dir, {"params": params(), "step": state.step})
                     # "last" carries the best loss so far, so a resumed run keeps the tag honest
                     save_checkpoint(last_dir, {"state": state.state_dict(),
                                                "best_val_loss": best_val_loss})
                 val_history.append({"step": i, **val})
-                print(f"  val@{i}: loss={val['loss']:.4f} top1={val['top1_fwd']:.3f} "
-                      f"(best {best_val_loss:.4f})")
+                if main:
+                    print(f"  val@{i}: loss={val['loss']:.4f} top1={val['top1_fwd']:.3f} "
+                          f"(best {best_val_loss:.4f})")
                 if stopper is not None and stopper.update(val["loss"]):
-                    print(f"early stop at step {i} ({stopper.bad_evals} validations without "
-                          f"improvement over {stopper.best:.4f})")
+                    if main:
+                        print(f"early stop at step {i} ({stopper.bad_evals} validations "
+                              f"without improvement over {stopper.best:.4f})")
                     break
-        if ckpt_dir and not cfg.val_every:
+        if ckpt_dir and not cfg.val_every and main:
             save_checkpoint(ckpt_dir, {"params": params(), "step": state.step})
     finally:
         if writer is not None:

@@ -9,6 +9,11 @@ the validation loss improved; ``EarlyStopping`` ends a stage early. The
 head is trained in place (JAX copies its params at entry; here the
 caller's module is the one that learns). Stages with ``use_neural`` add
 the ``neural`` perceptual terms to their loss.
+
+With ``mesh`` (JAX's ``mesh=``) the batches are global and each rank steps
+on its own rows (``TalkingHeadTrainer``'s dp step); the head may already be
+split over tp or FSDP (``parallel.shard_params`` / ``fsdp_shard_params``).
+Only rank 0 logs and writes checkpoints, which hold whole tensors.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from ..infra.checkpoint import save_checkpoint
 from ..infra.meters import ScalarWriter, write_metrics
 from ..infra.run_dir import EarlyStopping, snapshot_config
 from ..models.emote import EmoteTalkingHead
+from ..parallel.mesh import batch_sharding, full_state_dict, is_main_process
 from .optim import adamw
 from .talking_head import NeuralLosses, TalkingHeadTrainer, emote_trainables
 
@@ -59,7 +65,9 @@ def validate(trainer: TalkingHeadTrainer, val_batches: Batches, seed: int,
     every validation (JAX: ``fold_in(rng, 10**6 + n)``)."""
     sums: Dict[str, float] = {}
     n = 0
+    rows = batch_sharding(trainer.mesh)
     for vb in val_batches():
+        vb = {k: rows(v) for k, v in vb.items()}
         g = torch.Generator(device=device).manual_seed(seed + 10 ** 6 + n)
         for k, v in trainer.eval_step(vb, generator=g).items():
             sums[k] = sums.get(k, 0.0) + float(v)
@@ -78,12 +86,15 @@ def train_emote(
     run_dir: Optional[str] = None,
     log_every: int = 50,
     seed: int = 0,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Run the staged loop on ``head`` (in place); returns the per-stage
     validation histories, the best validation loss and the step count."""
     device = next(head.parameters()).device
+    main = is_main_process()
+    rows = batch_sharding(mesh)
     writer = None
-    if run_dir is not None:
+    if run_dir is not None and main:
         os.makedirs(run_dir, exist_ok=True)
         snapshot_config(run_dir, {"stages": list(stages), "val_every": val_every})
         writer = ScalarWriter(os.path.join(run_dir, "logs"))
@@ -97,7 +108,8 @@ def train_emote(
                 head=head, optimizer=adamw(emote_trainables(head), stage.lr),
                 exp_weight=stage.exp_weight, jaw_weight=stage.jaw_weight,
                 vertex_weight=stage.vertex_weight, velocity_weight=stage.velocity_weight,
-                neural=neural if stage.use_neural else None, disentangle=stage.disentangle)
+                neural=neural if stage.use_neural else None, disentangle=stage.disentangle,
+                mesh=mesh)
             stopper = EarlyStopping(patience=early_stop_patience) if early_stop_patience else None
             hist: List[Dict[str, float]] = []
             it = batches()
@@ -108,9 +120,10 @@ def train_emote(
                 except StopIteration:
                     it = batches()
                     batch = next(it)
-                metrics = trainer.train_step(batch, generator=gen)
+                metrics = trainer.train_step({k: rows(v) for k, v in batch.items()},
+                                             generator=gen)
                 step_total += 1
-                if (i + 1) % log_every == 0:
+                if (i + 1) % log_every == 0 and main:
                     m = {k: float(v) for k, v in metrics.items()}
                     write_metrics(writer, m, step_total, prefix=f"emote/{stage.name}/")
                     print(f"[{stage.name}] step {i + 1}/{stage.steps}: loss={m['loss']:.4f} "
@@ -119,14 +132,16 @@ def train_emote(
                     val = validate(trainer, val_batches, seed, device)
                     write_metrics(writer, val, step_total, prefix=f"emote_val/{stage.name}/")
                     hist.append({"step": step_total, **val})
-                    if run_dir:
-                        state = {"params": head.state_dict(), "step": step_total}
+                    params = full_state_dict(head) if run_dir else None
+                    if run_dir and main:
+                        state = {"params": params, "step": step_total}
                         if val["loss"] < best_val:
                             save_checkpoint(os.path.join(run_dir, "checkpoints", "best"), state)
                         save_checkpoint(os.path.join(run_dir, "checkpoints", "last"), state)
                     best_val = min(best_val, val["loss"])
                     if stopper is not None and stopper.update(val["loss"]):
-                        print(f"[{stage.name}] early stop at step {i + 1}")
+                        if main:
+                            print(f"[{stage.name}] early stop at step {i + 1}")
                         break
             histories[stage.name] = hist
     finally:

@@ -55,16 +55,26 @@ def condition_exchange(
     perm: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     condition_keys: Tuple[str, ...] = CONDITION_KEYS,
+    mesh=None,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """-> (doubled batch, the permutation of the exchanged half). Takes
-    ``perm`` when given, else draws ``derangement`` from ``generator``."""
+    ``perm`` when given, else draws ``derangement`` from ``generator``.
+
+    Under a ``mesh`` ``batch`` is this rank's rows of the global batch and
+    ``perm`` is over the global batch (drawn alike on every rank): the
+    exchanged half takes its conditions from the dp-gathered global batch,
+    as if the exchange ran before the split, and the permutation returned
+    is this rank's rows of ``perm`` (global row indices)."""
+    from ..parallel.mesh import batch_sharding, dp_gather, dp_size
+
     B = next(iter(batch.values())).shape[0]
     if perm is None:
         if generator is None:
             raise ValueError("condition_exchange needs perm or a generator")
-        perm = derangement(B, generator)
+        perm = derangement(B * dp_size(mesh), generator)
+    src = perm if mesh is None else perm[batch_sharding(mesh).rows(perm.shape[0])]
     out: Dict[str, torch.Tensor] = {}
     for k, v in batch.items():
-        other = v[perm.to(v.device)] if k in condition_keys else v
+        other = dp_gather(v, mesh)[src.to(v.device)] if k in condition_keys else v
         out[k] = torch.cat([v, other], dim=0)
-    return out, perm
+    return out, src

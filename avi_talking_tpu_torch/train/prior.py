@@ -12,13 +12,20 @@ decayed tensors and the rest (biases, norm scales, anything in a norm).
 The step's random draws (the brain's dropout masks, the timesteps, the
 noise and the two condition keep masks) are taken from ``draws`` where
 given (a test passes JAX's) and from a ``torch.Generator`` otherwise.
+
+With ``mesh`` (``parallel.make_mesh``) each rank steps on its own rows of
+the global batch: the draws are made for the global batch, from the same
+generator on every rank, and sliced; the contrastive term and the top-1
+metrics run over the global batch through a differentiable gather; the
+gradients are averaged over dp before the clip, so the step is the
+unsharded one.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +34,7 @@ from torch import nn
 from ..models.brain import BrainNetwork
 from ..models.diffusion import DiffusionPrior
 from ..models.prior_transformer import LucidLayerNorm
+from ..parallel.mesh import batch_sharding, dp_gather, dp_mean, dp_size, draw_rows, reduce_gradients
 from .losses import batchwise_cosine_similarity, soft_clip_loss, topk_accuracy
 
 Schedule = Callable[[int], float]
@@ -145,34 +153,65 @@ def _unit(x: torch.Tensor) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=1e-8)
 
 
+def step_draws(state: PriorTrainState, B: int, generator: torch.Generator, tokens: int = 1
+               ) -> Dict[str, Any]:
+    """Every draw of a step for a batch of ``B``, in the order the step
+    would take them from ``generator``: the brain's dropout masks, the
+    timesteps, the noise, then the brain's and the image's keep masks
+    (None where the drop probability leaves nothing to draw)."""
+    dev = generator.device
+    prior = state.prior
+
+    def keep(p):
+        return torch.rand((B, 1, 1), generator=generator, device=dev) >= p if 0.0 < p < 1.0 \
+            else None
+
+    draws = {"dropout": state.brain.dropout_masks(B, generator),
+             "times": torch.randint(0, prior.scheduler.num_timesteps, (B,), generator=generator,
+                                    device=dev),
+             "noise": torch.randn((B, tokens, prior.net.dim), generator=generator, device=dev)}
+    draws["brain_keep"] = keep(prior.text_cond_drop_prob)
+    draws["image_keep"] = keep(prior.image_cond_drop_prob)
+    return draws
+
+
 @dataclasses.dataclass
 class PriorTrainer:
     prior_loss_weight: float = 30.0
     nce_temp: float = 0.006  # the driver anneals it 0.004 -> 0.0075
+    mesh: Any = None  # a ("dp", "tp") DeviceMesh: dp over the batch
 
     def loss_fn(self, state: PriorTrainState, voxel: torch.Tensor, style_target: torch.Tensor,
                 nce_temp: Optional[float] = None, draws: Optional[Dict] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """``voxel`` (B, in_dim) CLIP text means, ``style_target`` (B, 128)
-        style embeddings; the brain runs with dropout, the prior with
-        condition dropout."""
+        style embeddings (under a mesh this rank's rows, and ``draws`` those
+        of the global batch); the brain runs with dropout, the prior with
+        condition dropout. Under a mesh the loss is this rank's share: its
+        prior MSE and the global contrastive term, whose mean over the dp
+        ranks is the global loss, as the metrics are."""
         d = draws or {}
         if generator is None and any(k not in d for k in DRAW_KEYS):
             raise ValueError(f"the step needs draws {DRAW_KEYS} or a generator")
         temp = self.nce_temp if nce_temp is None else nce_temp
         B = voxel.shape[0]
-        masks = d["dropout"] if "dropout" in d else state.brain.dropout_masks(B, generator)
-        clip_voxels, proj = state.brain(voxel, masks)
-        loss_prior, _ = state.prior.loss(clip_voxels, style_target, d.get("times"),
-                                         d.get("noise"), d.get("brain_keep"),
-                                         d.get("image_keep"), generator)
+        if any(k not in d for k in DRAW_KEYS):
+            tokens = style_target.reshape(B, -1, state.prior.net.dim).shape[1]
+            d = step_draws(state, B * dp_size(self.mesh), generator, tokens)
+            if self.mesh is not None:
+                d = draw_rows(d, batch_sharding(self.mesh))
+        clip_voxels, proj = state.brain(voxel, d["dropout"])
+        loss_prior, _ = state.prior.loss(clip_voxels, style_target, d["times"], d["noise"],
+                                         d["brain_keep"], d["image_keep"])
         proj_flat = proj.reshape(B, -1)
         target_norm, proj_norm = _unit(style_target), _unit(proj_flat)
-        loss_nce = soft_clip_loss(proj_norm, target_norm, temp=temp)
+        loss_nce = soft_clip_loss(dp_gather(proj_norm, self.mesh, grad=True),
+                                  dp_gather(target_norm, self.mesh), temp=temp)
         loss = loss_nce + self.prior_loss_weight * loss_prior
-        sims = batchwise_cosine_similarity(style_target, proj_flat)
-        labels = torch.arange(B, device=voxel.device)
+        sims = batchwise_cosine_similarity(dp_gather(style_target, self.mesh),
+                                           dp_gather(proj_flat.detach(), self.mesh))
+        labels = torch.arange(sims.shape[0], device=voxel.device)
         return loss, {
             "loss": loss, "loss_nce": loss_nce, "loss_prior": loss_prior,
             "cosine_sim": (proj_norm * target_norm).sum(-1).mean(),
@@ -186,13 +225,16 @@ class PriorTrainer:
         state.optimizer.zero_grad()
         loss, metrics = self.loss_fn(state, voxel, style_target, nce_temp, draws, generator)
         loss.backward()
+        reduce_gradients([p for g in state.optimizer.adamw.param_groups for p in g["params"]],
+                         self.mesh)
         state.optimizer.step(state.step)
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return dp_mean({k: v.detach() for k, v in metrics.items()}, self.mesh)
 
     @torch.no_grad()
     def eval_step(self, state: PriorTrainState, voxel, style_target, nce_temp=None,
                   draws=None, generator=None) -> Dict[str, torch.Tensor]:
         """The step's metrics without an update (dropout and condition
         dropout act, as in JAX's eval step)."""
-        return self.loss_fn(state, voxel, style_target, nce_temp, draws, generator)[1]
+        return dp_mean(self.loss_fn(state, voxel, style_target, nce_temp, draws, generator)[1],
+                       self.mesh)

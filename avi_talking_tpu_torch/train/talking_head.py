@@ -35,12 +35,24 @@ the render run in float32 (K2 unchanged); each tower casts the float32
 frames to its own compute dtype, and its terms are computed in it (JAX's
 ``jnp`` promotion, which torch's matches); the parameters, gradients and
 AdamW state stay float32.
+
+Under a ``mesh`` (``parallel.make_mesh``; JAX's ``jitted_train_step(mesh=)``)
+each rank steps on its own rows of the global batch and the step is the
+unsharded one: a rank's loss is its share, whose mean over the dp ranks is
+the global loss (the means over equal row blocks average; a masked mean
+divides this rank's sum by the global mask count, one all-reduce), the
+exchange's derangement is drawn over the global batch and its conditions
+and EmoNet targets are gathered over dp, and the gradients are averaged
+over the dp group (by hand, or by FSDP2's reduce-scatter for the
+parameters it shards; ``parallel.fsdp_shard_params``). The wav2vec2
+encoder may be split over tp (``parallel.shard_params``); its
+tp-replicated weights get the whole gradient on every tp rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -51,6 +63,7 @@ from ..models.emote import EmoteTalkingHead
 from ..models.flint import RunningStatsBatchNorm1d
 from ..models.lipread import LipReadingLoss, mouth_transform
 from ..models.video_emotion import VideoEmotionLoss
+from ..parallel.mesh import dp_gather, dp_mean, dp_size, dp_sum, reduce_gradients
 from ..viz.visualizer import FixedViewRenderer
 from .eval_metrics import condition_exchange
 
@@ -99,7 +112,8 @@ class NeuralLosses:
         return {k: v.reshape(B, T, *v.shape[1:]) for k, v in out.items()}
 
     def loss(self, vertices: torch.Tensor, gt_vertices: torch.Tensor, batch, B_orig: int,
-             perm: Optional[torch.Tensor], metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
+             perm: Optional[torch.Tensor], metrics: Dict[str, torch.Tensor], mesh=None
+             ) -> torch.Tensor:
         """The perceptual terms of predicted ``vertices`` (B or 2B, T, V, 3)
         against ``gt_vertices`` (B, T, V, 3). With an exchange ``perm`` the
         rows B_orig: are the exchanged half: its lip reading is held to the
@@ -107,30 +121,38 @@ class NeuralLosses:
         ``perm`` (carry the borrowed emotion), its video emotion to the
         labels ``perm``. The EmoNet tower runs once over all predicted rows
         and once over the gt rows; the twins permute features, not videos.
-        The gt side runs without grad."""
+        The gt side runs without grad. Under a ``mesh`` the rows are this
+        rank's, ``perm`` holds global row indices (the gt EmoNet outputs and
+        labels are gathered over dp for it), and the terms are this rank's
+        shares (``TalkingHeadTrainer``)."""
         pred_video = self.render_video(vertices)
         with torch.no_grad():
             gt_video = self.render_video(gt_vertices[:B_orig])
-        return self.video_loss(pred_video, gt_video, batch, B_orig, perm, metrics)
+        return self.video_loss(pred_video, gt_video, batch, B_orig, perm, metrics, mesh)
 
     def video_loss(self, pred_video: torch.Tensor, gt_video: torch.Tensor, batch, B_orig: int,
-                   perm: Optional[torch.Tensor], metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
+                   perm: Optional[torch.Tensor], metrics: Dict[str, torch.Tensor], mesh=None
+                   ) -> torch.Tensor:
         """``loss`` from the rendered videos (B or 2B, T, H, W, 3) and (B, T,
         H, W, 3)."""
         loss = 0.0
         mask = batch.get("frame_mask")
+        mask_sum = None
         if mask is not None:  # doubled by the exchange: the original rows
             mask = mask[:B_orig]
+            if mesh is not None:  # the global count, this rank's share of the sum
+                mask_sum = dp_sum(mask.float().sum(), mesh) / dp_size(mesh)
 
         if self.lipread is not None and self.lipread_weight > 0:
             fpred = self.lipread.features(self.mouth_crops(pred_video))
             with torch.no_grad():
                 fgt = self.lipread.features(self.mouth_crops(gt_video))
-            l_lip = self.lipread.from_features(fpred[:B_orig], fgt, mask=mask)
+            l_lip = self.lipread.from_features(fpred[:B_orig], fgt, mask=mask, mask_sum=mask_sum)
             loss = loss + self.lipread_weight * l_lip
             metrics["loss_lipread"] = l_lip
             if perm is not None:
-                l_lip_d = self.lipread.from_features(fpred[B_orig:], fgt, mask=mask)
+                l_lip_d = self.lipread.from_features(fpred[B_orig:], fgt, mask=mask,
+                                                     mask_sum=mask_sum)
                 loss = loss + self.lipread_weight * l_lip_d
                 metrics["loss_lipread_disentangled"] = l_lip_d
 
@@ -150,7 +172,7 @@ class NeuralLosses:
                 p = perm.to(pred_video.device)
                 l_emo_d, _ = self.emonet.from_outputs(
                     {k: v[B_orig:] for k, v in pred_out.items()},
-                    {k: v[p] for k, v in gt_out.items()})
+                    {k: dp_gather(v, mesh)[p] for k, v in gt_out.items()})
                 loss = loss + self.emotion_weight * l_emo_d
                 metrics["loss_emotion_disentangled"] = l_emo_d
 
@@ -160,16 +182,26 @@ class NeuralLosses:
             if gt_label is not None and gt_label.dim() == 2:  # one-hot
                 gt_label = gt_label.argmax(dim=-1)
 
+            if gt_logits is not None:
+                gt_logits = gt_logits[:B_orig]
+            elif gt_label is not None:
+                gt_label = gt_label[:B_orig]
+
             def vemo(feats, rows):  # the gt logits when given, else the labels
                 if gt_logits is not None:
-                    return self.video_emotion(feats, gt_logits=gt_logits[:B_orig][rows])
-                return self.video_emotion(feats, gt_label=gt_label[:B_orig][rows])
+                    return self.video_emotion(feats, gt_logits=gt_logits[rows])
+                return self.video_emotion(feats, gt_label=None if gt_label is None
+                                          else gt_label[rows])
 
             feats = pred_out["emo_feat_2"]
             l_vemo = vemo(feats[:B_orig], slice(None))
             loss = loss + self.video_emotion_weight * l_vemo
             metrics["loss_video_emotion"] = l_vemo
-            if perm is not None:
+            if perm is not None:  # the twin's targets are rows of the global batch
+                if gt_logits is not None:
+                    gt_logits = dp_gather(gt_logits, mesh)
+                elif gt_label is not None:
+                    gt_label = dp_gather(gt_label, mesh)
                 l_vemo_d = vemo(feats[B_orig:], perm.to(feats.device))
                 loss = loss + self.video_emotion_weight * l_vemo_d
                 metrics["loss_video_emotion_disentangled"] = l_vemo_d
@@ -188,12 +220,15 @@ def emote_trainables(head: EmoteTalkingHead) -> List[torch.Tensor]:
     return list(head.parameters()) + stats
 
 
-def _mmean(err: torch.Tensor, w: Optional[torch.Tensor]) -> torch.Tensor:
+def _mmean(err: torch.Tensor, w: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
     """Mean of ``err`` (B, T, C), over the frames that weight ``w`` (B, T, 1)
-    keeps when given."""
+    keeps when given; under a ``mesh`` this rank's share of the global mean
+    (its weighted sum over the global weight, times dp)."""
     if w is None:
         return err.mean()
-    return (err * w).sum() / (w.sum() * err.shape[-1] + 1e-8)
+    if mesh is None:
+        return (err * w).sum() / (w.sum() * err.shape[-1] + 1e-8)
+    return (err * w).sum() * dp_size(mesh) / (dp_sum(w.sum(), mesh) * err.shape[-1] + 1e-8)
 
 
 @dataclasses.dataclass
@@ -206,6 +241,7 @@ class TalkingHeadTrainer:
     velocity_weight: float = 10.0
     neural: Optional[NeuralLosses] = None
     disentangle: Optional[str] = None  # None | "condition_exchange"
+    mesh: Any = None  # a ("dp", "tp") DeviceMesh: dp over the batch
 
     def __post_init__(self):
         if self.disentangle not in (None, "condition_exchange"):
@@ -222,14 +258,14 @@ class TalkingHeadTrainer:
             mv = m[:, 1:] * m[:, :-1]  # a velocity needs both endpoints
         if "gt_exp" in batch:
             gt = batch["gt_exp"][:B_eff]
-            l_exp = _mmean((exp - gt) ** 2, m)
-            l_expv = _mmean((exp.diff(dim=1) - gt.diff(dim=1)) ** 2, mv)
+            l_exp = _mmean((exp - gt) ** 2, m, self.mesh)
+            l_expv = _mmean((exp.diff(dim=1) - gt.diff(dim=1)) ** 2, mv, self.mesh)
             loss = loss + self.exp_weight * l_exp + self.velocity_weight * l_expv
             metrics.update(loss_exp=l_exp, loss_exp_vel=l_expv)
         if "gt_jaw" in batch:
             gt = batch["gt_jaw"][:B_eff]
-            l_jaw = _mmean((jaw - gt) ** 2, m)
-            l_jawv = _mmean((jaw.diff(dim=1) - gt.diff(dim=1)) ** 2, mv)
+            l_jaw = _mmean((jaw - gt) ** 2, m, self.mesh)
+            l_jawv = _mmean((jaw.diff(dim=1) - gt.diff(dim=1)) ** 2, mv, self.mesh)
             loss = loss + self.jaw_weight * l_jaw + self.velocity_weight * l_jawv
             metrics.update(loss_jaw=l_jaw, loss_jaw_vel=l_jawv)
         if "gt_vertices" in batch and "vertices" in out:
@@ -237,8 +273,7 @@ class TalkingHeadTrainer:
             if m is None:
                 l_v = err_v.mean()
             else:
-                l_v = (err_v * m[..., None]).sum() / (
-                    m.sum() * err_v.shape[-2] * err_v.shape[-1] + 1e-8)
+                l_v = _mmean(err_v.flatten(2), m, self.mesh)
             loss = loss + self.vertex_weight * l_v
             metrics["loss_vertex"] = l_v
         return loss
@@ -247,10 +282,12 @@ class TalkingHeadTrainer:
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """``perm`` (or a draw from ``generator``) is the exchange's
-        permutation when ``disentangle`` is set."""
+        permutation when ``disentangle`` is set; under a mesh ``batch`` is
+        this rank's rows and ``perm`` is over the global batch."""
         B_orig = batch["raw_audio"].shape[0]
         if self.disentangle == "condition_exchange":
-            batch, perm = condition_exchange(batch, perm=perm, generator=generator)
+            batch, perm = condition_exchange(batch, perm=perm, generator=generator,
+                                             mesh=self.mesh)
         cond = StyleCondition(batch["expression"], batch["intensity"], batch["identity"],
                               batch.get("shape"))
         valid_len = None
@@ -268,7 +305,7 @@ class TalkingHeadTrainer:
                 raise ValueError("the neural losses need FLAME vertices: build the head with "
                                  "flame_assets and give gt_vertices or gt_exp / gt_jaw")
             loss = loss + self.neural.loss(out["vertices"], batch["gt_vertices"], batch, B_orig,
-                                           perm, metrics)
+                                           perm, metrics, self.mesh)
         metrics["loss"] = loss
         return loss, metrics
 
@@ -290,14 +327,16 @@ class TalkingHeadTrainer:
 
     def train_step(self, batch: Dict[str, torch.Tensor], perm: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """One optimizer step in place; returns the step's metrics (detached)."""
+        """One optimizer step in place; returns the step's metrics (detached;
+        under a mesh the global batch's)."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.loss_fn(batch, perm, generator)
         loss.backward()
+        reduce_gradients([p for g in self.optimizer.param_groups for p in g["params"]], self.mesh)
         self.optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return dp_mean({k: v.detach() for k, v in metrics.items()}, self.mesh)
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor], perm: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        return self.loss_fn(batch, perm, generator)[1]
+        return dp_mean(self.loss_fn(batch, perm, generator)[1], self.mesh)

@@ -27,6 +27,9 @@
                                        # the build, the host codecs, K1's rows
                                        # and the train_flint, specaugment,
                                        # ablation and infra phases alone
+    python3 chip_smoke.py --phases parallel
+                                       # the build, the host codecs, K1's rows
+                                       # and the parallel phase alone
 
 Run it from the root of a checkout: it builds the port's CUDA kernels from
 the checkout's sources into build/, then
@@ -198,7 +201,16 @@ the checkout's sources into build/, then
 35. infra: prefetch_to_device onto the card, checkify_step on a planted
             NaN, profile_region in a profiler trace, trace's file,
             ddim_sample_loop(eta=0.5) card vs CPU;
-36. the kernels summary line (K1 at the generate path's, the EMOTE step's,
+36. parallel: the data- and tensor-parallel layer: `train-prior --dp`
+            under `torch.distributed.run --nproc_per_node 1` against the
+            command without it; two ranks on this card through gloo: the
+            prior step (B=256) and `use_mesh` `generate_batch` (six
+            requests) under dp=2, the EMOTE step (B=8, 64 frames) under
+            tp=2 with K1 on each rank's 6 heads; a world-1 NCCL group: the
+            same serving and prior step, the EMOTE step under tp=1 and
+            FSDP2, the neural-loss step with K1 and K2; each held against
+            its unsharded run (losses 1e-6 relative);
+37. the kernels summary line (K1 at the generate path's, the EMOTE step's,
             the vertex step's and the FaceFormer step's shapes, and its
             bf16 entry at generate --bf16's; K2 at the render path's (under
             the plain and the --flame-npz generate), the neural step's and
@@ -207,9 +219,10 @@ the checkout's sources into build/, then
             them; K1 / K3 under the render-loss step; K2 under train-emoca's
             two renders, reconstruct's and the BFM render's; K1 under the SER
             head, at its own shape, and under the masked and resample=False
-            wav2vec2 forwards, at theirs) and the card's name and power
-            limit;
-37. the result line.
+            wav2vec2 forwards, at theirs; K1 under the tp=2 EMOTE step at a
+            rank's 6 heads, K2 under the parallel neural step) and the
+            card's name and power limit;
+38. the result line.
 
 Each phase prints one JSON line. Any failure raises and the script exits
 non-zero without the result line. It imports nothing of JAX.
@@ -519,6 +532,7 @@ def phase_kernels(peaks):
         ("ragged_333", 1, 12, 333, 333, 64, (333,)),
         ("faceformer_600", 1, 12, 600, 600, 64, (600,)),  # the FaceFormer encoder
         ("emote_train", 8, 12, 64, 64, 64, (64,) * 8),  # train-emote's step, after the resample
+        ("emote_train_tp2", 8, 6, 64, 64, 64, (64,) * 8),  # the same step, a tp=2 rank's heads
         ("vert_train", 4, 12, 100, 100, 64, (100,) * 4),  # train-faceformer-vert's step
         ("faceformer_train", 16, 12, 25, 25, 64, (25,) * 16),  # train-faceformer's step
         ("ser_8s", 1, 12, 199, 199, 64, (199,)),  # Wav2Vec2SER on 8 s (399 frames at 25 fps)
@@ -4121,9 +4135,11 @@ def phase_preprocess():
        224^2, --max-b 32, --crop-scale 1.25, smoothing sigma 3): the files
        of each clip, finite codes, frames/s of each stage (S3FD, FAN, the
        warps, EMOCA, BiSeNet) and peak memory;
-    2. the same with `--videos` on the clips as videos, through stub
-       ffmpeg / ffprobe on a temporary PATH entry (a real ffmpeg found or
-       not is printed first): the decoder's frames, the demuxed wav;
+    2. the same with `--videos` on videos of 16 frames (the first clip's
+       first 16, and those reversed: the host's yuv conversion runs once),
+       through stub ffmpeg / ffprobe on a temporary PATH entry (a real
+       ffmpeg found or not is printed first): the decoder's frames, the
+       demuxed wav;
     3. the command on 2 frames on the card against `--device cpu`, each net
        and warp of the card's run recorded: S3FD's maps (both runs read the
        same frames), FAN's heatmaps on the card's stage-1 crops, BiSeNet's
@@ -4213,13 +4229,15 @@ def phase_preprocess():
               "decoder": "stub ffmpeg / ffprobe (an .npy of packed yuv420p rows a video)"})
         vids = os.path.join(tmp, "videos")
         os.makedirs(vids)
-        for name, fr in clips.items():
+        TV = 16  # frames a video
+        yuv = rgb_to_yuv420(frames[:TV])  # per frame: the reversed video's is its rows reversed
+        for name, packed in zip(clips, (yuv, yuv[::-1])):
             path = os.path.join(vids, name + ".mp4")
-            np.save(path + ".npy", rgb_to_yuv420(fr))
+            np.save(path + ".npy", packed)
             with open(path, "wb") as f:
                 f.write(b"stub")
             with open(path + ".meta.json", "w") as f:
-                json.dump({"width": W, "height": H, "nsamples": int(T / 25 * 16000)}, f)
+                json.dump({"width": W, "height": H, "nsamples": int(TV / 25 * 16000)}, f)
         saved_path = os.environ["PATH"]
         os.environ["PATH"] = _stub_ffmpeg(os.path.join(tmp, "bin")) + os.pathsep + saved_path
         try:
@@ -4232,8 +4250,8 @@ def phase_preprocess():
             os.environ["PATH"] = saved_path
         for name in clips:
             d = os.path.join(vout, name)
-            check(len(os.listdir(os.path.join(d, "EMOCA_v2_lr_mse_20"))) == T
-                  and np.load(os.path.join(d, "landmarks.npy")).shape == (T, 68, 2)
+            check(len(os.listdir(os.path.join(d, "EMOCA_v2_lr_mse_20"))) == TV
+                  and np.load(os.path.join(d, "landmarks.npy")).shape == (TV, 68, 2)
                   and os.path.getsize(os.path.join(d, name + ".wav")) > 44,
                   f"preprocess-mead --videos wrote {sorted(os.listdir(d))} for {name}")
 
@@ -5743,6 +5761,127 @@ def phase_infra():
           "ddim_eta_rel": ddim_rel, "ddim_eta_vs_deterministic": eta_moves})
 
 
+def phase_parallel(kb, kras):
+    """The data- and tensor-parallel layer (``avi_talking_tpu_torch.parallel``)
+    on the one card, each sharded run held against the unsharded one by the
+    case functions of ``parallel/dryrun.py`` (gradients within 1e-5 of the
+    largest, weights by the 2·lr rule) and here (losses within 1e-6
+    relative; served exp / jaw within 1e-6 of the largest value at world 1,
+    1e-5 under dp=2, where each rank's rows round by their own batch):
+
+    1. `python -m torch.distributed.run --nproc_per_node 1 -m
+       avi_talking_tpu_torch.cli train-prior --dp --steps 4` against the
+       command without --dp (started first, run beside 2 and 3);
+    2. a two-rank gloo group on this card (NCCL takes one rank a card):
+       the prior step at full width (B=256) under dp=2, `use_mesh`
+       `generate_batch` at PipelineConfig() on six requests under dp=2, and
+       the EMOTE geometric step at EmoteConfig() (B=8, 64 frames) under
+       tp=2, where K1 runs on each rank's 6 heads; each rank's launches and
+       peak memory;
+    3. an in-process NCCL group of world size 1 (a HashStore): the same
+       serving, the prior step, the EMOTE step under tp=1 and under FSDP2,
+       and the neural-loss step (B=2, 32 frames, renders at 224^2) with
+       condition exchange, K1 and K2 under it.
+    """
+    import torch
+    import torch.distributed as dist
+
+    from avi_talking_tpu_torch.parallel import dryrun, init_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": HERE}
+    prior = ["-m", "avi_talking_tpu_torch.cli", "train-prior", "--steps", "4"]
+    cli = {"plain": subprocess.Popen([sys.executable, *prior], cwd=HERE, env=env,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+           "dp": subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                   "--nproc_per_node", "1", *prior, "--dp"], cwd=HERE, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+    try:
+        seconds = [3.0, 3.5, 8.0, 9.0, 16.0, 19.0]
+        serve = {"tiny": False, "seconds": seconds, "buckets": (64, 128, 256, 512)}
+        # a row's GEMMs and convolutions round by the batch it sits in (cuBLAS and
+        # cuDNN pick kernels by its size) and the 100-step DDPM loop carries that
+        # rounding: one row a rank against two or three read 1.8e-6 of the largest
+        # value (PERF.md §6); a wrong row or order is off by the value itself
+        serve_dp2 = {**serve, "rtol": 1e-5}
+        emote = {"tiny": False, "B": 8, "T": 64}
+        t1 = time.perf_counter()
+        two = dryrun.run_ranks(2, [
+            ("prior_dp2", "prior", (2, 1), {"full": True, "B": 256}),
+            ("serve_dp2", "serve", (2, 1), serve_dp2),
+            ("emote_tp2", "emote", (1, 2), {**emote, "fsdp": False})],
+            "cuda", backend="gloo", workdir=out_dir)
+        two_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        init_distributed(backend="nccl", store=dist.HashStore(), rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            one = dryrun.run_plan(lambda dp, tp: mesh, "cuda", [
+                ("serve_w1", "serve", (1, 1), serve),
+                ("prior_w1", "prior", (1, 1), {"full": True, "B": 256}),
+                ("emote_w1", "emote", (1, 1), emote),
+                ("neural_w1", "neural", (1, 1), {"tiny": False, "B": 2, "T": 32})], {})
+        finally:
+            dist.destroy_process_group()
+        one_s = time.perf_counter() - t1
+        finals = {}
+        for k, proc in cli.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"train-prior ({k}) exited {proc.returncode}: "
+                                        f"{stderr[-2000:]}")
+            finals[k] = _final_metrics(stdout)
+    finally:
+        for proc in cli.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rel = {"prior_dp2": two["prior_dp2"]["loss_dp_rel"],
+           "emote_tp2": two["emote_tp2"]["loss_tp_rel"],
+           "prior_w1": one["prior_w1"]["loss_dp_rel"],
+           "emote_w1_tp": one["emote_w1"]["loss_tp_rel"],
+           "emote_w1_fsdp": one["emote_w1"]["loss_fsdp_rel"],
+           "neural_w1": one["neural_w1"]["loss_rel"]}
+    check(max(rel.values()) <= 1e-6, f"parallel: sharded losses against unsharded {rel}")
+    served = {k: r["max_err"] / max(r["largest"], 1.0) for k, r in
+              (("serve_dp2", two["serve_dp2"]), ("serve_w1", one["serve_w1"]))}
+    check(served["serve_w1"] <= 1e-6 and served["serve_dp2"] <= 1e-5,
+          f"parallel: served exp / jaw against unsharded {served}")
+    check(set(finals["dp"]) == set(finals["plain"]) and all(
+        abs(finals["dp"][k] - v) <= 1e-6 * max(abs(v), 1.0) for k, v in finals["plain"].items()),
+        f"train-prior --dp under torch.distributed.run: {finals}")
+    k1_tp = [r["emote_tp2"]["launches_tp"]["keybias_attention"] for r in two["by_rank"]]
+    check(k1_tp == [12, 12], f"K1 launches a rank under tp=2: {k1_tp}, not 12 each")
+    check(two["emote_tp2"]["q_proj_shard"] == (384, 768),
+          f"tp=2 q_proj shard {two['emote_tp2']['q_proj_shard']}")
+    check(all(r["emote_tp2"]["q_proj_moved"] > 0 for r in two["by_rank"]),
+          "a tp rank's q_proj shard did not move")
+    k1_serve = [r["serve_dp2"]["launches_sharded"]["keybias_attention"] for r in two["by_rank"]]
+    check(k1_serve == [36, 36], f"K1 launches a rank serving six requests: {k1_serve}")
+    neural = one["neural_w1"]["launches_sharded"]
+    check(neural["keybias_attention"] > 0 and neural["rasterize_tiles_visibility"] > 0,
+          f"the neural step launched {neural}")
+
+    def brief(r):
+        return {k: v for k, v in r.items() if k not in ("state_tp", "state_dp", "outputs")}
+
+    row = {"phase": "parallel", "losses_rel": rel, "served_rel": served,
+           "train_prior_cli": finals, "k1_launches_tp2_by_rank": k1_tp,
+           "k1_launches_serve_dp2_by_rank": k1_serve,
+           "neural_w1_launches": neural,
+           "peak_gib_by_rank": [{k: v["peak_bytes"] / 2 ** 30 for k, v in r.items()}
+                                for r in two["by_rank"]],
+           "peak_gib_w1": {k: r["peak_bytes"] / 2 ** 30 for k, r in one.items()},
+           "two_ranks": {k: brief(r) for k, r in two.items() if k != "by_rank"},
+           "world_1": {k: brief(r) for k, r in one.items()},
+           "backends": {"two_ranks": "gloo on cuda:0 (both ranks)",
+                        "world_1": "nccl (HashStore)"},
+           "two_ranks_s": two_s, "world_1_s": one_s, "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
 def check_emote_row(rows, emote) -> dict:
     """K1's row at the EMOTE step's shape, checked against the shape the
     train_emote phase saw."""
@@ -5812,7 +5951,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one generate, one render and each training step")
     ap.add_argument("--phases",
-                    choices=("all", "train", "pirender", "emoca", "preprocess", "flint"),
+                    choices=("all", "train", "pirender", "emoca", "preprocess", "flint",
+                             "parallel"),
                     default="all",
                     help="train: only the build, K1's rows, the K1 / K3 gradient rows and the "
                          "EMOTE (geometric and neural), vertex FaceFormer, prior, data-backed, "
@@ -5820,7 +5960,8 @@ def main() -> int:
                          "portrait, render-loss and train-pirender phases; emoca: only the build "
                          "and the train-emoca and reconstruct phases; preprocess: only the build "
                          "and the preprocess-mead, BFM and support-net phases; flint: only the "
-                         "build and the train-flint, SpecAugment, ablation and infra phases")
+                         "build and the train-flint, SpecAugment, ablation and infra phases; "
+                         "parallel: only the build and the data- / tensor-parallel phase")
     args = ap.parse_args()
     try:
         import torch
@@ -5887,6 +6028,11 @@ def main() -> int:
         emit({"phases": "preprocess", "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start})
         return finish(name, phases="preprocess")
+    if args.phases == "parallel":
+        timed(phase_parallel, kb, kras)
+        emit({"phases": "parallel", "phase_s": phase_s,
+              "total_s": time.perf_counter() - t_start})
+        return finish(name, phases="parallel")
     if args.phases == "flint":
         timed(phase_train_flint)
         check_spec_rows(rows, timed(phase_specaugment, kb))
@@ -5946,6 +6092,7 @@ def main() -> int:
     spec = timed(phase_specaugment, kb)
     timed(phase_ablation)
     timed(phase_infra)
+    parallel = timed(phase_parallel, kb, kras)
     if args.profile:
         timed(phase_profile, pipe, gen_out["vertices"], faces)
 
@@ -5965,6 +6112,7 @@ def main() -> int:
     ser_k1 = check_ser_row(rows, support)  # K1 at Wav2Vec2SER's forward: B=1 T=S=199
     spec_k1 = check_spec_rows(rows, spec)  # K1 under the masked and resample=False forwards
     ff_k3 = k3_rows[0]  # K3's self-attention at train-faceformer's step: B=16 H=4 T=S=25 d=32
+    tp_row = next(r for r in rows if r["case"] == "emote_train_tp2")  # B=8 H=6 T=S=64: tp=2
     emit({"kernels": [{
         "name": "keybias_attention",
         "route": "cuda",
@@ -6370,7 +6518,43 @@ def main() -> int:
         ("reconstruct --detail --textured (the shaded and the textured render of 16 frames)",
          recon["launches"], recon["row"]),
         ("Visualizer3dmmBfm -> render_bfm (16 frames at 224^2 of a 70,688-face BFM09-size mesh, "
-         "cap 4096)", bfm["launches"], bfm["row"]))],
+         "cap 4096)", bfm["launches"], bfm["row"]))] + [{
+        "name": "rasterize_tiles_visibility",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/rasterize_visibility.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/rasterize.py:111",
+        "path": "parallel: the neural-loss step (B=2, 32 frames, condition exchange) on a "
+                "world-1 NCCL mesh",
+        "launches": parallel["neural_w1_launches"]["rasterize_tiles_visibility"],
+        "max_abs_err": neural_row["max_abs_err"],
+        "ms": neural_row["ms"],
+        "device_ms": neural_row["device_ms"],
+        "plain_ms": neural_row["plain_ms"],
+        "bound_ms": neural_row["bound_ms"],
+        "bound_by": neural_row["bound_by"],
+        "bound_ms_no_fma": neural_row["bound_ms_no_fma"],
+        "library_ms": None,  # no PyTorch call computes z-buffer visibility
+        "shape": neural_row["shape"],
+        "peaks": peaks_line,
+    }, {
+        "name": "keybias_attention",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/bias_attention.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:114",
+        "path": "parallel: the EMOTE step under tp=2 (two ranks on one card through gloo; each "
+                "rank's 6 heads)",
+        "launches": parallel["k1_launches_tp2_by_rank"][0],  # rank 0's; rank 1 the same
+        "max_abs_err": tp_row["max_abs_err"],
+        "ms": tp_row["ms"],
+        "device_ms": tp_row["device_ms"],
+        "library_device_ms": tp_row["library_device_ms"],
+        "plain_ms": tp_row["plain_ms"],
+        "bound_ms": tp_row["bound_ms"],
+        "bound_by": tp_row["bound_by"],
+        "library_ms": tp_row["library_ms"],
+        "shape": tp_row["shape"],
+        "peaks": peaks_line,
+    }],
         "keybias_attention_backward": {k: v for k, v in grad_rows[0].items() if k != "kernel"},
         "phase_s": phase_s, "total_s": time.perf_counter() - t_start})
     return finish(name)

@@ -187,17 +187,17 @@ def test_train_emote_bf16_runs_on_cpu(flags, mead_codes_root, capsys):
 
 
 @pytest.mark.parametrize("cmd,flag", [
-    # --root, --json-dir and --captions are ported: what is still refused is
-    # refused beside them too, before any data is read
-    ("train-prior", ["--json-dir", "experiments/json_dir", "--dp"]),
-    # the tower checkpoints are ported: --dp is still refused beside them
-    ("train-prior", ["--root", "/d", "--pipeline-checkpoint", "p", "--dp"]),
-    ("train-prior", ["--captions", "c.json", "--emote-checkpoint", "e", "--dp"]),
-    ("train-prior", ["--pipeline-checkpoint", "p", "--dp"]),
-    ("train-prior", ["--emote-checkpoint", "e", "--dp"]), ("train-prior", ["--dp"]),
+    # train-prior --dp is ported (tests/test_torch_parallel.py); what is still
+    # refused is refused beside the data flags too, before any data is read
+    ("train-faceformer", ["--bf16"]),
+    ("train-faceformer", ["--checkpoint", "c"]),
+    ("train-faceformer", ["--root", "/d", "--bf16"]),
+    ("train-faceformer-vert", ["--bf16"]),
+    ("train-faceformer-vert", ["--checkpoint", "c"]),
+    ("train-faceformer-vert", ["--mead-root", "/d", "--checkpoint", "c"]),
 ])
 def test_training_commands_refuse_what_is_not_ported(cmd, flag):
-    with pytest.raises(SystemExit, match=r"not ported.*ROADMAP Queue \d"):
+    with pytest.raises(SystemExit, match=r"not ported to avi_talking_tpu_torch"):
         main([cmd, "--tiny", "--device", "cpu", "--steps", "1", *flag])
 
 

@@ -66,20 +66,29 @@ def _t(*arrays):
     return [torch.from_numpy(np.array(a)) for a in arrays]
 
 
-def _towers():
+@pytest.fixture(scope="module")
+def tower_vars():
     """JAX's FAN (64^2) at its init with BatchNorm statistics moved off 0 / 1,
-    its head perturbed, and the port's carrying them."""
+    and its head perturbed: initialised once for the module, jitted (the
+    same values as flax's eager init, which takes half a minute)."""
     rng = np.random.default_rng(1)
 
     def stats(tree):
         return jax.tree.map(lambda a: (np.asarray(a) + 0.5 * rng.random(a.shape)).astype(
             np.float32), tree)
 
-    fan_vars = JFan().init(jax.random.PRNGKey(5), jnp.zeros((1, 64, 64, 3)))
+    fan_vars = jax.jit(JFan().init)(jax.random.PRNGKey(5), jnp.zeros((1, 64, 64, 3)))
     fan_vars = {"params": fan_vars["params"], "batch_stats": stats(fan_vars["batch_stats"])}
-    head_vars = jemo.EmoClsHead().init(jax.random.PRNGKey(6), jnp.zeros((1, 512)))
+    head_vars = jax.jit(jemo.EmoClsHead().init)(jax.random.PRNGKey(6), jnp.zeros((1, 512)))
     head_vars = {"params": _perturbed(head_vars["params"], 2, 0.1),
                  "batch_stats": stats(head_vars["batch_stats"])}
+    return fan_vars, head_vars
+
+
+def _towers(tower_vars):
+    """``tower_vars`` and the port's towers carrying them (new modules each
+    call: a test may train the head)."""
+    fan_vars, head_vars = tower_vars
     fan = FanEncoder(64).eval()
     fan.load_state_dict({k: torch.as_tensor(v)
                          for k, v in fan_encoder_state_from_jax(fan_vars).items()})
@@ -118,7 +127,7 @@ MODES = ["plain", "disentangle", "emo_cls"]
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_three_adam_steps_match_optax(mode):
+def test_three_adam_steps_match_optax(mode, tower_vars):
     rng = np.random.default_rng(0)
     cfg = jffv.FaceFormerVertConfig.tiny()
     if mode == "emo_cls":  # the --mead-root source: coefficients decoded in the step
@@ -145,7 +154,8 @@ def test_three_adam_steps_match_optax(mode):
     emo_idx = np.asarray([5, 1], np.int32)
 
     jm = jffv.FaceFormerVert(cfg, template=jnp.asarray(template))
-    params = jm.init(jax.random.PRNGKey(0), audios[0], jverts(payloads[0]), emos[0], one_hot)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), audios[0], jverts(payloads[0]), emos[0],
+                              one_hot)
     params = {"params": _perturbed(params["params"], 3)}
     tcfg = tffv.FaceFormerVertConfig(vertice_dim=cfg.vertice_dim, feature_dim=32, period=5,
                                      num_train_subjects=cfg.num_train_subjects,
@@ -160,7 +170,7 @@ def test_three_adam_steps_match_optax(mode):
                                    eye=np.arange(V) >= V // 2)
     jemo_loss = temo_loss = None
     if mode == "emo_cls":
-        fan_vars, head_vars, fan, head = _towers()
+        fan_vars, head_vars, fan, head = _towers(tower_vars)
         faces = np.array(jflame.assets.faces)
         jemo_loss = jemo.EmoClsLoss(faces=jnp.asarray(faces), fan=JFan(), fan_vars=fan_vars,
                                     head=jemo.EmoClsHead(), head_vars=head_vars,
@@ -216,12 +226,12 @@ def test_three_adam_steps_match_optax(mode):
         np.testing.assert_allclose(got[k].numpy(), v, atol=1e-4, rtol=0, err_msg=k)
 
 
-def test_three_pretrain_steps_match_optax():
+def test_three_pretrain_steps_match_optax(tower_vars):
     """The head alone, every frame rendered (stride 1), features without a
     gradient; its weights and BatchNorm statistics after three Adam steps,
     and the loss at each, < 1e-5 against JAX's pre_step."""
     jflame, tassets, jverts, tverts = _mead_decoders()
-    fan_vars, head_vars, fan, head = _towers()
+    fan_vars, head_vars, fan, head = _towers(tower_vars)
     rng = np.random.default_rng(4)
     Tp = 4
     payloads = [(rng.standard_normal((B, Tp, 9)) * 0.5).astype(np.float32) for _ in range(3)]

@@ -51,11 +51,16 @@ def _torch_fan(size, variables):
     return m
 
 
+# flax's eager FAN init takes half a minute; jitted, one compile a size serves
+# every key (the values are the eager init's)
+_fan_init = jax.jit(JFan().init)
+
+
 @pytest.fixture(scope="module", params=[64, 112])
 def fan_case(request):
     size = request.param
     jf = JFan()
-    variables = _perturbed(jf.init(jax.random.PRNGKey(0), jnp.zeros((1, size, size, 3))), 1)
+    variables = _perturbed(_fan_init(jax.random.PRNGKey(0), jnp.zeros((1, size, size, 3))), 1)
     x = np.random.default_rng(2).standard_normal((2, size, size, 3)).astype(np.float32)
     outs, feat = jax.jit(lambda v, x: (jf.apply(v, x), jf.apply(
         v, x, method=JFan.backbone_feature)))(variables, x)
@@ -97,7 +102,7 @@ def test_reference_state_dict_loads_in_both():
     m.load_state_dict(sd, strict=True)
     jvars = fan_encoder_params_from_torch(sd)
     x = np.random.default_rng(4).standard_normal((2, 64, 64, 3)).astype(np.float32)
-    ref = JFan().apply(jvars, x)
+    ref = jax.jit(JFan().apply)(jvars, x)
     with torch.no_grad():
         got = m(torch.from_numpy(x).permute(0, 3, 1, 2))
     for gt, r in zip(got, ref):
@@ -116,7 +121,7 @@ def test_fan_rejects_another_size():
 
 def _head_case():
     head = jemo.EmoClsHead()
-    hv = _perturbed(head.init(jax.random.PRNGKey(6), jnp.zeros((1, 512))), 7)
+    hv = _perturbed(jax.jit(head.init)(jax.random.PRNGKey(6), jnp.zeros((1, 512))), 7)
     t = temo.EmoClsHead()
     t.load_state_dict({k: torch.as_tensor(v) for k, v in emo_cls_head_state_from_jax(hv).items()})
     return head, hv, t.eval()
@@ -137,7 +142,7 @@ def emo_case():
     """The tiny command's towers at 64^2 (FAN perturbed from a random init,
     the head too), the tiny synthetic FLAME, 2 clips of 8 frames."""
     jfan = JFan()
-    fan_vars = _perturbed(jfan.init(jax.random.PRNGKey(5), jnp.zeros((1, 64, 64, 3))), 9)
+    fan_vars = _perturbed(_fan_init(jax.random.PRNGKey(5), jnp.zeros((1, 64, 64, 3))), 9)
     head, hv, thead = _head_case()
     faces = np.array(j_synthetic_assets(n_shape=8, n_exp=6).faces)
     np.testing.assert_array_equal(t_synthetic_assets(n_shape=8, n_exp=6).faces.numpy(), faces)
@@ -177,7 +182,7 @@ def test_emo_cls_loss_and_vertex_gradient_match_jax(emo_case, labels):
 def test_emo_cls_resize_matches_jax(emo_case, render_size):
     jloss, tloss, verts, _ = emo_case
     lab = np.asarray([5, 1], np.int32)
-    ref = jloss(render_size)(jnp.asarray(verts), jnp.asarray(lab))
+    ref = jax.jit(lambda v, lb: jloss(render_size)(v, lb))(jnp.asarray(verts), jnp.asarray(lab))
     t = tloss(render_size)
     got = t(torch.from_numpy(verts), torch.from_numpy(lab))
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-5, atol=1e-6)
@@ -186,11 +191,15 @@ def test_emo_cls_resize_matches_jax(emo_case, render_size):
     from avi_talking_tpu.core.projection import batch_orth_proj
     from avi_talking_tpu.viz.rasterizer import render_normal_maps
 
-    v = jnp.asarray(verts)[:, ::4].reshape(4, -1, 3)
-    proj = batch_orth_proj(v, jnp.broadcast_to(jnp.asarray([[8.0, 0.0, -0.01]]), (4, 3)))
-    ndc = jnp.stack([proj[..., 0], -proj[..., 1], -proj[..., 2]], axis=-1)
-    imgs = render_normal_maps(ndc, j.faces, render_size, render_size)
-    ref_imgs = jax.image.resize(imgs, (4, 64, 64, 3), method="bilinear")
+    @jax.jit
+    def resized(verts):
+        v = verts[:, ::4].reshape(4, -1, 3)
+        proj = batch_orth_proj(v, jnp.broadcast_to(jnp.asarray([[8.0, 0.0, -0.01]]), (4, 3)))
+        ndc = jnp.stack([proj[..., 0], -proj[..., 1], -proj[..., 2]], axis=-1)
+        imgs = render_normal_maps(ndc, j.faces, render_size, render_size)
+        return jax.image.resize(imgs, (4, 64, 64, 3), method="bilinear")
+
+    ref_imgs = resized(jnp.asarray(verts))
     with torch.no_grad():
         got_imgs = t.images(torch.from_numpy(verts)).permute(0, 2, 3, 1)
     assert float(np.abs(got_imgs.numpy() - np.asarray(ref_imgs)).max()) < 1e-5

@@ -164,6 +164,10 @@ def test_meter_jsonl_matches_jax(tmp_path, monkeypatch):
     aside); TensorBoard's import is blocked (it imports TensorFlow, tens of
     seconds on one core), so both write only the JSONL."""
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    # the modules' writers before the test come back after it: a writer this
+    # test installs and closes must not stay behind for the process's next test
+    for mod, attr in ((jmeters, "_jsonl"), (jmeters, "_writer"), (tmeters, "_installed")):
+        monkeypatch.setattr(mod, attr, getattr(mod, attr))
     lines = {}
     for name, mod in (("jax", jmeters), ("port", tmeters)):
         logdir = tmp_path / name

@@ -33,6 +33,7 @@ CASES = [
     (1, 2, 40, 70, 128, (70,)),  # d=128 with T, S not multiples of 16
     (1, 12, 600, 600, 64, (600,)),  # the FaceFormer encoder's shape
     (8, 12, 64, 64, 64, (64,) * 8),  # train-emote's step (B=8, 64 frames after the resample)
+    (8, 6, 64, 64, 64, (64,) * 8),  # the same step on a tp=2 rank: its 6 heads
     (1, 12, 399, 399, 64, (399,)),  # wav2vec2 on 8 s with resample=False (50 fps)
 ]
 
@@ -88,7 +89,8 @@ def _grads(fn, inputs, cot):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,T,S,d,lens", [CASES[0], CASES[1], (16, 12, 25, 25, 64, (25,) * 16),
-                                            (8, 12, 64, 64, 64, (64,) * 8)])
+                                            (8, 12, 64, 64, 64, (64,) * 8),
+                                            (8, 6, 64, 64, 64, (64,) * 8)])
 def test_keybias_kernel_gradients_match_plain_version(B, H, T, S, d, lens):
     """The kernel forward with the autograd backward vs autograd through the
     plain version: output < 1e-5, dq, dk, dv and d(key_bias) < 1e-4."""

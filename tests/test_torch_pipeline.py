@@ -210,8 +210,8 @@ def test_port_imports_no_jax():
     # data (FAN landmarks, S3FD, BiSeNet, face crops, yuv, video, preprocess-mead), the BFM
     # visualizer, ResNetSE, the SER head, the preprocessors, CelebV and caption translation,
     # the FLINT VAE, the ablation decoders and sequence encoders, SpecAugment, the loop
-    # utilities, the config and guard modules
-    assert int(out.stdout.strip()) >= 124
+    # utilities, the config and guard modules, the parallel layer and its dry run
+    assert int(out.stdout.strip()) >= 127
 
 
 @pytest.mark.parametrize("start,end", [(10, 10), (0, 7), (6, 0)])

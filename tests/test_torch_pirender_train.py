@@ -189,7 +189,7 @@ def test_discriminator_importers_match_jax():
             v = w / w.norm()
         sd[f"net_D.{k}"] = v + (0.01 * torch.randn(v.shape, generator=g)
                                 if k.endswith("bias") else 0)
-    ref = jd.MultiscaleDiscriminator(num_d=2, ndf=8, n_layers=3).apply(
+    ref = jax.jit(jd.MultiscaleDiscriminator(num_d=2, ndf=8, n_layers=3).apply)(
         jd.multiscale_params_from_torch(sd, num_d=2, n_layers=3, prefix="net_D."), x)
     tm = td.MultiscaleDiscriminator(num_d=2, ndf=8, n_layers=3)
     tm.load_state_dict(td.multiscale_state_from_torch(sd, num_d=2, n_layers=3, prefix="net_D."))
@@ -209,15 +209,15 @@ def test_discriminator_importers_match_jax():
         w = torch.randn(v.shape, generator=g) * (0.1 if v.dim() > 1 else 0.2)
         isd[k] = (w.abs() + 0.5) if k.endswith("running_var") else w
     jvars = jd.image_discriminator_params_from_torch(isd, 3)
-    ref = jd.ImageDiscriminator(ndf=8, n_layers=3).apply(jvars, x)
+    ref = jax.jit(jd.ImageDiscriminator(ndf=8, n_layers=3).apply)(jvars, x)
     img.load_state_dict(td.image_discriminator_state_from_torch(isd, 3))
     with torch.no_grad():
         assert _rel(_nhwc(img(_nchw(x))), ref) < 1e-5
     # and the carrier from JAX's variables, train mode included (batch
     # statistics; the running ones updated as flax's momentum 0.9)
     back = _load(td.ImageDiscriminator(3, 8, 3), discriminator_state_from_jax(_np(jvars)))
-    ref, upd = jd.ImageDiscriminator(ndf=8, n_layers=3).apply(jvars, x, train=True,
-                                                              mutable=["batch_stats"])
+    ref, upd = jax.jit(lambda v, xx: jd.ImageDiscriminator(ndf=8, n_layers=3).apply(
+        v, xx, train=True, mutable=["batch_stats"]))(jvars, x)
     got = back(_nchw(x), train=True)
     assert _rel(_nhwc(got), ref) < 1e-5
     np.testing.assert_allclose(back.model[3].running_var.numpy(),

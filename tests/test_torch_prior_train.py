@@ -183,23 +183,35 @@ def test_decay_groups_match_no_decay_mask():
 
 # --- the training step ----------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _dropout_masks(brain):
+    """flax's Dropout outputs in ``brain``'s train-mode apply, kept where
+    non-zero: jitted once a brain (an eager apply takes seconds a step)."""
+    @jax.jit
+    def masks(p, x, key):
+        out = []
+
+        def capture(next_fun, args, kwargs, context):
+            y = next_fun(*args, **kwargs)
+            if isinstance(context.module, nn.Dropout) and context.method_name == "__call__":
+                out.append(y != 0)
+            return y
+
+        with nn.intercept_methods(capture):
+            brain.apply(p, x, deterministic=False, rngs={"dropout": key})
+        return out
+
+    return masks
+
+
 def _jax_draws(brain, prior, params, voxel, rng):
     """The draws of JAX's ``PriorTrainer.loss_fn`` for the step key ``rng``:
     the brain's dropout masks (captured around flax's Dropout, kept where
     its output is non-zero) and the prior's times, noise and keep masks
     (the split / fold_in chain of ``DiffusionPrior.loss`` -> ``p_losses``
     -> the network's condition dropout)."""
-    masks = []
-
-    def capture(next_fun, args, kwargs, context):
-        out = next_fun(*args, **kwargs)
-        if isinstance(context.module, nn.Dropout) and context.method_name == "__call__":
-            masks.append(np.asarray(out) != 0)
-        return out
-
-    with nn.intercept_methods(capture):
-        brain.apply(params["brain"], jnp.asarray(voxel), deterministic=False,
-                    rngs={"dropout": jax.random.fold_in(rng, 1)})
+    masks = [np.asarray(m) for m in _dropout_masks(brain)(
+        params["brain"], jnp.asarray(voxel), jax.random.fold_in(rng, 1))]
     rng_t, rng_l = jax.random.split(jax.random.fold_in(rng, 2))
     times = jax.random.randint(rng_t, (voxel.shape[0],), 0, prior.scheduler.num_timesteps)
     rng_noise, rng_keep = jax.random.split(rng_l)

@@ -207,6 +207,35 @@ def test_ddim_sample_loop_eta_matches_jax(prior_pair, eta, cond_scale):
     assert np.abs(got - plain).max() > 1e-2
 
 
+@pytest.mark.parametrize("field,value", [
+    ("image_embed_scale", 2.5),
+    ("sampling_clamp_l2norm", True),
+    ("init_image_embed_l2norm", True),
+    ("sampling_final_clamp_l2norm", True),
+])
+def test_sampler_l2norm_fields_match_jax(prior_pair, field, value):
+    """Each of the prior's four sampling options, set alone, through the
+    DDPM and the DDIM loop < 1e-4 with JAX's own draws."""
+    jp, params, tp = prior_pair
+    jp = dataclasses.replace(jp, **{field: value})
+    tp = dataclasses.replace(tp, **{field: value})
+    shape = (2, 1, 32)
+    text = np.random.default_rng(7).standard_normal((2, 32)).astype(np.float32)
+    key = jax.random.PRNGKey(14)
+    ref_ddpm = np.asarray(jax.jit(lambda p, te, k: jp.p_sample_loop(p, shape, te, k))(
+        params, jnp.asarray(text), key))
+    ref_ddim = np.asarray(jax.jit(lambda p, te, k: jp.ddim_sample_loop(p, shape, te, k, steps=3))(
+        params, jnp.asarray(text), key))
+    init, steps = jax_ddpm_noise(key, shape, 10)
+    with torch.no_grad():
+        got_ddpm = tp.p_sample_loop(shape, torch.from_numpy(text), noise_init=torch.from_numpy(init),
+                                    noise_steps=torch.from_numpy(steps)).numpy()
+        got_ddim = tp.ddim_sample_loop(shape, torch.from_numpy(text), steps=3,
+                                       noise_init=torch.from_numpy(jax_ddim_noise(key, shape))).numpy()
+    np.testing.assert_allclose(got_ddpm, ref_ddpm, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got_ddim, ref_ddim, atol=1e-4, rtol=0)
+
+
 def test_sampler_draws_from_generator_when_no_noise(prior_pair):
     _, _, tp = prior_pair
     text = torch.zeros(1, 32)
