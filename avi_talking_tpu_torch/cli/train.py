@@ -21,9 +21,12 @@ import time
 NO_CROPS = ("conditioning / render loss needs detection crops under the data root (EMOCA "
             "detections/*.png)")
 
-REFUSED = {
-    "bf16": "--bf16: the port computes in float32",
-    "checkpoint": "--checkpoint: the port trains from seeded random weights",
+# Flags the JAX command parses (through the shared parser) and never reads:
+# the port takes them too, and says on stderr that it ignores them.
+IGNORED = {
+    "bf16": "--bf16 is ignored, as in the JAX command: the run computes in float32",
+    "checkpoint": "--checkpoint is ignored, as in the JAX command: the run starts from "
+                  "seeded random weights",
 }
 
 
@@ -215,9 +218,9 @@ def cmd_train_faceformer(args) -> int:
     from ..train.faceformer_trainer import FaceFormerTrainer
     from ..train.optim import adamw
 
-    for name, why in REFUSED.items():
+    for name, note in IGNORED.items():
         if getattr(args, name, None):
-            raise SystemExit(f"train-faceformer: not ported to avi_talking_tpu_torch yet: {why}")
+            print(f"train-faceformer: {note}", file=sys.stderr)
     device = resolve_device(args.device)
     cfg = FaceFormerConfig.tiny() if args.tiny else FaceFormerConfig()
     model = FaceFormerCoeff.random_init(cfg, seed=args.seed, device=device)

@@ -24,10 +24,13 @@ import sys
 import time
 from typing import Callable, NamedTuple, Optional
 
-REFUSED = {
-    "bf16": "--bf16: the command trains in float32",
-    "checkpoint": "--checkpoint: the command trains from seeded random weights "
-                  "(--head-checkpoint and --fan-checkpoint load the frozen towers)",
+# Flags the JAX command parses (through the shared parser) and never reads:
+# the port takes them too, and says on stderr that it ignores them.
+IGNORED = {
+    "bf16": "--bf16 is ignored, as in the JAX command: the run computes in float32",
+    "checkpoint": "--checkpoint is ignored, as in the JAX command: the run starts from "
+                  "seeded random weights (--head-checkpoint and --fan-checkpoint load the "
+                  "frozen towers)",
 }
 
 
@@ -239,9 +242,9 @@ def cmd_train_faceformer_vert(args) -> int:
     from ..train.faceformer_vert_trainer import EmoClsPretrainer, FaceFormerVertTrainer
     from ..train.optim import adam
 
-    for name, why in REFUSED.items():
+    for name, note in IGNORED.items():
         if getattr(args, name, None):
-            raise SystemExit(f"train-faceformer-vert: not ported to avi_talking_tpu_torch: {why}")
+            print(f"train-faceformer-vert: {note}", file=sys.stderr)
     if (args.emo_cls or args.emo_cls_pretrain) and not args.mead_root:
         raise SystemExit("--emo-cls / --emo-cls-pretrain need --mead-root (MEAD emotion labels)")
     device = resolve_device(args.device)

@@ -10,12 +10,13 @@
 //   * fused_keybias_attention (K1, pl.pallas_call of _attn_kernel_keybias):
 //     a (B, S) key bias broadcast over heads and query rows, in every
 //     wav2vec2 encoder layer (audio/wav2vec2.py); entry
-//     avi_keybias_attention_f32;
+//     avi_bias_attention_f32 with the strides (S, 0, 0, 1);
 //   * fused_bias_attention (K3, pl.pallas_call of _attn_kernel): a bias the
 //     TPU wrapper materialises to (B, H, T, S) with broadcast_to, here the
 //     FaceFormer decoder's (H, T, T) causal ALiBi bias and (T, S) alignment
 //     bias (ops/transformer.py::TransformerDecoderLayer); entry
-//     avi_bias_attention_f32.
+//     avi_bias_attention_f32 (a float32 bias) or
+//     avi_bias_attention_f32_bias_bf16 (a bfloat16 one).
 // The kernel reads the bias in place through four element strides
 // (b, h, t, s), 0 on every broadcast dimension: K1's key bias is strides
 // (S, 0, 0, 1). No (B, H, T, S) bias or score tensor is ever written to
@@ -78,15 +79,23 @@
 //   * the softmax's exponentials are ex2.approx based (__expf): about 1e-6
 //     relative at the scores' range, well inside the 1e-5 gate;
 //   * instantiations by head-dim tiles (d <= 16, 32, 64, 128) size the
-//     accumulator; the dynamic shared-memory limit is raised once per
-//     device, not per launch.
+//     accumulator, and by the bias's type: float32 or bfloat16, read as
+//     float32 (the Pallas kernels' bias.astype(float32)); the dynamic
+//     shared-memory limit is raised once per device, not per launch;
+//   * a block's (query tile, b*h) comes from the grid's x dimension alone,
+//     query tiles fastest, so B*H is not held to the y dimension's 65535.
+// The head dim is a multiple of 8 here: the wrapper zero-pads q, k and v of
+// any other d up to 128 to the next multiple (zero columns add nothing to
+// q . k^T, and give zero output columns, which it drops).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <climits>
 
 namespace {
 
@@ -122,6 +131,10 @@ size_t smem_bytes(int d) {
 __device__ __forceinline__ uint32_t tf32_big(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
+
+// A bias element as float32, whatever its stored type.
+__device__ __forceinline__ float bias_f32(const float* p) { return *p; }
+__device__ __forceinline__ float bias_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
   big = tf32_big(x);
@@ -279,13 +292,13 @@ __device__ __forceinline__ void accumulate16(const float (&p)[2][4], const float
   }
 }
 
-// NT: head-dim tiles of 8 held in the accumulator (d <= 8 * NT). The
-// register budget is sized for 4 blocks per SM where the shared memory
-// allows 4 (d <= 64), else for 2.
-template <int NT>
+// NT: head-dim tiles of 8 held in the accumulator (d <= 8 * NT); BT: the
+// bias's stored type. The register budget is sized for 4 blocks per SM
+// where the shared memory allows 4 (d <= 64), else for 2.
+template <int NT, typename BT>
 __global__ void __launch_bounds__(THREADS, NT <= 8 ? 4 : 2)
 bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ bias,
+                      const float* __restrict__ v, const BT* __restrict__ bias,
                       float* __restrict__ out, int H, int T, int S, int d,
                       long long sb, long long sh, long long st, long long ss) {
   extern __shared__ __align__(16) float smem[];
@@ -299,10 +312,11 @@ bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* mm_s = l_s + WARPS * BQ;     // BQ merged max
   float* ll_s = mm_s + BQ;            // BQ merged sum
 
-  const int bh = blockIdx.y;
+  const int nq = (T + BQ - 1) / BQ;  // query tiles of one (b, h)
+  const int bh = blockIdx.x / nq;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (blockIdx.x - bh * nq) * BQ;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row group / lane in group
@@ -311,7 +325,7 @@ bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qg = q + (size_t)bh * T * d;
   const float* kg = k + (size_t)bh * S * d;
   const float* vg = v + (size_t)bh * S * d;
-  const float* bg = bias + b * sb + h * sh;
+  const BT* bg = bias + b * sb + h * sh;
 
   const int nk = (S + BK - 1) / BK;
   stage_rows(k_s, qk, kg, 0, S, d, tid);
@@ -327,8 +341,8 @@ bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // rows g and g + 8 of the tile; a row past T reads bias 0
   const int row0 = q0 + g, row1 = q0 + g + 8;
-  const float* brow0 = bg + (long long)min(row0, T - 1) * st;
-  const float* brow1 = bg + (long long)min(row1, T - 1) * st;
+  const BT* brow0 = bg + (long long)min(row0, T - 1) * st;
+  const BT* brow1 = bg + (long long)min(row1, T - 1) * st;
 
   RowState<NT> rs;
   rs.m0 = rs.m1 = -INFINITY;
@@ -353,8 +367,8 @@ bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 2; ++e) {
         const int key = k0 + 16 * warp + 8 * j + 2 * t + e;
         const bool ok = key < S;
-        bv[j][e] = !ok ? -INFINITY : (row0 < T ? brow0[(long long)key * ss] : 0.f);
-        bv[j][2 + e] = !ok ? -INFINITY : (row1 < T ? brow1[(long long)key * ss] : 0.f);
+        bv[j][e] = !ok ? -INFINITY : (row0 < T ? bias_f32(brow0 + (long long)key * ss) : 0.f);
+        bv[j][2 + e] = !ok ? -INFINITY : (row1 < T ? bias_f32(brow1 + (long long)key * ss) : 0.f);
       }
 
     cp_async_wait<1>();
@@ -420,12 +434,12 @@ bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // Read once per device: 0 until set, then 1 + the setter's cudaError_t.
 // Two threads racing to set it both store the same value, which is harmless.
-template <int NT>
+template <int NT, typename BT>
 cudaError_t raise_smem_limit(int dev) {
   static std::atomic<int> state[MAX_DEVICES];
   int val = state[dev].load(std::memory_order_acquire);
   if (val == 0) {
-    val = 1 + (int)cudaFuncSetAttribute(bias_attention_kernel<NT>,
+    val = 1 + (int)cudaFuncSetAttribute(bias_attention_kernel<NT, BT>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         (int)smem_bytes(8 * NT));
     state[dev].store(val, std::memory_order_release);
@@ -433,28 +447,29 @@ cudaError_t raise_smem_limit(int dev) {
   return (cudaError_t)(val - 1);
 }
 
-template <int NT>
-cudaError_t launch_nt(const float* q, const float* k, const float* v, const float* bias,
+template <int NT, typename BT>
+cudaError_t launch_nt(const float* q, const float* k, const float* v, const BT* bias,
                       float* out, int B, int H, int T, int S, int d, long long sb,
                       long long sh, long long st, long long ss, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  err = raise_smem_limit<NT>(dev);
+  err = raise_smem_limit<NT, BT>(dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + BQ - 1) / BQ, B * H);
-  bias_attention_kernel<NT><<<grid, THREADS, smem_bytes(d), stream>>>(
+  const unsigned grid = (unsigned)((T + BQ - 1) / BQ) * (unsigned)(B * H);
+  bias_attention_kernel<NT, BT><<<grid, THREADS, smem_bytes(d), stream>>>(
       q, k, v, bias, out, H, T, S, d, sb, sh, st, ss);
   return cudaGetLastError();
 }
 
-int launch(const float* q, const float* k, const float* v, const float* bias, float* out,
+template <typename BT>
+int launch(const float* q, const float* k, const float* v, const BT* bias, float* out,
            int B, int H, int T, int S, int d, long long sb, long long sh, long long st,
            long long ss, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || S <= 0 || d <= 0 || d > DMAX || d % 8 ||
-      (long long)B * H > 65535 || sb < 0 || sh < 0 || st < 0 || ss < 0 ||
-      (uintptr_t)k % 16 || (uintptr_t)v % 16)
+      (long long)B * H * ((T + BQ - 1) / BQ) > INT_MAX || sb < 0 || sh < 0 || st < 0 ||
+      ss < 0 || (uintptr_t)k % 16 || (uintptr_t)v % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
@@ -472,11 +487,12 @@ int launch(const float* q, const float* k, const float* v, const float* bias, fl
 }  // namespace
 
 // q, out: (B, H, T, d); k, v: (B, H, S, d), 16-byte aligned; all fp32,
-// contiguous, on the current device. Each entry launches on `stream` and
-// returns the launch's cudaError_t (0 on success); neither synchronises.
+// contiguous, on the current device; d a multiple of 8 up to 128. Each
+// entry launches on `stream` and returns the launch's cudaError_t (0 on
+// success); none synchronises.
 
 // bias is fp32, read at bias[b*sb + h*sh + t*st + s*ss] (element strides,
-// 0 on a broadcast dimension).
+// 0 on a broadcast dimension). K1 is this entry with strides (S, 0, 0, 1).
 extern "C" int avi_bias_attention_f32(const float* q, const float* k,
                                       const float* v, const float* bias,
                                       float* out, int B, int H, int T, int S,
@@ -486,7 +502,19 @@ extern "C" int avi_bias_attention_f32(const float* q, const float* k,
   return launch(q, k, v, bias, out, B, H, T, S, d, sb, sh, st, ss, stream);
 }
 
-// key_bias: (B, S) fp32, contiguous, broadcast over heads and query rows.
+// The same with a bfloat16 bias.
+extern "C" int avi_bias_attention_f32_bias_bf16(const float* q, const float* k,
+                                                const float* v, const void* bias,
+                                                float* out, int B, int H, int T, int S,
+                                                int d, long long sb, long long sh,
+                                                long long st, long long ss,
+                                                void* stream) {
+  return launch(q, k, v, static_cast<const __nv_bfloat16*>(bias), out, B, H, T, S, d, sb, sh,
+                st, ss, stream);
+}
+
+// key_bias: (B, S) fp32, contiguous, broadcast over heads and query rows
+// (the measurement scripts under scripts/ bind this entry).
 extern "C" int avi_keybias_attention_f32(const float* q, const float* k,
                                          const float* v, const float* key_bias,
                                          float* out, int B, int H, int T,

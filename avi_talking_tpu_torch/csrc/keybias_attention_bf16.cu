@@ -1,25 +1,53 @@
-// Key-bias attention forward on bfloat16 inputs, for Hopper (sm_90a).
+// Biased attention forward on bfloat16 inputs, for Hopper (sm_90a): one
+// kernel behind the bfloat16 entries of the port's two attention kernels.
 //
-// Replaces the TPU kernel K1 of avi_talking_tpu/ops/pallas/attention.py,
-// fused_keybias_attention (pl.pallas_call of _attn_kernel_keybias), where the
-// JAX package's --bf16 mode runs it: every wav2vec2 encoder layer of the
-// product path sends bfloat16 q, k, v and key bias (audio/wav2vec2.py). For
-// each (batch b, head h):
+// Replaces two TPU kernels of avi_talking_tpu/ops/pallas/attention.py on
+// bfloat16 q, k and v:
+//   * K1, fused_keybias_attention (pl.pallas_call of _attn_kernel_keybias),
+//     where the JAX package's --bf16 mode runs it: every wav2vec2 encoder
+//     layer of the product path (audio/wav2vec2.py), a (B, S) key bias read
+//     through the strides (S, 0, 0, 1);
+//   * K3, fused_bias_attention (pl.pallas_call of _attn_kernel), where the
+//     FaceFormer family runs at bfloat16 compute: the decoder's (H, T, T)
+//     ALiBi bias and (T, S) alignment bias (ops/transformer.py), read in
+//     place through four element strides (b, h, t, s), 0 on a broadcast
+//     dimension, as bias_attention.cu reads it at float32.
+// For each (batch b, head h):
 //
-//     out = bf16( P . V ),  P = bf16( exp(s - m) / l ),  s = q . k^T + key_bias[b]
+//     out = bf16( P . V ),  P = bf16( exp(s - m) / l ),  s = q . k^T + bias
 //
-// with q pre-scaled by the caller, s and the softmax in fp32, P rounded to
-// bfloat16 (the Pallas kernel's weights.astype(v.dtype)) after it is
-// normalised, P . V accumulated in fp32 and the output rounded to bfloat16
-// (round to nearest even, as torch's .to(torch.bfloat16)). The float32 entry
-// stays in bias_attention.cu.
+// with q pre-scaled by the caller, the bias (float32 or bfloat16, a template
+// parameter) read as fp32, s and the softmax in fp32, P rounded to bfloat16
+// (the Pallas kernels' weights.astype(v.dtype)) after it is normalised, P . V
+// accumulated in fp32 and the output rounded to bfloat16 (round to nearest
+// even, as torch's .to(torch.bfloat16)). The float32 entries stay in
+// bias_attention.cu. The head dim is a multiple of 16 here: the wrapper
+// zero-pads any other d up to 128 to the next multiple (zero columns add
+// nothing to q . k^T and give zero output columns, which it drops), so the
+// full-width configurations' d = 16, 32 and 64 take no copy.
 //
 // What bounds it: 4*B*H*T*S*d operations (the two products) against the
-// bytes of q, k, v, the key bias and out, all bfloat16: T/2 operations per
-// byte at T = S, under the H100's bf16 ridge of about 295 up to T of about
-// 590. Either way a launch at the generate shapes is well under a
-// microsecond of work (0.37 us of bytes at B=1 H=12 T=S=200 d=64), so the
-// time is set by latency and by how fast an SM's copies of K and V land.
+// bytes of q, k, v and out in bfloat16 and of the bias as it is stored. K1:
+// T/2 operations per byte at T = S, under the H100's bf16 ridge of about 295
+// up to T of about 590; a launch at the generate shapes is well under a
+// microsecond of work (0.37 us of bytes at B=1 H=12 T=S=200 d=64). K3 at the
+// FaceFormer decoder's shape (B=1 H=4 T=S=600 d=32): the float32 (H, T, T)
+// bias is 5.76 MB against 0.46 MB of q, k and v and 0.15 MB of out, 6.38 MB
+// in all, 1.9 us at 3.35 TB/s, while its 184 MFLOP take 0.19 us at 989
+// TFLOP/s: the bias's bytes bound it, at about 1 operation per byte. What
+// the design does about them: each thread reads the bias of its own score
+// fragment (rows g and g + 8, keys 2t and 2t + 1 of each 8-key tile) from
+// device memory after the chunk's products (the other warps of the SM hide
+// the trip; held across the products, the values cost registers that the
+// d = 128 instantiations spill); a key bias (one row per (b, h)) is staged
+// in shared memory instead. Each pass (the softmax's statistics, then P . V) reads the bias
+// once, so it is read twice; the second read finds the tile in L2 (50 MB on
+// the H100) unless the grid's working set evicts it. Reading it once would
+// take the (rows x S) tile in shared memory, 38 KB a 16-row group at S = 600
+// in fp32, which caps the row groups a block holds: left for a later change,
+// with the time it costs written down beside the bound. Either way a launch
+// at these shapes is a few microseconds of work, so latency, the grid and
+// the launch count too.
 //
 // Design. The first version (one 4-warp block per 64 query rows, every warp
 // walking every key, K read twice through synchronous tile copies, expf and
@@ -87,9 +115,15 @@
 // straight from the score accumulators: for m16n8k16 the accumulator of key
 // columns 2t, 2t+1 of an 8-key tile is the A fragment's layout, two 8-key
 // tiles making one 16-key k step. Instantiations for d = 16, 32, ..., 128
-// (a multiple of 16; wav2vec2's is 64); __launch_bounds__ of the largest
-// block and 1 block per SM, so ptxas may take the registers it needs and
-// does not spill.
+// (a multiple of 16; wav2vec2's is 64, the decoders' 32 and 16) and for a
+// float32 or bfloat16 bias; __launch_bounds__ of the largest block and 1
+// block per SM, so ptxas may take the registers it needs and does not
+// spill. A block's (query tile, b*h) comes from the grid's x dimension
+// alone, query tiles fastest, so B*H is not held to the y dimension's 65535.
+//
+// Keys whose bias is -inf (past S, or the caller's) weigh 0: a warp that has
+// seen only such keys of a row keeps m = -inf and l = 0 and shifts by 0, so
+// no exp(-inf - -inf) arises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +133,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <climits>
 
 namespace {
 
@@ -258,14 +293,31 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
+// A bias element as float32, whatever its stored type.
+__device__ __forceinline__ float bias_f32(const float* p) { return *p; }
+__device__ __forceinline__ float bias_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// Where a thread's scores find their bias: bias_s (fp32 in shared memory,
+// -inf past S) when the bias is one row for every query of the (b, h) and K
+// and V are resident; else rows r0 (the thread's row g) and r1 (row g + 8) in
+// device memory, key `key` at r[key * ss].
+template <typename BT>
+struct BiasRows {
+  const float* bias_s;
+  const BT* r0;
+  const BT* r1;
+  int ss;  // (S - 1) * ss fits an int (launch checks): a register fewer; d = 128 spilled
+};
+
 // s[j] = q . K^T for the warp's 16 rows and keys key0 + 8j .. + 7 (k_c: the
-// chunk's first K row in shared memory), plus the key bias; keys past S are
-// -inf. The bias comes from bias_s (fp32, -inf past S) when K and V are
-// resident, else from device memory.
-template <int D>
+// chunk's first K row in shared memory), plus the bias; keys past S are
+// -inf. The bias is read after the products and added as it lands: read
+// before them, it held 8 more registers across them, and the d = 128
+// instantiations spilled.
+template <int D, typename BT>
 __device__ __forceinline__ void scores(float (&s)[2][4], const uint32_t (&qf)[D / 16][4],
-                                       const __nv_bfloat16* k_c, const float* bias_s,
-                                       const __nv_bfloat16* kbias, int key0, int S, int lane) {
+                                       const __nv_bfloat16* k_c, const BiasRows<BT>& br,
+                                       int key0, int S, int lane) {
   // ldmatrix x4: keys 0-7 / dims 0-7, keys 0-7 / dims 8-15, keys 8-15 / ...
   const __nv_bfloat16* kaddr =
       k_c + ((lane & 7) + 8 * (lane >> 4)) * (D + 8) + 8 * ((lane >> 3) & 1);
@@ -279,31 +331,38 @@ __device__ __forceinline__ void scores(float (&s)[2][4], const uint32_t (&qf)[D 
     mma_bf16(s[1], qf[kk], b[2], b[3]);
   }
   // K rows past S are zeros or an earlier tile's finite values, so s + -inf
-  // is -inf there.
+  // is -inf there. s[j][0..1] are keys 2t, 2t + 1 of row g, s[j][2..3] of
+  // row g + 8.
   const int t = lane & 3;
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int key = key0 + 8 * j + 2 * t;
-    float2 bias;
-    if (bias_s) {
-      bias = *reinterpret_cast<const float2*>(bias_s + key);
+    if (br.bias_s) {
+      const float2 b = *reinterpret_cast<const float2*>(br.bias_s + key);
+      s[j][0] += b.x;
+      s[j][1] += b.y;
+      s[j][2] += b.x;
+      s[j][3] += b.y;
     } else {
-      bias.x = key < S ? __bfloat162float(kbias[key]) : -INFINITY;
-      bias.y = key + 1 < S ? __bfloat162float(kbias[key + 1]) : -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = key + e < S;
+        s[j][e] += ok ? bias_f32(br.r0 + (key + e) * br.ss) : -INFINITY;
+        s[j][2 + e] += ok ? bias_f32(br.r1 + (key + e) * br.ss) : -INFINITY;
+      }
     }
-    s[j][0] += bias.x;
-    s[j][1] += bias.y;
-    s[j][2] += bias.x;
-    s[j][3] += bias.y;
   }
 }
 
-template <int D>
+// BT: the bias's stored type (float or bfloat16); the bias is read at
+// bias[b*sb + h*sh + t*st + s*ss].
+template <int D, typename BT>
 __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1)
     keybias_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                   const __nv_bfloat16* __restrict__ k,
                                   const __nv_bfloat16* __restrict__ v,
-                                  const __nv_bfloat16* __restrict__ key_bias,
+                                  const BT* __restrict__ bias, long long sb, long long sh,
+                                  long long st, long long ss,
                                   __nv_bfloat16* __restrict__ out, int H, int T, int S,
                                   bool resident) {
   constexpr int P = D + 8;
@@ -319,21 +378,26 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + RING;
   float2* stats = reinterpret_cast<float2*>(smem + pl.stats);
-  float* bias_s = resident ? reinterpret_cast<float*>(smem + pl.bias) : nullptr;
+  // A bias of one row per (b, h) (K1's key bias: st = sh = 0) is staged in
+  // fp32 when K and V are resident; any other is read from device memory.
+  const bool staged = resident && st == 0 && sh == 0;
+  float* bias_s = staged ? reinterpret_cast<float*>(smem + pl.bias) : nullptr;
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + pl.q);
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + pl.k);
   __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + pl.v);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int bh = blockIdx.y, b = bh / H;
-  const int q0 = blockIdx.x * 16 * groups;
+  // (query tile, b*h) from the grid's x dimension alone, query tiles fastest
+  const int nq = (T + 16 * groups - 1) / (16 * groups);
+  const int bh = blockIdx.x / nq, qt = blockIdx.x - bh * nq, b = bh / H, h = bh - b * H;
+  const int q0 = qt * 16 * groups;
   const int qrows = min(16 * groups, T - q0);
-  const __nv_bfloat16* kbias = key_bias + (size_t)b * S;
+  const BT* bias_bh = bias + b * sb + h * sh;
   // The blocks of one (b, h) walk the tiles from different starts, so that
   // they do not all ask L2 for the same lines at once: entry e of K's
   // sequence (pass 1's tiles, then, streamed, pass 2's) and of V's (pass
   // 2's) is tile (e + rot) % tiles.
-  const int rot = blockIdx.x % tiles;
+  const int rot = qt % tiles;
   const int G = 2 * tiles;  // copy groups: K's entries, then V's (resident) or K's with V's
 
   // The producer warps (the last PRODUCERS): copy group g (q with K's
@@ -386,9 +450,9 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
       *reinterpret_cast<uint4*>(v_s + off) = zero;
     }
   }
-  if (resident)  // the bias in fp32, -inf past S
+  if (staged)  // the bias in fp32, -inf past S
     for (int j = tid; j < S + pad; j += blockDim.x)
-      bias_s[j] = j < S ? __bfloat162float(kbias[j]) : -INFINITY;
+      bias_s[j] = j < S ? bias_f32(bias_bh + j * ss) : -INFINITY;
   __syncthreads();
 
   if (producer) {
@@ -397,10 +461,10 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
     // that release.
     const int lag = resident ? LAG : RING - 1;
     for (int gi = PRE; gi < G + lag; ++gi) {
-      const int h = gi - lag;  // released before group gi goes out
-      if (h >= 0) {
-        cp_async_wait(min(gi, G) - 1 - h);
-        mbar_arrive(&full[resident ? h : h % RING]);
+      const int done = gi - lag;  // released before group gi goes out
+      if (done >= 0) {
+        cp_async_wait(min(gi, G) - 1 - done);
+        mbar_arrive(&full[resident ? done : done % RING]);
       }
       if (gi < G) {
         if (!resident && gi >= RING) mbar_wait(&empty[gi % RING], (gi / RING - 1) & 1);
@@ -412,6 +476,11 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
 
   const int group = warp / SHARES, share = warp % SHARES;
   const int g = lane / 4, t = lane % 4;
+  // this thread's rows g and g + 8 of the group; a row past T reads row T - 1
+  // (its output is never written)
+  const int ra = q0 + 16 * group + g, rb = ra + 8;
+  const BiasRows<BT> br = {bias_s, bias_bh + min(ra, T - 1) * st, bias_bh + min(rb, T - 1) * st,
+                           (int)ss};
   auto wait_group_of = [&](int gi) {
     mbar_wait(&full[resident ? gi : gi % RING], resident ? 0 : (gi / RING) & 1);
   };
@@ -431,24 +500,27 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
   for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], qaddr + 16 * kk);
 
   // Pass 1: the max m and the sum l of exp(s - m) over the warp's keys, per
-  // row (g for h = 0, g + 8 for h = 1). A thread keeps the sum of its own
+  // row (g for r = 0, g + 8 for r = 1). A thread keeps the sum of its own
   // keys; the quad's four are added at the end.
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int i = 0, tile = rot; i < tiles; ++i, tile = tile + 1 == tiles ? 0 : tile + 1) {
     wait_group_of(i);
     const int key0 = tile * BK + 16 * share;
-    if (key0 < S) {  // the chunk holds key0 < S, whose bias is finite: n finite
+    if (key0 < S) {
       const int slot = resident ? tile : i % RING;
       float s[2][4];
-      scores<D>(s, qf, k_s + (slot * BK + 16 * share) * P, bias_s, kbias, key0, S, lane);
+      scores<D>(s, qf, k_s + (slot * BK + 16 * share) * P, br, key0, S, lane);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float n = fmaxf(m[h], quad_max(fmaxf(fmaxf(s[0][2 * h], s[0][2 * h + 1]),
-                                                   fmaxf(s[1][2 * h], s[1][2 * h + 1]))));
-        l[h] = l[h] * exp_from(m[h], n) + exp_from(s[0][2 * h], n) +
-               exp_from(s[0][2 * h + 1], n) + exp_from(s[1][2 * h], n) +
-               exp_from(s[1][2 * h + 1], n);
-        m[h] = n;
+      for (int r = 0; r < 2; ++r) {
+        const float n = fmaxf(m[r], quad_max(fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                                   fmaxf(s[1][2 * r], s[1][2 * r + 1]))));
+        // n is -inf while every key the warp has seen of this row has bias
+        // -inf: shift by 0 then, so that no exp(-inf - -inf) arises
+        const float z = n == -INFINITY ? 0.f : n;
+        l[r] = l[r] * exp_from(m[r], z) + exp_from(s[0][2 * r], z) +
+               exp_from(s[0][2 * r + 1], z) + exp_from(s[1][2 * r], z) +
+               exp_from(s[1][2 * r + 1], z);
+        m[r] = n;
       }
     }
     release(i);
@@ -457,25 +529,25 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
   // The row group's M and L over its four warps, in warp order. A warp that
   // saw no key has m = -inf and l = 0, and adds 0.
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float sum = quad_sum(l[h]);
-    if (t == 0) stats[(group * SHARES + share) * 16 + g + 8 * h] = make_float2(m[h], sum);
+  for (int r = 0; r < 2; ++r) {
+    const float sum = quad_sum(l[r]);
+    if (t == 0) stats[(group * SHARES + share) * 16 + g + 8 * r] = make_float2(m[r], sum);
   }
   consumers_sync(consumers);
   float M[2], R[2];  // the row's max and the reciprocal of its sum
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int r = 0; r < 2; ++r) {
     float top = -INFINITY, sum = 0.f;
 #pragma unroll
     for (int w = 0; w < SHARES; ++w)
-      top = fmaxf(top, stats[(group * SHARES + w) * 16 + g + 8 * h].x);
+      top = fmaxf(top, stats[(group * SHARES + w) * 16 + g + 8 * r].x);
 #pragma unroll
     for (int w = 0; w < SHARES; ++w) {
-      const float2 a = stats[(group * SHARES + w) * 16 + g + 8 * h];
+      const float2 a = stats[(group * SHARES + w) * 16 + g + 8 * r];
       sum += a.y * exp_from(a.x, top);
     }
-    M[h] = top;
-    R[h] = 1.f / sum;
+    M[r] = top;
+    R[r] = 1.f / sum;
   }
 
   // Pass 2: P = bf16(exp(s - M) * (1 / L)), acc += P . V over the warp's keys.
@@ -488,7 +560,7 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
     if (key0 < S) {
       const int kslot = resident ? tile : (tiles + i) % RING, vslot = resident ? tile : i % RING;
       float s[2][4];
-      scores<D>(s, qf, k_s + (kslot * BK + 16 * share) * P, bias_s, kbias, key0, S, lane);
+      scores<D>(s, qf, k_s + (kslot * BK + 16 * share) * P, br, key0, S, lane);
       const uint32_t p[4] = {
           pack_bf16(exp_from(s[0][0], M[0]) * R[0], exp_from(s[0][1], M[0]) * R[0]),
           pack_bf16(exp_from(s[0][2], M[1]) * R[1], exp_from(s[0][3], M[1]) * R[1]),
@@ -519,7 +591,6 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
         make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
   consumers_sync(consumers);
   __nv_bfloat16* ob = out + (size_t)bh * T * D;
-  const int ra = q0 + 16 * group + g, rb = ra + 8;
   for (int n = share; n < NT; n += SHARES) {
     float4 a = part[(group * SHARES * NT + n) * 32 + lane];
 #pragma unroll
@@ -538,12 +609,12 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
 
 // Read once per device: 0 until set, then 1 + the setter's cudaError_t.
 // Two threads racing to set it both store the same value, which is harmless.
-template <int D>
+template <int D, typename BT>
 cudaError_t raise_smem_limit(int dev) {
   static std::atomic<int> state[MAX_DEVICES];
   int val = state[dev].load(std::memory_order_acquire);
   if (val == 0) {
-    val = 1 + (int)cudaFuncSetAttribute(keybias_attention_bf16_kernel<D>,
+    val = 1 + (int)cudaFuncSetAttribute(keybias_attention_bf16_kernel<D, BT>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     state[dev].store(val, std::memory_order_release);
   }
@@ -571,58 +642,98 @@ int pick_groups(int B, int H, int T, int S, int sms) {
   return best;
 }
 
-template <int D>
+// The bias's element strides and stored type beside the launch.
+template <typename BT>
+struct Bias {
+  const BT* p;
+  long long sb, sh, st, ss;
+};
+
+template <int D, typename BT>
 cudaError_t launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                     const __nv_bfloat16* key_bias, __nv_bfloat16* out, int B, int H, int T,
-                     int S, cudaStream_t stream) {
+                     const Bias<BT>& bias, __nv_bfloat16* out, int B, int H, int T, int S,
+                     cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  err = raise_smem_limit<D>(dev);
+  err = raise_smem_limit<D, BT>(dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const int groups = pick_groups<D>(B, H, T, S, sms);
   const bool resident = plan<D>(S, groups, true).bytes <= (size_t)SMEM_MAX;
-  const dim3 grid((T + 16 * groups - 1) / (16 * groups), B * H);
-  keybias_attention_bf16_kernel<D><<<grid, 32 * (SHARES * groups + PRODUCERS),
-                                     plan<D>(S, groups, resident).bytes, stream>>>(
-      q, k, v, key_bias, out, H, T, S, resident);
+  const long long blocks = (long long)((T + 16 * groups - 1) / (16 * groups)) * B * H;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  keybias_attention_bf16_kernel<D, BT><<<(unsigned)blocks, 32 * (SHARES * groups + PRODUCERS),
+                                         plan<D>(S, groups, resident).bytes, stream>>>(
+      q, k, v, bias.p, bias.sb, bias.sh, bias.st, bias.ss, out, H, T, S, resident);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// q, out: (B, H, T, d); k, v: (B, H, S, d); key_bias: (B, S), broadcast over
-// heads and query rows. All bfloat16, contiguous, on the current device;
-// q, k and v 16-byte aligned, out 4-byte aligned; d a multiple of 16 up to
-// 128. Launches on `stream` and returns the launch's cudaError_t (0 on
-// success), or the error of raising the kernel's shared-memory limit, which
-// is done once per instantiation and device; does not synchronise.
-extern "C" int avi_keybias_attention_bf16(const void* q, const void* k, const void* v,
-                                          const void* key_bias, void* out, int B, int H, int T,
-                                          int S, int d, void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || S <= 0 || d <= 0 || d > DMAX || d % 16 ||
-      (long long)B * H > 65535 || (uintptr_t)q % 16 || (uintptr_t)out % 4 ||
+template <typename BT>
+int launch(const void* q, const void* k, const void* v, const Bias<BT>& bias, void* out, int B,
+           int H, int T, int S, int d, void* stream) {
+  if (B <= 0 || H <= 0 || T <= 0 || S <= 0 || d <= 0 || d > DMAX || d % 16 || bias.sb < 0 ||
+      bias.sh < 0 || bias.st < 0 || bias.ss < 0 || (long long)(S - 1) * bias.ss > INT_MAX ||
+      (uintptr_t)q % 16 || (uintptr_t)out % 4 ||
       (uintptr_t)k % 16 || (uintptr_t)v % 16)
     return (int)cudaErrorInvalidValue;
   const auto* qq = static_cast<const __nv_bfloat16*>(q);
   const auto* kk = static_cast<const __nv_bfloat16*>(k);
   const auto* vv = static_cast<const __nv_bfloat16*>(v);
-  const auto* bb = static_cast<const __nv_bfloat16*>(key_bias);
   auto* oo = static_cast<__nv_bfloat16*>(out);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   switch (d) {
-    case 16: err = launch_d<16>(qq, kk, vv, bb, oo, B, H, T, S, s); break;
-    case 32: err = launch_d<32>(qq, kk, vv, bb, oo, B, H, T, S, s); break;
-    case 48: err = launch_d<48>(qq, kk, vv, bb, oo, B, H, T, S, s); break;
-    case 64: err = launch_d<64>(qq, kk, vv, bb, oo, B, H, T, S, s); break;
-    case 80: err = launch_d<80>(qq, kk, vv, bb, oo, B, H, T, S, s); break;
-    case 96: err = launch_d<96>(qq, kk, vv, bb, oo, B, H, T, S, s); break;
-    case 112: err = launch_d<112>(qq, kk, vv, bb, oo, B, H, T, S, s); break;
-    default: err = launch_d<128>(qq, kk, vv, bb, oo, B, H, T, S, s); break;
+    case 16: err = launch_d<16>(qq, kk, vv, bias, oo, B, H, T, S, s); break;
+    case 32: err = launch_d<32>(qq, kk, vv, bias, oo, B, H, T, S, s); break;
+    case 48: err = launch_d<48>(qq, kk, vv, bias, oo, B, H, T, S, s); break;
+    case 64: err = launch_d<64>(qq, kk, vv, bias, oo, B, H, T, S, s); break;
+    case 80: err = launch_d<80>(qq, kk, vv, bias, oo, B, H, T, S, s); break;
+    case 96: err = launch_d<96>(qq, kk, vv, bias, oo, B, H, T, S, s); break;
+    case 112: err = launch_d<112>(qq, kk, vv, bias, oo, B, H, T, S, s); break;
+    default: err = launch_d<128>(qq, kk, vv, bias, oo, B, H, T, S, s); break;
   }
   return (int)err;
+}
+
+}  // namespace
+
+// q, out: (B, H, T, d); k, v: (B, H, S, d). All bfloat16, contiguous, on
+// the current device; q, k and v 16-byte aligned, out 4-byte aligned; d a
+// multiple of 16 up to 128. Each entry launches on `stream` and returns the
+// launch's cudaError_t (0 on success), or the error of raising the kernel's
+// shared-memory limit, which is done once per instantiation and device;
+// none synchronises.
+
+// bias: fp32, read at bias[b*sb + h*sh + t*st + s*ss] (element strides, 0
+// on a broadcast dimension): K3, and K1 with strides (S, 0, 0, 1).
+extern "C" int avi_bias_attention_bf16(const void* q, const void* k, const void* v,
+                                       const void* bias, void* out, int B, int H, int T, int S,
+                                       int d, long long sb, long long sh, long long st,
+                                       long long ss, void* stream) {
+  return launch(q, k, v, Bias<float>{static_cast<const float*>(bias), sb, sh, st, ss}, out, B,
+                H, T, S, d, stream);
+}
+
+// The same with a bfloat16 bias.
+extern "C" int avi_bias_attention_bf16_bias_bf16(const void* q, const void* k, const void* v,
+                                                 const void* bias, void* out, int B, int H,
+                                                 int T, int S, int d, long long sb,
+                                                 long long sh, long long st, long long ss,
+                                                 void* stream) {
+  return launch(q, k, v,
+                Bias<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(bias), sb, sh, st, ss},
+                out, B, H, T, S, d, stream);
+}
+
+// key_bias: (B, S) bfloat16, broadcast over heads and query rows (the
+// measurement scripts under scripts/ bind this entry).
+extern "C" int avi_keybias_attention_bf16(const void* q, const void* k, const void* v,
+                                          const void* key_bias, void* out, int B, int H, int T,
+                                          int S, int d, void* stream) {
+  return launch(q, k, v,
+                Bias<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(key_bias), S, 0, 0, 1},
+                out, B, H, T, S, d, stream);
 }

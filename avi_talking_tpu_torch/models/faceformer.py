@@ -12,6 +12,14 @@
 
 ``forward`` is the teacher-forced training pass; ``predict`` the KV-cached
 autoregressive decode of ``models/ar_decode.py``.
+
+``dtype`` is flax's ``dtype`` of ``FaceFormerCoeff(cfg, dtype=...)``: the
+compute type (``ops.layers.set_compute_dtype``), bfloat16 on the card's
+fast path, over float32 parameters. The linear maps cast their inputs to it
+(the float32 coefficients, eye / emotion embeddings and reference
+coefficients), so ``forward``, ``merge_condition`` and ``predict`` run and
+return it; the decoder's attention biases stay float32, as JAX builds them,
+and K3 reads them so beside bfloat16 q, k and v.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from torch import nn
 from ..audio.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from ..infra.device import resolve_device
 from ..infra.init import random_module
+from ..ops.layers import Linear, set_compute_dtype
 from ..ops.positional import (
     enc_dec_alignment_bias,
     faceformer_bias,
@@ -55,29 +64,31 @@ class FaceFormerConfig:
 
 
 class FaceFormerCoeff(nn.Module):
-    def __init__(self, cfg: FaceFormerConfig):
+    def __init__(self, cfg: FaceFormerConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         c = self.cfg = cfg
         D = c.feature_dim
         self.audio_encoder = Wav2Vec2Model(c.wav2vec2)
-        self.audio_feature_map = nn.Linear(c.wav2vec2.hidden_size, D)
-        self.vertice_map = nn.Linear(c.vertice_dim, D)
-        self.vertice_map_r = nn.Linear(D, c.vertice_dim)
+        self.audio_feature_map = Linear(c.wav2vec2.hidden_size, D)
+        self.vertice_map = Linear(c.vertice_dim, D)
+        self.vertice_map_r = Linear(D, c.vertice_dim)
         self.obj_embedding = nn.Parameter(torch.empty(1, D))
         self.transformer_decoder = TransformerDecoder(
             c.num_decoder_layers, D, c.nhead, 2 * D, activation="relu")
         if c.with_condition_merge:
-            self.coeff2style = nn.Linear(c.vertice_dim, c.style_dim)
-            self.v_merge2hidden = nn.Linear(c.eye_dim + c.emo_dim + D + c.style_dim, D)
+            self.coeff2style = Linear(c.vertice_dim, c.style_dim)
+            self.v_merge2hidden = Linear(c.eye_dim + c.emo_dim + D + c.style_dim, D)
+        set_compute_dtype(self, dtype)
 
     @classmethod
     def random_init(cls, cfg: Optional[FaceFormerConfig] = None, seed: int = 0,
-                    device=None) -> "FaceFormerCoeff":
+                    device=None, dtype: torch.dtype = torch.float32) -> "FaceFormerCoeff":
         """Seeded random weights from one CPU generator, with the JAX
         module's zero inits (``vertice_map_r``, ``obj_embedding``), so the
-        fresh model emits zeros. ``device=None`` means CUDA."""
-        model = random_module(lambda: cls(cfg or FaceFormerConfig()), resolve_device(device),
-                              torch.Generator().manual_seed(seed))
+        fresh model emits zeros; the same weights at any compute ``dtype``.
+        ``device=None`` means CUDA."""
+        model = random_module(lambda: cls(cfg or FaceFormerConfig(), dtype),
+                              resolve_device(device), torch.Generator().manual_seed(seed))
         with torch.no_grad():
             for p in (model.vertice_map_r.weight, model.obj_embedding):
                 p.zero_()

@@ -14,6 +14,10 @@
   masks from template geometry thresholds (``FlameRegionSelector``).
 
 The decoder layer runs K3 in its two attentions, as in ``faceformer.py``.
+``dtype`` is flax's compute type, as there: the template, the default
+one-hot subject and the eye embedding are built at it, and ``forward`` and
+``predict`` return it (the float32 vertex offsets are cast by
+``vertice_map``, as JAX's Dense casts them).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..audio.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from ..core.flame import FlameAssets, FlameModel
 from ..infra.device import resolve_device
 from ..infra.init import random_module
+from ..ops.layers import Linear, set_compute_dtype
 from ..ops.positional import (
     enc_dec_alignment_bias,
     faceformer_bias,
@@ -110,31 +115,36 @@ class FaceFormerVertConfig:
 
 
 class FaceFormerVert(nn.Module):
-    def __init__(self, cfg: FaceFormerVertConfig, template: Optional[torch.Tensor] = None):
+    compute_dtype = torch.float32
+
+    def __init__(self, cfg: FaceFormerVertConfig, template: Optional[torch.Tensor] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         c = self.cfg = cfg
         d = c.d_model
         self.template = template  # (vertice_dim,) flattened, or None for zeros
         self.audio_encoder = Wav2Vec2Model(c.wav2vec2)
-        self.audio_feature_map = nn.Linear(c.wav2vec2.hidden_size, c.feature_dim)
-        self.vertice_map = nn.Linear(c.vertice_dim, d)
-        self.vertice_map_r = nn.Linear(d, c.vertice_dim)
-        self.obj_vector = nn.Linear(c.num_train_subjects, d, bias=False)
+        self.audio_feature_map = Linear(c.wav2vec2.hidden_size, c.feature_dim)
+        self.vertice_map = Linear(c.vertice_dim, d)
+        self.vertice_map_r = Linear(d, c.vertice_dim)
+        self.obj_vector = Linear(c.num_train_subjects, d, bias=False)
         self.learnable_eye_embed = nn.Parameter(torch.empty(c.eye_dim))
         if not c.concat_mode:
-            self.v_merge2hidden = nn.Linear(c.eye_dim + c.emo_dim + c.feature_dim, d)
+            self.v_merge2hidden = Linear(c.eye_dim + c.emo_dim + c.feature_dim, d)
         self.transformer_decoder = TransformerDecoder(1, d, c.nhead, d + c.feature_dim,
                                                       activation="relu")
+        set_compute_dtype(self, dtype)
 
     @classmethod
     def random_init(cls, cfg: Optional[FaceFormerVertConfig] = None,
                     template: Optional[torch.Tensor] = None, seed: int = 0,
-                    device=None) -> "FaceFormerVert":
+                    device=None, dtype: torch.dtype = torch.float32) -> "FaceFormerVert":
         """Seeded random weights from one CPU generator, with the JAX
-        module's zero inits (``vertice_map_r``, ``learnable_eye_embed``).
-        ``device=None`` means CUDA."""
+        module's zero inits (``vertice_map_r``, ``learnable_eye_embed``);
+        the same weights at any compute ``dtype``. ``device=None`` means
+        CUDA."""
         device = resolve_device(device)
-        model = random_module(lambda: cls(cfg or FaceFormerVertConfig()), device,
+        model = random_module(lambda: cls(cfg or FaceFormerVertConfig(), dtype=dtype), device,
                               torch.Generator().manual_seed(seed))
         with torch.no_grad():
             for p in (model.vertice_map_r.weight, model.learnable_eye_embed):
@@ -142,25 +152,25 @@ class FaceFormerVert(nn.Module):
         model.template = None if template is None else torch.as_tensor(template).to(device)
         return model
 
-    def _template(self, dtype, device) -> torch.Tensor:
+    def _template(self, device) -> torch.Tensor:
         if self.template is None:
-            return torch.zeros(self.cfg.vertice_dim, dtype=dtype, device=device)
-        return self.template.reshape(-1).to(dtype=dtype, device=device)
+            return torch.zeros(self.cfg.vertice_dim, dtype=self.compute_dtype, device=device)
+        return self.template.reshape(-1).to(dtype=self.compute_dtype, device=device)
 
-    def _style(self, one_hot: Optional[torch.Tensor], B: int, like: torch.Tensor) -> torch.Tensor:
+    def _style(self, one_hot: Optional[torch.Tensor], B: int, device) -> torch.Tensor:
         if one_hot is None:
-            one_hot = torch.zeros(B, self.cfg.num_train_subjects, dtype=like.dtype,
-                                  device=like.device)
+            one_hot = torch.zeros(B, self.cfg.num_train_subjects, dtype=self.compute_dtype,
+                                  device=device)
             one_hot[:, 0] = 1.0
         return self.obj_vector(one_hot)  # (B, d)
 
     def build_memory(self, audio: torch.Tensor, frame_num: int,
                      emo_embed: torch.Tensor) -> torch.Tensor:
-        c = self.cfg
+        c, dt = self.cfg, self.compute_dtype
         hidden_a = self.audio_feature_map(self.audio_encoder(audio, output_len=frame_num))
         B, T = hidden_a.shape[:2]
-        eye = self.learnable_eye_embed.to(hidden_a.dtype)[None, None].expand(B, T, c.eye_dim)
-        hidden = torch.cat([eye, emo_embed.to(hidden_a.dtype), hidden_a], dim=-1)
+        eye = self.learnable_eye_embed.to(dt)[None, None].expand(B, T, c.eye_dim)
+        hidden = torch.cat([eye, emo_embed.to(dt), hidden_a], dim=-1)
         return hidden if c.concat_mode else self.v_merge2hidden(hidden)
 
     def forward(
@@ -174,8 +184,8 @@ class FaceFormerVert(nn.Module):
         c = self.cfg
         B, T = gt_verts.shape[:2]
         memory = self.build_memory(audio, T, emo_embed)
-        style = self._style(one_hot, B, memory)[:, None]  # (B, 1, d)
-        template = self._template(gt_verts.dtype, gt_verts.device)
+        style = self._style(one_hot, B, memory.device)[:, None]  # (B, 1, d)
+        template = self._template(gt_verts.device)
         shifted = torch.cat([template[None, None].expand(B, 1, c.vertice_dim),
                              gt_verts[:, :-1]], dim=1)
         x = self.vertice_map(shifted - template[None, None]) + style
@@ -198,11 +208,11 @@ class FaceFormerVert(nn.Module):
         c = self.cfg
         with torch.no_grad():
             memory = self.build_memory(audio, frame_num, emo_embed)
-            style = self._style(one_hot, memory.shape[0], memory)
+            style = self._style(one_hot, memory.shape[0], memory.device)
         outs = ar_decode(self.transformer_decoder.layers[0], memory, token0=style,
                          out_proj=self.vertice_map_r, feedback_proj=self.vertice_map,
                          n_heads=c.nhead, period=c.period, style_emb=style)
-        return outs + self._template(outs.dtype, outs.device)[None, None]
+        return outs + self._template(outs.device)[None, None]
 
 
 def convert_coeff2verts(

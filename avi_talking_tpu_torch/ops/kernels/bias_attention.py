@@ -1,12 +1,16 @@
 """Biased attention: ``softmax(q . k^T + bias) . v`` per (b, h).
 
 The port of ``avi_talking_tpu/ops/pallas/attention.py::fused_bias_attention``
-(the TPU kernel K3). On CUDA tensors ``fused_bias_attention`` launches the
-hand-written kernel ``csrc/bias_attention.cu`` (fp32, sm_90a; its header
-says what bounds it and how it is laid out; K1 is the same kernel with the
-key bias's strides) or raises; on CPU tensors it
-runs ``fused_bias_attention_reference``, the plain PyTorch version, which
-the tests hold to JAX and the chip check holds the kernel to.
+(the TPU kernel K3). On CUDA tensors ``fused_bias_attention`` launches a
+hand-written kernel for sm_90a or raises: float32 q, k and v go to
+``csrc/bias_attention.cu``, bfloat16 ones (the FaceFormer family at
+bfloat16 compute) to ``csrc/keybias_attention_bf16.cu``'s bias entry; K1
+is the same two kernels with the key bias's strides, and each source's
+header says what bounds it and how it is laid out. On CPU tensors it runs
+``fused_bias_attention_reference``, the plain PyTorch version, which the
+tests hold to JAX and the chip check holds the kernels to. Both devices
+take what K1 takes (``keybias_attention.check_inputs``): any head dim up
+to 128, a float32 or bfloat16 bias beside q of either dtype, any B*H.
 
 The bias is a (T, S), (H, T, S) or (B, H, T, S) tensor (rank 4 with size-1
 dimensions too), broadcast as ``ops/transformer.py::_merge_bias`` does. The
@@ -20,29 +24,29 @@ the JAX kernel has no vjp, and JAX differentiates its unfused path.
 
 from __future__ import annotations
 
-import ctypes
 import threading
 from typing import Tuple
 
 import torch
 
-from .build import function, launch
-from .keybias_attention import HEAD_DIM_MAX, aligned16, attention_backward
-
-# q, k, v, bias, out; B, H, T, S, d; the bias strides (b, h, t, s); the stream
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
-             + [ctypes.c_void_p])
+from .keybias_attention import (attention_backward, check_cuda_layout, check_inputs,
+                                launch_attention)
 
 # Kernel launches since the count was last set to 0 (the chip check zeroes
-# it before driving a path and reads it after).
+# it before driving a path and reads it after): ``launches`` of the float32
+# kernel, ``launches_bf16`` of the bfloat16 one.
 launches = 0
+launches_bf16 = 0
 _launches_lock = threading.Lock()
 
 
-def _count_launch() -> None:
-    global launches
+def _count_launch(bf16: bool) -> None:
+    global launches, launches_bf16
     with _launches_lock:
-        launches += 1
+        if bf16:
+            launches_bf16 += 1
+        else:
+            launches += 1
 
 
 def fused_bias_attention_reference(
@@ -51,11 +55,13 @@ def fused_bias_attention_reference(
     v: torch.Tensor,  # (B, H, S, d)
     bias: torch.Tensor,  # broadcastable to (B, H, T, S), additive
 ) -> torch.Tensor:
-    """Plain PyTorch version: fp32 scores, the bias broadcast from its own
-    shape."""
+    """Plain PyTorch version, as ``_attn_kernel`` computes at any input
+    dtype: fp32 scores from the products of q and k, the bias (broadcast
+    from its own shape) read as fp32, the softmax's weights cast to v's
+    dtype, P . V accumulated in fp32 and rounded once to q's dtype."""
     scores = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) + bias.float()
     weights = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhts,bhsd->bhtd", weights, v).to(q.dtype)
+    return torch.einsum("bhts,bhsd->bhtd", weights.float(), v.float()).to(q.dtype)
 
 
 def bias_strides(bias: torch.Tensor, B: int, H: int, T: int, S: int) -> Tuple[int, ...]:
@@ -75,48 +81,23 @@ def bias_strides(bias: torch.Tensor, B: int, H: int, T: int, S: int) -> Tuple[in
     return tuple(reversed(strides))
 
 
-def _check_cuda_inputs(q, k, v, bias) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("expected q/k/v of rank 4")
-    B, H, T, d = q.shape
-    S = k.shape[2]
-    if k.shape != (B, H, S, d) or v.shape != (B, H, S, d):
-        raise ValueError(
-            f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d % 8 or d > HEAD_DIM_MAX:
-        raise ValueError(f"head_dim {d} must be a multiple of 8 and <= {HEAD_DIM_MAX}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the kernel takes float32 only")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _forward(q, k, v, bias) -> torch.Tensor:
+    check_inputs(q, k, v, bias, "bias")
+    B, H, T, _ = q.shape
+    strides = bias_strides(bias, B, H, T, k.shape[2])  # raises if the bias does not broadcast
     if q.device.type == "cpu":
         return fused_bias_attention_reference(q, k, v, bias)
     if q.device.type != "cuda":
         raise ValueError(f"fused_bias_attention runs on cpu or cuda, not {q.device}")
-    _check_cuda_inputs(q, k, v, bias)
-    B, H, T, _ = q.shape
-    return _launch(q, k, v, bias, bias_strides(bias, B, H, T, k.shape[2]))
+    check_cuda_layout(q, k, v, bias, "bias")
+    return _launch(q, k, v, bias, strides)
 
 
 def _launch(q, k, v, bias, strides) -> torch.Tensor:
-    """Launch the kernel on checked CUDA inputs, reading ``bias`` at the
-    (b, h, t, s) element ``strides``."""
-    B, H, T, d = q.shape
-    S = k.shape[2]
-    k, v = aligned16(k), aligned16(v)
-    fn = function("bias_attention", "avi_bias_attention_f32", _ARGTYPES)
-    out = torch.empty_like(q)
-    err = launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), B, H, T, S, d, *strides)
-    if err != 0:
-        raise RuntimeError(f"fused_bias_attention kernel launch failed: cudaError {err}")
-    _count_launch()
+    """Launch the kernel of q's dtype on checked CUDA inputs, reading
+    ``bias`` at the (b, h, t, s) element ``strides``, and count it."""
+    out = launch_attention(q, k, v, bias, strides, "fused_bias_attention")
+    _count_launch(q.dtype == torch.bfloat16)
     return out
 
 
@@ -146,9 +127,10 @@ def fused_bias_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
     """(B, H, T, d) attention output, differentiable. CPU tensors take the
-    plain version; CUDA tensors take the kernel, which raises on what it
-    does not take (non-fp32 or non-contiguous inputs, a bias that does not
-    broadcast, head_dim not a multiple of 8 or above 128). The gradient of
+    plain version; CUDA tensors take the kernel of q's dtype. Both raise on
+    what the kernels do not take (dtypes other than float32 or bfloat16, q,
+    k and v of mixed dtypes, head_dim above 128, a bias that does not
+    broadcast), and the kernels on non-contiguous tensors. The gradient of
     ``bias`` is computed only when it requires grad."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
         return _BiasAttention.apply(q, k, v, bias)

@@ -2,14 +2,24 @@
 
 The port of ``avi_talking_tpu/ops/pallas/attention.py::fused_keybias_attention``
 (the TPU kernel K1). On CUDA tensors ``keybias_attention`` launches a
-hand-written kernel for sm_90a or raises: float32 inputs go to
-``csrc/bias_attention.cu``'s key-bias entry (K3 shares that kernel),
-bfloat16 inputs (the product's ``--bf16`` mode) to
-``csrc/keybias_attention_bf16.cu``; each source's header says what bounds
-it and how it is laid out. On CPU tensors it runs
-``keybias_attention_reference``, the plain PyTorch version of the same
-function at either dtype, which the tests hold to JAX and the chip check
-holds the kernels to.
+hand-written kernel for sm_90a or raises: float32 q, k and v go to
+``csrc/bias_attention.cu`` (K3 shares that kernel), bfloat16 ones (the
+product's ``--bf16`` mode) to ``csrc/keybias_attention_bf16.cu`` (K3's
+bfloat16 entry shares that one), each reading the (B, S) key bias through
+the strides (S, 0, 0, 1); each source's header says what bounds it and how
+it is laid out. On CPU tensors it runs ``keybias_attention_reference``, the
+plain PyTorch version of the same function at either dtype, which the tests
+hold to JAX and the chip check holds the kernels to.
+
+The inputs both devices take are the Pallas kernels': q, k and v of one
+dtype, float32 or bfloat16, with any head dim up to ``HEAD_DIM_MAX``; the
+key bias float32 or bfloat16 whatever q's dtype, read as float32; any B*H.
+float16 (which no path of either package sends) and a head dim above 128
+raise. On the card the tensors must also be contiguous; a head dim that is
+not a multiple of the kernel's step (8 at float32, 16 at bfloat16) is
+zero-padded to the next one by ``launch_attention`` (zero columns add
+nothing to q . k^T and give zero output columns, which it drops), so the
+full-width configurations' d = 16, 32 and 64 take no copy.
 
 ``keybias_attention`` is differentiable on both devices: a
 ``torch.autograd.Function`` whose backward is ``attention_backward``, the
@@ -26,11 +36,19 @@ import threading
 
 import torch
 
+import torch.nn.functional as F
+
 from .build import function, launch
 
 HEAD_DIM_MAX = 128
-# q, k, v, key_bias, out; B, H, T, S, d; the stream
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+DTYPES = (torch.float32, torch.bfloat16)
+# the head dim each kernel takes a multiple of, and its source and entry
+HEAD_DIM_STEP = {torch.float32: 8, torch.bfloat16: 16}
+_ENTRIES = {torch.float32: ("bias_attention", "avi_bias_attention_f32"),
+            torch.bfloat16: ("keybias_attention_bf16", "avi_bias_attention_bf16")}
+# q, k, v, bias, out; B, H, T, S, d; the bias strides (b, h, t, s); the stream
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
+             + [ctypes.c_void_p])
 
 # Kernel launches since the count was last set to 0 (the chip check zeroes
 # it before driving the main path and reads it after): ``launches`` of the
@@ -115,28 +133,43 @@ def attention_backward(q, k, v, bias, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds
 
 
-def _check_cuda_inputs(q, k, v, key_bias) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or key_bias.dim() != 2:
-        raise ValueError("expected q/k/v of rank 4 and key_bias of rank 2")
+def check_inputs(q, k, v, bias, bias_name: str) -> None:
+    """What both devices hold the attention wrappers' inputs to (the
+    Pallas kernels' contract): q (B, H, T, d), k and v (B, H, S, d) of one
+    dtype, float32 or bfloat16; d from 1 to ``HEAD_DIM_MAX``; the bias
+    float32 or bfloat16. Its shape is the caller's to check."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("expected q/k/v of rank 4")
     B, H, T, d = q.shape
     S = k.shape[2]
-    if k.shape != (B, H, S, d) or v.shape != (B, H, S, d) or key_bias.shape != (B, S):
+    if k.shape != (B, H, S, d) or v.shape != (B, H, S, d):
         raise ValueError(
-            f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
-            f"v {tuple(v.shape)} key_bias {tuple(key_bias.shape)}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
+            f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if q.dtype not in DTYPES:
         raise TypeError(f"q is {q.dtype}; the kernels take float32 or bfloat16")
-    step = 16 if q.dtype == torch.bfloat16 else 8
-    if d % step or d > HEAD_DIM_MAX:
-        raise ValueError(f"head_dim {d} must be a multiple of {step} and <= {HEAD_DIM_MAX} "
-                         f"at {q.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("key_bias", key_bias)):
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q {q.dtype}: q, k and v share one dtype")
+    if bias.dtype not in DTYPES:
+        raise TypeError(f"{bias_name} is {bias.dtype}; the kernels read a float32 or "
+                        f"bfloat16 bias")
+    if d > HEAD_DIM_MAX:
+        raise ValueError(f"head_dim {d} is above {HEAD_DIM_MAX}, the largest the kernels take")
+
+
+def check_cuda_layout(q, k, v, bias, bias_name: str) -> None:
+    """On the card: every input on q's device and contiguous."""
+    for name, t in (("q", q), ("k", k), ("v", v), (bias_name, bias)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}, q {q.dtype}: one dtype for all four")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_key_bias(q, k, key_bias) -> None:
+    B, S = q.shape[0], k.shape[2]
+    if key_bias.dim() != 2 or key_bias.shape != (B, S):
+        raise ValueError(f"key_bias {tuple(key_bias.shape)}; expected (B, S) = {(B, S)}")
 
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -146,26 +179,41 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def launch_attention(q, k, v, bias, strides, what: str) -> torch.Tensor:
+    """Launch the kernel of q's dtype on checked CUDA inputs, reading
+    ``bias`` (of its own dtype) at the (b, h, t, s) element ``strides``.
+    A head dim off the kernel's step is zero-padded to it and the output's
+    padding dropped. Raises, naming ``what``, if the launch fails."""
+    B, H, T, d = q.shape
+    S = k.shape[2]
+    step = HEAD_DIM_STEP[q.dtype]
+    width = -(-d // step) * step
+    if width != d:
+        q, k, v = (F.pad(t, (0, width - d)) for t in (q, k, v))
+    else:
+        q, k, v = aligned16(q), aligned16(k), aligned16(v)
+    source, symbol = _ENTRIES[q.dtype]
+    if bias.dtype == torch.bfloat16:
+        symbol += "_bias_bf16"
+    fn = function(source, symbol, _ARGTYPES)
+    out = torch.empty_like(q)
+    err = launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                 out.data_ptr(), B, H, T, S, width, *strides)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+    return out if width == d else out[..., :d].contiguous()
+
+
 def _forward(q, k, v, key_bias) -> torch.Tensor:
+    check_inputs(q, k, v, key_bias, "key_bias")
+    _check_key_bias(q, k, key_bias)
     if q.device.type == "cpu":
         return keybias_attention_reference(q, k, v, key_bias)
     if q.device.type != "cuda":
         raise ValueError(f"keybias_attention runs on cpu or cuda, not {q.device}")
-    _check_cuda_inputs(q, k, v, key_bias)
-    B, H, T, d = q.shape
-    S = k.shape[2]
-    bf16 = q.dtype == torch.bfloat16
-    q, k, v = aligned16(q), aligned16(k), aligned16(v)
-    if bf16:
-        fn = function("keybias_attention_bf16", "avi_keybias_attention_bf16", _ARGTYPES)
-    else:
-        fn = function("bias_attention", "avi_keybias_attention_f32", _ARGTYPES)
-    out = torch.empty_like(q)
-    err = launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-                 out.data_ptr(), B, H, T, S, d)
-    if err != 0:
-        raise RuntimeError(f"keybias_attention kernel launch failed: cudaError {err}")
-    _count_launch(bf16)
+    check_cuda_layout(q, k, v, key_bias, "key_bias")
+    out = launch_attention(q, k, v, key_bias, (k.shape[2], 0, 0, 1), "keybias_attention")
+    _count_launch(q.dtype == torch.bfloat16)
     return out
 
 
@@ -187,11 +235,11 @@ def keybias_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor
 ) -> torch.Tensor:
     """(B, H, T, d) attention output, differentiable. CPU tensors take the
-    plain version; CUDA tensors take the kernel of their dtype, which raises
-    on what it does not take (dtypes other than float32 or bfloat16, mixed
-    dtypes, non-contiguous tensors, head_dim above 128 or not a multiple of
-    8 at float32, of 16 at bfloat16). The gradient of ``key_bias`` is computed only when it
-    requires grad."""
+    plain version; CUDA tensors take the kernel of q's dtype. Both raise on
+    what the kernels do not take (``check_inputs``: dtypes other than
+    float32 or bfloat16, q, k and v of mixed dtypes, head_dim above 128), and
+    the kernels on non-contiguous tensors. The gradient of ``key_bias`` is
+    computed only when it requires grad."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, key_bias)):
         return _KeybiasAttention.apply(q, k, v, key_bias)
     return _forward(q, k, v, key_bias)  # inference: no autograd node to build

@@ -25,7 +25,11 @@ multiply in the promoted type of input and weights, as JAX's
 ``query @ in_proj_w.T + in_proj_b`` does (EMOTE's decoder gets a float32
 input: the float32 style is added to bfloat16 features); the scale is
 rounded to the compute dtype, the scores and softmax are float32. The K3
-route takes float32 only.
+route takes q, k and v at the projections' dtype and the bias as it is
+stored (the FaceFormer family's are float32 at either compute dtype): at
+bfloat16 it computes what JAX's unfused path does there (float32 scores and
+softmax, the weights rounded to bfloat16, P . V of bfloat16 operands
+rounded once), which is what the Pallas kernel ``_attn_kernel`` computes.
 """
 
 from __future__ import annotations

@@ -30,6 +30,9 @@
     python3 chip_smoke.py --phases parallel
                                        # the build, the host codecs, K1's rows
                                        # and the parallel phase alone
+    python3 chip_smoke.py --phases faceformer_bf16
+                                       # the build, the host codecs, K1's rows
+                                       # and the faceformer_bf16 phase alone
 
 Run it from the root of a checkout: it builds the port's CUDA kernels from
 the checkout's sources into build/, then
@@ -99,6 +102,16 @@ the checkout's sources into build/, then
             wide) on 24 s of audio: the teacher-forced forward and the
             KV-cached predict, with K1 / K3 launches, AR vs teacher-forced
             consistency, the card against the CPU, repeatability and times;
+15b. faceformer_bf16: the FaceFormer family at bfloat16 compute: K3's
+            bfloat16 entry against its plain version at the decoders'
+            shapes (with SDPA's time at bfloat16 and the bf16 bound); the
+            four attention entries at head dims 1 to 128, B*H = 65,544 and
+            a bias of the other dtype; FaceFormerConfig() on 24 s and
+            FaceFormerVertConfig() at B=4, T=100 at bfloat16 (K1 bf16 12 and
+            K3 bf16 2 a forward, K1 bf16 12 a predict, fp32 entries 0;
+            within 0.1 rms of fp32, card vs CPU by the CPU tests' rule, AR
+            vs teacher-forced, bf16 / fp32 seconds in turns);
+            `train-emote --tiny --bf16` (heads 8 wide) on the card;
 16. train_faceformer: `cli train-faceformer` at its defaults (B=16, T=25)
             for 5 steps, launches per step, step time; one step on the card
             against the same step on the CPU;
@@ -179,7 +192,7 @@ the checkout's sources into build/, then
             with seeded 2DFAN4, S3FD and BiSeNet checkpoints on 2 clips x 32
             frames at 1920x1080, then `--videos` on the same clips through a
             stub ffmpeg: the files, frames/s per stage (S3FD, FAN, the
-            warps, EMOCA, BiSeNet); 2 frames card vs CPU, each net's output
+            warps, EMOCA, BiSeNet); 1 frame card vs CPU, each net's output
             and each warp on the card's own inputs, the files held but where
             a counted near-tie parted the runs; the encoder's transports;
 30. bfm: `Visualizer3dmmBfm` on a 70,688-face BFM09-size mesh, 16 frames at
@@ -807,6 +820,334 @@ def phase_faceformer(kb, kba):
           "predict_wall_s_median": statistics.median(pred_s), "predict_wall_s_all": pred_s,
           "predict_ms_per_frame": statistics.median(pred_s) / T * 1e3, "cpu_forward_wall_s": cpu_s})
     return fwd_launches
+
+
+def attention_bound_bias_bf16(B, H, T, S, d, bias_bytes, peaks):
+    """K3's least time on bfloat16 q, k, v: 4*B*H*T*S*d operations (q.k^T
+    and p.v) over the dense bf16 tensor-core peak, or q, k, v and out read
+    or written once in bfloat16 and the bias read once as it is stored
+    (``bias_bytes``: the FaceFormer family's float32 (H, T, T) or (T, S))
+    over the memory rate, whichever is larger."""
+    ops = 4 * B * H * T * S * d
+    nbytes = 2 * B * H * (2 * T + 2 * S) * d + bias_bytes
+    t_ops, t_bytes = ops / peaks[3], nbytes / peaks[1]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
+def _launch_counts(kb, kba) -> dict:
+    return {"keybias_attention": kb.launches, "keybias_attention_bf16": kb.launches_bf16,
+            "fused_bias_attention": kba.launches, "fused_bias_attention_bf16": kba.launches_bf16}
+
+
+def _zero_counts(kb, kba) -> None:
+    kb.launches = kb.launches_bf16 = kba.launches = kba.launches_bf16 = 0
+
+
+def bias_attention_bf16_row(name, B, H, T, d, kind, peaks, g):
+    """K3's bfloat16 entry against its plain version on bfloat16 q, k, v
+    (B, H, T, d), S = T, with the decoder's float32 (H, T, T) bias ("HTT",
+    period 25) or (T, S) alignment bias ("TS"), by ``kb.bf16_disagreement``
+    (the same two rounding points as K1's bfloat16 entry: P after its
+    normalisation, the output); one bf16 launch and no fp32 one counted. Its
+    times: the wrapper's (CUDA events), the kernel's device time, the plain
+    version's, and scaled_dot_product_attention's at bfloat16 with the bias
+    cast to a bfloat16 mask (timing only: that mask rounds the bias), beside
+    the bound at the bf16 peak or the memory rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
+    from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
+    from avi_talking_tpu_torch.ops.positional import enc_dec_alignment_bias, faceformer_bias
+
+    S = T
+    q = (torch.randn(B, H, T, d, device="cuda", generator=g) * d ** -0.5).bfloat16()
+    k = torch.randn(B, H, S, d, device="cuda", generator=g).bfloat16()
+    v = torch.randn(B, H, S, d, device="cuda", generator=g).bfloat16()
+    bias = (faceformer_bias(H, T, 25, device="cuda") if kind == "HTT"
+            else enc_dec_alignment_bias(T, S, device="cuda"))
+    before = (kba.launches, kba.launches_bf16)
+    out = kba.fused_bias_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    check(out.dtype == torch.bfloat16 and (kba.launches, kba.launches_bf16)
+          == (before[0], before[1] + 1), f"fused_bias_attention bf16 {name}: not the bf16 entry")
+    ref = kba.fused_bias_attention_reference(q, k, v, bias)
+    dis = kb.bf16_disagreement(out, ref)
+    check(math.isfinite(dis["max_abs"]) and dis["worst"] <= 1.0 and dis["rms_worst"] <= 1.0,
+          f"fused_bias_attention bf16 {name}: {dis} past the limit")
+    mask = (bias[None] if bias.dim() == 3 else bias[None, None]).bfloat16()
+
+    def kernel():
+        return kba.fused_bias_attention(q, k, v, bias)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+
+    row = {"case": name, "shape": [B, H, T, S, d], "dtype": "bfloat16",
+           "bias_shape": list(bias.shape), "bias_dtype": "float32",
+           "max_abs_err": dis["max_abs"], "limit_share": dis["worst"],
+           "rms_limit_share": dis["rms_worst"], "rms_rel": dis["rms_rel"],
+           "flipped": dis["flipped"], "ms": time_ms(kernel),
+           "device_ms": device_ms(kernel, "keybias_attention_bf16_kernel"),
+           "plain_ms": time_ms(lambda: kba.fused_bias_attention_reference(q, k, v, bias)),
+           "library_ms": time_ms(library), "library_device_ms": device_ms(library),
+           "library": "scaled_dot_product_attention, bfloat16, the bias as a bfloat16 mask"}
+    row["bound_ms"], row["bound_by"], row["bf16_ops"], row["bytes"] = attention_bound_bias_bf16(
+        B, H, T, S, d, bias.numel() * bias.element_size(), peaks)
+    emit({"phase": "kernel_check", "kernel": "fused_bias_attention_bf16", **row})
+    return row
+
+
+def attention_contract_rows(kb, kba):
+    """The inputs the Pallas kernels take, through each of the four entries
+    (K1 and K3 at float32 and at bfloat16) on the card against its plain
+    version: head dims 1, 8, 24, 33, 100 and 128 (the wrapper zero-pads a
+    head dim off the kernel's step of 8 or 16 and drops the padding);
+    B*H = 65,544 (B=5462 H=12 T=S=8 d=64), past the grid's y limit; and the
+    bias of the other dtype (K1 and K3 at bfloat16 with a float32 bias, at
+    float32 with a bfloat16 one). Float32 entries within 1e-5 of the plain
+    version, bfloat16 ones within ``kb.bf16_disagreement``; each call counted
+    on its own entry. The d=8 and B*H cases are timed (wrapper and device)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    entries = {  # name: (wrapper, plain version, q's dtype, the counter it moves)
+        "keybias_attention": (kb.keybias_attention, kb.keybias_attention_reference,
+                              torch.float32, (kb, "launches")),
+        "keybias_attention_bf16": (kb.keybias_attention, kb.keybias_attention_reference,
+                                   torch.bfloat16, (kb, "launches_bf16")),
+        "fused_bias_attention": (kba.fused_bias_attention, kba.fused_bias_attention_reference,
+                                 torch.float32, (kba, "launches")),
+        "fused_bias_attention_bf16": (kba.fused_bias_attention,
+                                      kba.fused_bias_attention_reference, torch.bfloat16,
+                                      (kba, "launches_bf16")),
+    }
+    cases = [(f"d{d}", 2, 4, 37, 45, d, None) for d in (1, 8, 24, 33, 100, 128)]
+    cases.append(("bh_65544", 5462, 12, 8, 8, 64, None))
+    cases.append(("other_bias_dtype", 2, 12, 200, 200, 64, "other"))
+    rows = []
+    for case, B, H, T, S, d, bias_dtype in cases:
+        for entry, (fn, plain, dt, (mod, counter)) in entries.items():
+            q = (torch.randn(B, H, T, d, device="cuda", generator=g) * d ** -0.5).to(dt)
+            k = torch.randn(B, H, S, d, device="cuda", generator=g).to(dt)
+            v = torch.randn(B, H, S, d, device="cuda", generator=g).to(dt)
+            if entry.startswith("keybias"):
+                lens = torch.randint(1, S + 1, (B,), device="cuda", generator=g)
+                bias = torch.where(torch.arange(S, device="cuda")[None] < lens[:, None], 0.0, -1e9)
+            else:
+                bias = torch.randn(H, T, S, device="cuda", generator=g)
+                bias = torch.where(torch.rand(H, T, S, device="cuda", generator=g) < 0.2, -1e9,
+                                   bias)
+            if bias_dtype == "other":
+                bias = bias.to(torch.float32 if dt == torch.bfloat16 else torch.bfloat16)
+            else:
+                bias = bias.to(dt)
+            before = _launch_counts(kb, kba)
+            out = fn(q, k, v, bias)
+            torch.cuda.synchronize()
+            moved = {n: c - before[n] for n, c in _launch_counts(kb, kba).items() if c != before[n]}
+            check(moved == {entry: 1}, f"{entry} {case}: launches moved {moved}")
+            ref = plain(q, k, v, bias)
+            row = {"entry": entry, "case": case, "shape": [B, H, T, S, d],
+                   "q_dtype": str(dt).split(".")[1], "bias_dtype": str(bias.dtype).split(".")[1]}
+            if dt == torch.float32:
+                err = float((out - ref).abs().max())
+                check(math.isfinite(err) and err < 1e-5, f"{entry} {case}: max |d| {err}")
+                row.update({"max_abs_err": err, "tol": 1e-5})
+            else:
+                dis = kb.bf16_disagreement(out, ref)
+                check(math.isfinite(dis["max_abs"]) and dis["worst"] <= 1.0
+                      and dis["rms_worst"] <= 1.0, f"{entry} {case}: {dis} past the limit")
+                row.update({"max_abs_err": dis["max_abs"], "limit_share": dis["worst"],
+                            "rms_limit_share": dis["rms_worst"]})
+            if case in ("d8", "bh_65544"):
+                kernel_name = ("keybias_attention_bf16_kernel" if dt == torch.bfloat16
+                               else "bias_attention_kernel")
+                row.update({"ms": time_ms(lambda: fn(q, k, v, bias)),
+                            "device_ms": device_ms(lambda: fn(q, k, v, bias), kernel_name),
+                            "plain_ms": time_ms(lambda: plain(q, k, v, bias), iters=3, reps=3)})
+            rows.append(row)
+            del q, k, v, bias, out, ref
+    emit({"phase": "attention_contract", "rows": rows})
+    return rows
+
+
+def _in_turns_s(fns: dict, rounds: int) -> dict:
+    """Wall seconds of each named call, ``rounds`` times in turns (a, b, a,
+    b, ...): {name: [seconds, ...]}."""
+    import torch
+
+    out = {n: [] for n in fns}
+    for _ in range(rounds):
+        for n, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[n].append(time.perf_counter() - t0)
+    return out
+
+
+def _bf16_model_check(label, models, cpu_models, inputs, ar_args, kb, kba, want_fwd, want_pred):
+    """One FaceFormer-family model at bfloat16 compute on the card against
+    the same weights at float32: the forward's and predict's launches
+    (``want_fwd`` / ``want_pred``, the float32 entries 0), finite outputs,
+    rms(bf16 - fp32) under 0.1 of rms(fp32) (generate_bf16's rule) for both,
+    the card's bf16 forward held to the CPU's by the rule of the CPU tests
+    (rms(card bf16 - CPU bf16) < rms(CPU bf16 - CPU fp32)), the distance of
+    the teacher-forced pass on predict's own outputs to them (AR vs
+    teacher-forced) held within the forward's bf16-to-fp32 distance, and
+    wall medians of the forward (5 rounds) and predict (2) at bf16 and fp32
+    in turns.
+    ``ar_args(model_inputs, T)`` gives predict's arguments and ``tf_on``
+    the forward's on its outputs."""
+    import torch
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    tf_args, pred_args, tf_on = ar_args
+    with torch.no_grad():
+        _zero_counts(kb, kba)
+        tf16 = models[bf16](*tf_args(inputs))
+        torch.cuda.synchronize()
+        fwd = _launch_counts(kb, kba)
+        _zero_counts(kb, kba)
+        ar16 = models[bf16].predict(*pred_args(inputs))
+        torch.cuda.synchronize()
+        pred = _launch_counts(kb, kba)
+        check(fwd == want_fwd, f"{label} bf16 forward launched {fwd}, not {want_fwd}")
+        check(pred == want_pred, f"{label} bf16 predict launched {pred}, not {want_pred}")
+        check(tf16.dtype == ar16.dtype == bf16, f"{label}: outputs {tf16.dtype}, {ar16.dtype}")
+        check(bool(torch.isfinite(tf16).all() and torch.isfinite(ar16).all()),
+              f"{label}: non-finite bf16 output")
+        tf32 = models[fp32](*tf_args(inputs))
+        ar32 = models[fp32].predict(*pred_args(inputs))
+        rel = {"forward": _rms(tf16.float().cpu(), tf32.cpu()) / _rms(tf32.cpu()),
+               "predict": _rms(ar16.float().cpu(), ar32.cpu()) / _rms(ar32.cpu())}
+        check(max(rel.values()) < 0.1, f"{label}: rms(bf16 - fp32) / rms(fp32) {rel} >= 0.1")
+        tf_on_ar = models[bf16](*tf_on(inputs, ar16.float()))
+        d_ar_tf = _rms(tf_on_ar.float().cpu(), ar16.float().cpu())
+        d_fwd = _rms(tf16.float().cpu(), tf32.cpu())
+        check(d_ar_tf <= d_fwd, f"{label} bf16: AR vs teacher-forced rms {d_ar_tf} past the "
+                                f"forward's bf16-to-fp32 rms {d_fwd}")
+        cpu_in = [t.cpu() if torch.is_tensor(t) else t for t in inputs]
+        t0 = time.perf_counter()
+        cpu16 = cpu_models[bf16](*tf_args(cpu_in))
+        cpu16_s = time.perf_counter() - t0
+        cpu32 = cpu_models[fp32](*tf_args(cpu_in))
+        d_card, d_ref = _rms(tf16.float().cpu(), cpu16.float()), _rms(cpu16.float(), cpu32)
+        check(d_card < d_ref, f"{label} bf16 forward, card vs CPU: rms {d_card} not below the "
+                              f"CPU's bf16-to-fp32 rms {d_ref}")
+        fwd_s = _in_turns_s({"bf16": lambda: models[bf16](*tf_args(inputs)),
+                             "fp32": lambda: models[fp32](*tf_args(inputs))}, 5)
+        pred_s = _in_turns_s({"bf16": lambda: models[bf16].predict(*pred_args(inputs)),
+                              "fp32": lambda: models[fp32].predict(*pred_args(inputs))}, 2)
+    return {"forward_launches": fwd, "predict_launches": pred, "finite": True,
+            "rms_rel_bf16_to_fp32": rel, "ar_vs_tf_rms": d_ar_tf, "forward_bf16_to_fp32_rms": d_fwd,
+            "card_vs_cpu_bf16_rms": d_card, "cpu_bf16_to_fp32_rms": d_ref,
+            "cpu_bf16_forward_s": cpu16_s, "max_abs_output": float(tf16.float().abs().max()),
+            "forward_wall_s_median": {n: statistics.median(v) for n, v in fwd_s.items()},
+            "forward_wall_s_all": fwd_s,
+            "predict_wall_s_median": {n: statistics.median(v) for n, v in pred_s.items()},
+            "predict_wall_s_all": pred_s}
+
+
+def _dtype_pair(model) -> dict:
+    """``model`` (fp32 compute) and a copy of it at bfloat16 compute: the
+    same float32 weights, as JAX's ``dtype=jnp.bfloat16`` over one init."""
+    import copy
+
+    import torch
+
+    from avi_talking_tpu_torch.ops.layers import set_compute_dtype
+
+    return {torch.bfloat16: set_compute_dtype(copy.deepcopy(model), torch.bfloat16),
+            torch.float32: model}
+
+
+def phase_faceformer_bf16(kb, kba, peaks):
+    """The FaceFormer family at bfloat16 compute (float32 weights, as JAX's
+    ``dtype=jnp.bfloat16``), with K3's bfloat16 entry:
+
+    1. K3 bf16 against its plain version at the decoder's shapes (B=1 H=4
+       T=S=600 d=32 with the (H, T, T) and (T, S) float32 biases, the
+       training step's B=16 T=S=25, the vertex model's B=4 T=S=100 d=16),
+       by ``bias_attention_bf16_row``;
+    2. the four attention entries on the inputs the Pallas kernels take
+       (``attention_contract_rows``);
+    3. FaceFormerConfig() on 24 s (B=1, T=600), the weights of the
+       ``faceformer`` phase: the forward launches K1 bf16 12 and K3 bf16 2
+       times, predict K1 bf16 12 and K3 0, the float32 entries never; the
+       rules of ``_bf16_model_check``;
+    4. FaceFormerVertConfig() at B=4, T=100 (a zero template), the same;
+    5. `train-emote --tiny --bf16`, two steps a stage on the card: the tiny
+       wav2vec2's heads are 8 wide (padded to 16 by the wrapper), K1 bf16
+       only, finite losses."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from avi_talking_tpu_torch.models.faceformer import FaceFormerConfig
+    from avi_talking_tpu_torch.models.faceformer_vert import FaceFormerVertConfig
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    k3_cases = (("forward_self_HTT", 1, 4, 600, 32, "HTT"), ("forward_cross_TS", 1, 4, 600, 32, "TS"),
+                ("train_self_HTT", 16, 4, 25, 32, "HTT"), ("vert_self_HTT_d16", 4, 4, 100, 16, "HTT"))
+    k3_rows = [bias_attention_bf16_row(name, B, H, T, d, kind, peaks, g)
+               for name, B, H, T, d, kind in k3_cases]
+    contract = attention_contract_rows(kb, kba)
+    bf16, fp32 = torch.bfloat16, torch.float32
+
+    cfg, T = FaceFormerConfig(), 600
+    coeff_models = _dtype_pair(_faceformer_model(cfg, seed=0, device="cuda"))
+    coeff_cpu = {dt: copy.deepcopy(m).cpu() for dt, m in coeff_models.items()}
+    audio, coeffs, eye, emo, ref = _faceformer_inputs(cfg, 1, T, seed=20, device="cuda")
+    coeff = _bf16_model_check(
+        "FaceFormerCoeff", coeff_models, coeff_cpu, [audio, coeffs, eye, emo, ref],
+        (lambda x: x, lambda x: (x[0], T, *x[2:]), lambda x, ar: (x[0], ar, *x[2:])), kb, kba,
+        {"keybias_attention": 0, "keybias_attention_bf16": 12, "fused_bias_attention": 0,
+         "fused_bias_attention_bf16": 2},
+        {"keybias_attention": 0, "keybias_attention_bf16": 12, "fused_bias_attention": 0,
+         "fused_bias_attention_bf16": 0})
+    del coeff_models, coeff_cpu
+
+    vcfg, B, VT = FaceFormerVertConfig(), 4, 100
+    vert_models = _dtype_pair(_vert_model(vcfg, None, seed=0, device="cuda"))
+    vert_cpu = {dt: copy.deepcopy(m).cpu() for dt, m in vert_models.items()}
+    rng = np.random.default_rng(21)
+    vaudio = torch.from_numpy(np.stack([synthetic_wav(VT / 25.0, 30 + i)
+                                        for i in range(B)]).astype(np.float32)).cuda()
+    verts = torch.from_numpy((rng.standard_normal((B, VT, vcfg.vertice_dim)) * 0.01)
+                             .astype(np.float32)).cuda()
+    vemo = torch.from_numpy(rng.standard_normal((B, VT, vcfg.emo_dim)).astype(np.float32)).cuda()
+    vert = _bf16_model_check(
+        "FaceFormerVert", vert_models, vert_cpu, [vaudio, verts, vemo],
+        (lambda x: x, lambda x: (x[0], VT, x[2]), lambda x, ar: (x[0], ar, x[2])), kb, kba,
+        {"keybias_attention": 0, "keybias_attention_bf16": 12, "fused_bias_attention": 0,
+         "fused_bias_attention_bf16": 2},
+        {"keybias_attention": 0, "keybias_attention_bf16": 12, "fused_bias_attention": 0,
+         "fused_bias_attention_bf16": 0})
+    del vert_models, vert_cpu
+
+    _zero_counts(kb, kba)
+    out, _, cli_s = _run_cli(["train-emote", "--tiny", "--bf16", "--steps", "2",
+                              "--val-every", "2"])
+    tiny_launches = _launch_counts(kb, kba)
+    done = [line for line in out.splitlines() if line.startswith("done:")]
+    check(len(done) == 1 and math.isfinite(float(done[0].rsplit(" ", 1)[1])),
+          f"train-emote --tiny --bf16 printed {out[-2000:]!r}")
+    check(tiny_launches["keybias_attention_bf16"] > 0 and tiny_launches["keybias_attention"] == 0,
+          f"train-emote --tiny --bf16 launched {tiny_launches}")
+    row = {"phase": "faceformer_bf16", "k3_bf16_rows": [r["case"] for r in k3_rows],
+           "faceformer": {"config": "FaceFormerConfig()", "batch": 1, "frames": T, **coeff},
+           "faceformer_vert": {"config": "FaceFormerVertConfig()", "batch": B, "frames": VT,
+                               **vert},
+           "train_emote_tiny_bf16": {"argv": "train-emote --tiny --bf16 --steps 2 --val-every 2",
+                                     "launches": tiny_launches, "done": done[0],
+                                     "wall_s": cli_s}}
+    emit(row)
+    return {"k3_rows": k3_rows, "contract": contract, "coeff": coeff, "vert": vert,
+            "tiny_launches": tiny_launches}
 
 
 def step_diffs(pair, rel_floor: float = 0.0) -> dict:
@@ -2711,7 +3052,7 @@ def phase_train_data(kb, kba):
       split line, K1 12 a step and 12 a validation batch, the head's
       weights moved from their init, each step's batch and step seconds;
     - `train-faceformer --root` at its defaults (FaceFormerConfig(), B=16,
-      T=25, conditioning on), 5 steps: K1 12 and K3 2 a step; the seconds
+      T=25, conditioning on), 3 steps: K1 12 and K3 2 a step; the seconds
       of each step's batch (npys, wavs, 800 PNG decodes), FanConditioner
       (two FAN passes over 400 crops) and training step, and their shares;
       the decode of one crop under each row filter;
@@ -2805,8 +3146,10 @@ def phase_train_data(kb, kba):
     check(math.isfinite(moved) and moved > 0, f"train-emote --root moved the head by {moved}")
     del last, init
 
-    # train-faceformer --root: the command, its batches, conditioning and steps probed
-    steps = 5
+    # train-faceformer --root: the command, its batches, conditioning and steps
+    # probed; 3 steps (each reads 800 PNGs on the host, about 8 s, so more
+    # steps add only host time)
+    steps = 3
     ff = {"data_s": [], "condition_s": [], "step_s": [], "launches": [], "losses": []}
     seen = {}
 
@@ -4140,7 +4483,7 @@ def phase_preprocess():
        through stub ffmpeg / ffprobe on a temporary PATH entry (a real
        ffmpeg found or not is printed first): the decoder's frames, the
        demuxed wav;
-    3. the command on 2 frames on the card against `--device cpu`, each net
+    3. the command on 1 frame on the card against `--device cpu`, each net
        and warp of the card's run recorded: S3FD's maps (both runs read the
        same frames), FAN's heatmaps on the card's stage-1 crops, BiSeNet's
        logits and the EMOCA codes on the card's crops, all run on the CPU
@@ -4255,10 +4598,11 @@ def phase_preprocess():
                   and os.path.getsize(os.path.join(d, name + ".wav")) > 44,
                   f"preprocess-mead --videos wrote {sorted(os.listdir(d))} for {name}")
 
-        # (3) 2 frames on the card against the CPU: each net and warp of the
-        # card's run recorded, its inputs and its outputs
+        # (3) 1 frame on the card against the CPU: each net and warp of the
+        # card's run recorded, its inputs and its outputs (one frame: the
+        # CPU's full-frame S3FD pass is most of the phase's CPU time)
         small = os.path.join(tmp, "small")
-        name, n = next(iter(clips)), 2
+        name, n = next(iter(clips)), 1
         os.makedirs(os.path.join(small, name))
         for t in range(n):
             shutil.copyfile(os.path.join(src, name, f"{t:05d}.png"),
@@ -4408,7 +4752,7 @@ def phase_preprocess():
            "stages": fps, "peak_gib": peak, "videos_cli_wall_s": vwall,
            "videos_stages": {k: {**v, "frames_per_s": v["frames"] / v["s"]}
                              for k, v in vstages.items()},
-           "card_vs_cpu_2_frames": cmp, "transports_max_abs_diff_to_float": transports}
+           "card_vs_cpu_1_frame": cmp, "transports_max_abs_diff_to_float": transports}
     emit(row)
     return row
 
@@ -5952,7 +6296,7 @@ def main() -> int:
                     help="also profile one generate, one render and each training step")
     ap.add_argument("--phases",
                     choices=("all", "train", "pirender", "emoca", "preprocess", "flint",
-                             "parallel"),
+                             "parallel", "faceformer_bf16"),
                     default="all",
                     help="train: only the build, K1's rows, the K1 / K3 gradient rows and the "
                          "EMOTE (geometric and neural), vertex FaceFormer, prior, data-backed, "
@@ -5961,7 +6305,9 @@ def main() -> int:
                          "and the train-emoca and reconstruct phases; preprocess: only the build "
                          "and the preprocess-mead, BFM and support-net phases; flint: only the "
                          "build and the train-flint, SpecAugment, ablation and infra phases; "
-                         "parallel: only the build and the data- / tensor-parallel phase")
+                         "parallel: only the build and the data- / tensor-parallel phase; "
+                         "faceformer_bf16: only the build and the bfloat16 FaceFormer phase "
+                         "(K3's bfloat16 entry, the attention contract rows)")
     args = ap.parse_args()
     try:
         import torch
@@ -6028,6 +6374,11 @@ def main() -> int:
         emit({"phases": "preprocess", "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start})
         return finish(name, phases="preprocess")
+    if args.phases == "faceformer_bf16":
+        timed(phase_faceformer_bf16, kb, kba, peaks)
+        emit({"phases": "faceformer_bf16", "phase_s": phase_s,
+              "total_s": time.perf_counter() - t_start})
+        return finish(name, phases="faceformer_bf16")
     if args.phases == "parallel":
         timed(phase_parallel, kb, kras)
         emit({"phases": "parallel", "phase_s": phase_s,
@@ -6072,6 +6423,7 @@ def main() -> int:
     timed(phase_serve_bf16, kb)
     ckpt_k2 = timed(phase_checkpoint, kb, kras)
     ff_launches = timed(phase_faceformer, kb, kba)
+    ff_bf16 = timed(phase_faceformer_bf16, kb, kba, peaks)
     timed(phase_train_faceformer, kb, kba)
     emote = timed(phase_train_emote, kb)
     emote_bf16 = timed(phase_train_emote_bf16, kb)
@@ -6113,6 +6465,8 @@ def main() -> int:
     spec_k1 = check_spec_rows(rows, spec)  # K1 under the masked and resample=False forwards
     ff_k3 = k3_rows[0]  # K3's self-attention at train-faceformer's step: B=16 H=4 T=S=25 d=32
     tp_row = next(r for r in rows if r["case"] == "emote_train_tp2")  # B=8 H=6 T=S=64: tp=2
+    k3_bf16 = ff_bf16["k3_rows"][0]  # K3 bf16's self-attention: B=1 H=4 T=S=600 d=32, (H, T, T)
+    k3_bf16_vert = ff_bf16["k3_rows"][3]  # the vertex decoder's: B=4 H=4 T=S=100 d=16
     emit({"kernels": [{
         "name": "keybias_attention",
         "route": "cuda",
@@ -6239,7 +6593,32 @@ def main() -> int:
         "bias_shape": k3_main["bias_shape"],
         "backward": {k: v for k, v in grad_rows[1].items() if k != "kernel"},
         "peaks": peaks_line,
-    }, {
+    }] + [{
+        "name": "fused_bias_attention_bf16",
+        "route": "cuda",
+        "source": "avi_talking_tpu_torch/csrc/keybias_attention_bf16.cu",
+        "replaces": "avi_talking_tpu/ops/pallas/attention.py:185",
+        "path": path,
+        "launches": launches,  # the phase's bfloat16 forward
+        "max_abs_err": max(r["max_abs_err"] for r in ff_bf16["k3_rows"]),
+        "limit_share": max(max(r["limit_share"], r["rms_limit_share"])
+                           for r in ff_bf16["k3_rows"]),
+        "ms": row["ms"],
+        "device_ms": row["device_ms"],
+        "library_device_ms": row["library_device_ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "shape": row["shape"],
+        "bias_shape": row["bias_shape"],
+        "dtype": "bfloat16",
+        "peaks": peaks_line,
+    } for path, launches, row in (
+        ("FaceFormerCoeff(FaceFormerConfig(), dtype=bfloat16) forward (T=600)",
+         ff_bf16["coeff"]["forward_launches"]["fused_bias_attention_bf16"], k3_bf16),
+        ("FaceFormerVert(FaceFormerVertConfig(), dtype=bfloat16) forward (B=4, T=100)",
+         ff_bf16["vert"]["forward_launches"]["fused_bias_attention_bf16"], k3_bf16_vert))] + [{
         "name": "keybias_attention",
         "route": "cuda",
         "source": "avi_talking_tpu_torch/csrc/bias_attention.cu",

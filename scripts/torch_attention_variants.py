@@ -32,9 +32,11 @@ VARIANTS = {
     "cvt": [("  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
              '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));\n  return r;')],
     "no_bias": [
-        ("bv[j][e] = !ok ? -INFINITY : (row0 < T ? brow0[(long long)key * ss] : 0.f);",
+        ("bv[j][e] = !ok ? -INFINITY : "
+         "(row0 < T ? bias_f32(brow0 + (long long)key * ss) : 0.f);",
          "bv[j][e] = !ok ? -INFINITY : 0.f;"),
-        ("bv[j][2 + e] = !ok ? -INFINITY : (row1 < T ? brow1[(long long)key * ss] : 0.f);",
+        ("bv[j][2 + e] = !ok ? -INFINITY : "
+         "(row1 < T ? bias_f32(brow1 + (long long)key * ss) : 0.f);",
          "bv[j][2 + e] = !ok ? -INFINITY : 0.f;")],
     "no_split": [("big = tf32_big(x);\n  small = tf32_big(x - __uint_as_float(big));",
                   "big = __float_as_uint(x);\n  small = big;")],

@@ -29,7 +29,7 @@ SECTIONS = [  # (mark, the text it goes before), in order; "end" goes after the 
     ("start", "  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;"),
     ("setup", "  if (producer) {\n    // Streamed, at most"),
     ("q", "  uint32_t qf[D / 16][4];"),
-    ("tile0", "    if (key0 < S) {  // the chunk holds"),
+    ("tile0", "    if (key0 < S) {\n      const int slot"),
     ("pass1", "  // The row group's M and L"),
     ("merge", "  // Pass 2: P = bf16"),
     ("pass2", "  // The four warps' partial sums"),

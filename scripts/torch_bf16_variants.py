@@ -42,14 +42,16 @@ VARIANTS = {
     "producers1": [("constexpr int PRODUCERS = 4;", "constexpr int PRODUCERS = 1;")],
     "producers2": [("constexpr int PRODUCERS = 4;", "constexpr int PRODUCERS = 2;")],
     "streamed": [("  const bool resident = plan<D>(S, groups, true).bytes <= (size_t)SMEM_MAX;\n"
-                  "  const dim3 grid", "  const bool resident = false;\n  const dim3 grid")],
-    "no_rot": [("  const int rot = blockIdx.x % tiles;", "  const int rot = 0;")],
+                  "  const long long blocks",
+                  "  const bool resident = false;\n  const long long blocks")],
+    "no_rot": [("  const int rot = qt % tiles;", "  const int rot = 0;")],
     # ablations
     "null": [(START, "  if (S > 0) return;\n" + START)],
     "no_copy": [(COPY, "if (n < 0) " + COPY)],
-    "no_pass1": [("if (key0 < S) {  // the chunk holds", "if (key0 < 0) {  // the chunk holds")],
-    "no_bias": [("      bias = *reinterpret_cast<const float2*>(bias_s + key);",
-                 "      bias = make_float2(0.f, 0.f);")],
+    "no_pass1": [("    if (key0 < S) {\n      const int slot",
+                  "    if (key0 < 0) {\n      const int slot")],
+    "no_bias": [("      const float2 b = *reinterpret_cast<const float2*>(br.bias_s + key);",
+                 "      const float2 b = make_float2(0.f, 0.f);")],
     "no_pv": [("        mma_bf16(acc[n], p, bv[0], bv[1]);\n"
                "        mma_bf16(acc[n + 1], p, bv[2], bv[3]);",
                "        acc[n][0] += __uint_as_float(p[0] ^ bv[0] ^ bv[1]);\n"

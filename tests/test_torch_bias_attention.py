@@ -21,9 +21,12 @@ import torch
 from avi_talking_tpu.ops.pallas.attention import fused_bias_attention, keybias_attention
 from avi_talking_tpu.ops.transformer import MultiHeadAttention as JMHA
 from avi_talking_tpu_torch.infra.init import random_module
+from avi_talking_tpu_torch.ops.layers import set_compute_dtype
 from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
 from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
 from avi_talking_tpu_torch.ops.transformer import MultiHeadAttention as TMHA
+from test_torch_bf16 import assert_closer, exact_jit
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CASES = [
     # B, H, T, S, d, bias shape
@@ -158,9 +161,9 @@ def test_fused_mha_gradients_match_jax_plain_mha(kind):
     bias = None if bias is None else bias.astype(np.float32)
     cot = rng.standard_normal((B, T, D)).astype(np.float32)
     jm = JMHA(D, H)
-    params = jm.init(jax.random.PRNGKey(0), x, x, x)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), x, x, x)
     params = jax.tree.map(lambda a: (rng.standard_normal(a.shape) * 0.3).astype(np.float32),
-                          jax.tree.map(np.asarray, params))
+                          shapes)
 
     def jloss(p, x, mem):
         kv = x if kind.startswith("self") else mem
@@ -272,3 +275,129 @@ def test_fused_and_plain_mha_agree():
     with torch.no_grad():
         torch.testing.assert_close(fused(x, x, x, bias), plain(x, x, x, bias), atol=1e-6, rtol=0)
         torch.testing.assert_close(fused(x, mem, mem), plain(x, mem, mem), atol=1e-6, rtol=0)
+
+
+# ---- bfloat16, any head dim, either bias dtype ------------------------------
+
+BF16_CASES = [
+    # bias kind, d: the decoder's (H, T, T) ALiBi-shaped bias, its (T, S)
+    # alignment bias and a full (B, H, T, S) one, all float32 as the
+    # FaceFormer family builds them; head dims off both kernels' steps
+    (kind, d) for kind in ("HTT", "TS", "BHTS") for d in (8, 24, 33)]
+
+
+def _bf16_inputs(kind, d, B=2, H=4, T=20, S=20, seed=9):
+    """bfloat16 q, k, v (numpy, held as float32 values) and a float32 bias
+    with scattered -1e9 entries."""
+    rng = np.random.default_rng(seed + d)
+    bshape = {"HTT": (H, T, S), "TS": (T, S), "BHTS": (B, H, T, S)}[kind]
+    q, k, v = (np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in (
+        rng.standard_normal((B, H, T, d)) * d ** -0.5, rng.standard_normal((B, H, S, d)),
+        rng.standard_normal((B, H, S, d))))
+    bias = np.where(rng.random(bshape) < 0.2, -1e9, rng.standard_normal(bshape))
+    return q, k, v, bias.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def bf16_refs():
+    """JAX's side of every bfloat16 case, computed once: the Pallas kernel
+    in interpret mode at bfloat16 and at float32 on the same values, and
+    JAX's unfused MultiHeadAttention(dtype=bfloat16) and its float32 run
+    for each head dim (one exact_jit compile for all)."""
+    kernel_in = [_bf16_inputs(kind, d) for kind, d in BF16_CASES]
+    mha_in, mha_params = [], []
+    for d in (8, 24, 33):
+        rng = np.random.default_rng(d)
+        x = np.array(jnp.asarray(rng.standard_normal((2, 11, 4 * d)), jnp.bfloat16)
+                     .astype(jnp.float32))
+        bias = rng.standard_normal((4, 11, 11)).astype(np.float32)
+        shapes = jax.eval_shape(JMHA(4 * d, 4).init, jax.random.PRNGKey(0), x, x, x)
+        mha_params.append(jax.tree.map(
+            lambda a: (rng.standard_normal(a.shape) * 0.3).astype(np.float32), shapes))
+        mha_in.append((x, bias))
+
+    def run(kernel_in, mha_in, mha_params):
+        bf = jnp.bfloat16
+        kernels = [[fused_bias_attention(q.astype(dt), k.astype(dt), v.astype(dt), b,
+                                         interpret=True) for dt in (bf, jnp.float32)]
+                   for q, k, v, b in kernel_in]
+        mhas = [[JMHA(x.shape[-1], 4, dtype=dt).apply(p, x.astype(dt), x.astype(dt),
+                                                      x.astype(dt), b)
+                 for dt in (bf, jnp.float32)] for (x, b), p in zip(mha_in, mha_params)]
+        return kernels, mhas
+
+    kernels, mhas = exact_jit(run, kernel_in, mha_in, mha_params)
+    return {"kernel_in": kernel_in, "kernels": kernels, "mha_in": mha_in,
+            "mha_params": mha_params, "mhas": mhas}
+
+
+@pytest.mark.parametrize("case", range(len(BF16_CASES)),
+                         ids=[f"{kind}-d{d}" for kind, d in BF16_CASES])
+def test_reference_bf16_matches_jax_pallas_interpret(case, bf16_refs):
+    """The plain version at bfloat16 q, k, v with a float32 bias (the CUDA
+    entry's oracle) against the Pallas kernel in interpret mode, by
+    test_torch_bf16's rule; the wrapper on CPU tensors gives the same
+    bfloat16 tensor and launches nothing."""
+    q, k, v, bias = (torch.from_numpy(a) for a in bf16_refs["kernel_in"][case])
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    kba.launches = kba.launches_bf16 = 0
+    got = kba.fused_bias_attention(q, k, v, bias)
+    assert got.dtype == torch.bfloat16 and kba.launches == kba.launches_bf16 == 0
+    assert torch.equal(got, kba.fused_bias_attention_reference(q, k, v, bias))
+    assert_closer(f"K3 plain bf16 {BF16_CASES[case]}", got, *bf16_refs["kernels"][case])
+
+
+@pytest.mark.parametrize("i,d", list(enumerate((8, 24, 33))))
+def test_fused_mha_bf16_matches_jax_unfused(i, d, bf16_refs):
+    """MultiHeadAttention(use_fused_kernel=True) at bfloat16 compute (K3's
+    plain version on bfloat16 q, k, v beside the float32 bias as stored)
+    against JAX's unfused MultiHeadAttention(dtype=bfloat16), which computes
+    what ``_attn_kernel`` does, by test_torch_bf16's rule."""
+    x, bias = bf16_refs["mha_in"][i]
+    p = bf16_refs["mha_params"][i]["params"]
+    tm = random_module(lambda: TMHA(4 * d, 4, use_fused_kernel=True), torch.device("cpu"),
+                       torch.Generator().manual_seed(0))
+    tm.load_state_dict({k: torch.from_numpy(np.array(p[n])) for k, n in (
+        ("in_proj_weight", "in_proj_weight"), ("in_proj_bias", "in_proj_bias"),
+        ("out_proj.weight", "out_proj_weight"), ("out_proj.bias", "out_proj_bias"))})
+    set_compute_dtype(tm, torch.bfloat16)
+    tx = torch.from_numpy(x).bfloat16()
+    with torch.no_grad():
+        got = tm(tx, tx, tx, torch.from_numpy(bias))
+    assert got.dtype == torch.bfloat16
+    assert_closer(f"fused MHA bf16 d={d}", got, *bf16_refs["mhas"][i])
+
+
+def test_reference_f32_bit_unchanged():
+    """At float32 the plain version computes what it did before P . V was
+    accumulated in float32 at every dtype: bit-equal on a fixed case."""
+    q, k, v, bias = map(torch.from_numpy, _inputs(2, 4, 25, 25, 32, (4, 25, 25), seed=3))
+    scores = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) + bias.float()
+    before = torch.einsum("bhts,bhsd->bhtd", torch.softmax(scores, dim=-1).to(v.dtype), v)
+    assert torch.equal(kba.fused_bias_attention_reference(q, k, v, bias), before.to(q.dtype))
+
+
+@pytest.mark.parametrize("qdt,bdt", [(torch.float32, torch.float32),
+                                     (torch.float32, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)],
+                         ids=["f32-f32bias", "f32-bf16bias", "bf16-f32bias", "bf16-bf16bias"])
+def test_wrapper_contract_on_cpu(qdt, bdt):
+    """The inputs the Pallas kernel takes: every head dim from 1 to 128 and
+    a bias of either dtype beside q of either dtype, on the CPU as on the
+    card; above 128 and at float16 the wrapper raises, naming the limit."""
+    rng = np.random.default_rng(11)
+    bias = torch.from_numpy(rng.standard_normal((3, 5, 6)).astype(np.float32)).to(bdt)
+    for d in range(1, 129):
+        q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, n, d)).astype(np.float32)).to(qdt)
+                   for n in (5, 6, 6))
+        got = kba.fused_bias_attention(q, k, v, bias)
+        assert got.shape == (2, 3, 5, d) and got.dtype == qdt
+        assert torch.equal(got, kba.fused_bias_attention_reference(q, k, v, bias))
+    wide_q, wide_kv = torch.zeros(2, 3, 5, 129, dtype=qdt), torch.zeros(2, 3, 6, 129, dtype=qdt)
+    with pytest.raises(ValueError, match="above 128"):
+        kba.fused_bias_attention(wide_q, wide_kv, wide_kv, bias)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kba.fused_bias_attention(q.half(), k.half(), v.half(), bias)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kba.fused_bias_attention(q, k, v, bias.half())

@@ -19,6 +19,7 @@ from avi_talking_tpu.data import celebv as jcv
 from avi_talking_tpu_torch import cli as tcli
 from avi_talking_tpu_torch.data import caption_translate as tct
 from avi_talking_tpu_torch.data import celebv as tcv
+from _torch_threads import one_torch_thread  # noqa: F401
 
 STYLE_B = [
     "The anger is inferred from the lowered brow, raised cheek and the tightening of the lips.",

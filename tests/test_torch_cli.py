@@ -186,9 +186,24 @@ def test_train_emote_bf16_runs_on_cpu(flags, mead_codes_root, capsys):
     assert ("data root: " in out) == ("--root" in flags)
 
 
+# the two FaceFormer trainers at a small synthetic size
+SMALL = {"train-faceformer": ["--batch-size", "2", "--seq-length", "8"],
+         "train-faceformer-vert": ["--batch-size", "2", "--frames", "8"]}
+_PLAIN_FINAL = {}  # each command's final line without the ignored flags
+
+
+def _final_line(cmd, flags, capsys):
+    assert main([cmd, "--tiny", "--device", "cpu", "--steps", "1", *SMALL[cmd], *flags]) == 0
+    out, err = capsys.readouterr()
+    final = [line for line in out.splitlines() if line.startswith("final:")]
+    assert len(final) == 1
+    return final[0], err
+
+
 @pytest.mark.parametrize("cmd,flag", [
-    # train-prior --dp is ported (tests/test_torch_parallel.py); what is still
-    # refused is refused beside the data flags too, before any data is read
+    # the JAX commands parse --bf16 and --checkpoint (the shared parser) and
+    # read neither; the port takes them with one line on stderr, before any
+    # data is read
     ("train-faceformer", ["--bf16"]),
     ("train-faceformer", ["--checkpoint", "c"]),
     ("train-faceformer", ["--root", "/d", "--bf16"]),
@@ -196,9 +211,24 @@ def test_train_emote_bf16_runs_on_cpu(flags, mead_codes_root, capsys):
     ("train-faceformer-vert", ["--checkpoint", "c"]),
     ("train-faceformer-vert", ["--mead-root", "/d", "--checkpoint", "c"]),
 ])
-def test_training_commands_refuse_what_is_not_ported(cmd, flag):
-    with pytest.raises(SystemExit, match=r"not ported to avi_talking_tpu_torch"):
-        main([cmd, "--tiny", "--device", "cpu", "--steps", "1", *flag])
+def test_training_commands_ignore_what_jax_ignores(cmd, flag, capsys, tmp_path):
+    """A synthetic run with the flag prints the line and the same metrics
+    as the run without it; beside a data flag (a root that does not exist)
+    the line is printed before the data root is read, which then fails."""
+    name = "--bf16" if "--bf16" in flag else "--checkpoint"
+    line = f"{cmd}: {name} is ignored, as in the JAX command"
+    if "/d" in flag:
+        flag = [str(tmp_path / "missing") if f == "/d" else f for f in flag]
+        with pytest.raises(FileNotFoundError, match="missing"):
+            main([cmd, "--tiny", "--device", "cpu", "--steps", "1", *flag])
+        assert line in capsys.readouterr().err
+        return
+    if cmd not in _PLAIN_FINAL:
+        _PLAIN_FINAL[cmd] = _final_line(cmd, [], capsys)[0]
+    final, err = _final_line(cmd, flag, capsys)
+    assert [ln for ln in err.splitlines() if "is ignored, as in the JAX command" in ln] == [
+        ln for ln in err.splitlines() if ln.startswith(line)] and line in err
+    assert final == _PLAIN_FINAL[cmd]
 
 
 @pytest.mark.parametrize("cmd", ["train-emote", "train-prior"])

@@ -22,6 +22,7 @@ from avi_talking_tpu_torch.infra.init import random_module
 from avi_talking_tpu_torch.infra.jax_params import emote_head_state_from_jax, flint_state_from_jax
 from avi_talking_tpu_torch.models import emote as temote
 from avi_talking_tpu_torch.models import flint as tflint
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _port(factory, state):

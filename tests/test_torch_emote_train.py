@@ -44,6 +44,7 @@ from avi_talking_tpu_torch.train.talking_head import (
     TalkingHeadTrainer,
     emote_trainables,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "tiny_train.json")
 TOL = 1e-4

@@ -32,6 +32,7 @@ from avi_talking_tpu_torch.models import faceformer_vert as tffv
 from avi_talking_tpu_torch.ops import positional as tpos
 from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
 from avi_talking_tpu_torch.ops.transformer import TransformerDecoder as TDecoder
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _load(model, state):
@@ -41,10 +42,11 @@ def _load(model, state):
 
 def _randomize(params, seed, scale=0.05):
     """Every leaf random (as the JAX FaceFormer tests do), so the zero-init
-    head and embeddings carry weight."""
+    head and embeddings carry weight; ``params`` may be the shapes that
+    ``jax.eval_shape`` of an init gives (its values are never read)."""
     rng = np.random.default_rng(seed)
     return jax.tree.map(lambda a: (rng.standard_normal(a.shape) * scale).astype(np.float32),
-                        jax.tree.map(np.asarray, params))
+                        params)
 
 
 def _t(*arrays):
@@ -84,7 +86,7 @@ def test_transformer_decoder_matches_jax(layers, S):
     tb = np.asarray(jpos.faceformer_bias(H, T, 5))
     mb = np.where(rng.random((T, S)) < 0.3, -1e9, 0.0).astype(np.float32)
     jm = JDecoder(layers, D, H, 2 * D)
-    params = jm.init(jax.random.PRNGKey(0), tgt, mem, tb, mb)
+    params = jax.eval_shape(jm.init, jax.random.PRNGKey(0), tgt, mem, tb, mb)
     params = {"params": _randomize(params["params"], seed=3, scale=0.3)}
     ref = np.asarray(jm.apply(params, tgt, mem, tb, mb))
     tm = _load(random_module(lambda: TDecoder(layers, D, H, 2 * D), torch.device("cpu"),
@@ -111,7 +113,7 @@ def _coeff_case(merge: bool, seed: int):
             rng.standard_normal((B, T, cfg.emo_dim)).astype(np.float32),
             rng.standard_normal((B, 1, cfg.vertice_dim)).astype(np.float32)) if merge else ()
     jm = jff.FaceFormerCoeff(cfg)
-    params = jm.init(jax.random.PRNGKey(0), audio, coeffs, *cond)
+    params = jax.eval_shape(jm.init, jax.random.PRNGKey(0), audio, coeffs, *cond)
     params = {"params": _randomize(params["params"], seed=7)}
     tcfg = tff.FaceFormerConfig.tiny()
     if not merge:
@@ -138,7 +140,8 @@ def test_faceformer_coeff_forward_matches_jax(coeff_case):
 def test_faceformer_coeff_predict_matches_jax(coeff_case):
     jm, params, tm, audio, coeffs, cond = coeff_case
     T = coeffs.shape[1]
-    ref = np.asarray(jm.apply(params, audio, T, *cond, method=jff.FaceFormerCoeff.predict))
+    ref = np.asarray(jax.jit(lambda p, a, *c: jm.apply(p, a, T, *c, method="predict"))(
+        params, audio, *cond))
     got = tm.predict(torch.from_numpy(audio), T, *_t(*cond)).numpy()
     assert got.shape == coeffs.shape
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
@@ -183,7 +186,7 @@ def vert_case():
     verts = rng.standard_normal((B, T, cfg.vertice_dim)).astype(np.float32)
     emo = rng.standard_normal((B, T, cfg.emo_dim)).astype(np.float32)
     jm = jffv.FaceFormerVert(cfg, template=jnp.asarray(template))
-    params = jm.init(jax.random.PRNGKey(0), audio, verts, emo)
+    params = jax.eval_shape(jm.init, jax.random.PRNGKey(0), audio, verts, emo)
     params = {"params": _randomize(params["params"], seed=3)}
     tm = _load(tffv.FaceFormerVert.random_init(tffv.FaceFormerVertConfig.tiny(),
                                                template=torch.from_numpy(template), device="cpu"),
@@ -195,7 +198,8 @@ def test_faceformer_vert_forward_and_predict_match_jax(vert_case):
     jm, params, tm, audio, verts, emo = vert_case
     T = verts.shape[1]
     ref_tf = np.asarray(jax.jit(jm.apply)(params, audio, verts, emo))
-    ref_ar = np.asarray(jm.apply(params, audio, T, emo, method=jffv.FaceFormerVert.predict))
+    ref_ar = np.asarray(jax.jit(lambda p, a, e: jm.apply(p, a, T, e, method="predict"))(
+        params, audio, emo))
     with torch.no_grad():
         got_tf = tm(*_t(audio, verts, emo)).numpy()
     got_ar = tm.predict(torch.from_numpy(audio), T, torch.from_numpy(emo)).numpy()
@@ -210,8 +214,8 @@ def test_disentangle_losses_match_jax(vert_case):
     sel = jffv.FlameRegionSelector(frontal=np.ones(V, bool), mouth=np.arange(V) < V // 2,
                                    eye=np.arange(V) >= V // 2)
     key = jax.random.PRNGKey(4)
-    ref = jffv.disentangle_losses(jm, params, jnp.asarray(audio), jnp.asarray(verts),
-                                  jnp.asarray(emo), sel, key)
+    ref = jax.jit(lambda p, a, v, e, k: jffv.disentangle_losses(jm, p, a, v, e, sel, k))(
+        params, jnp.asarray(audio), jnp.asarray(verts), jnp.asarray(emo), key)
     r1, r2 = jax.random.split(key)
     perms = (np.asarray(jax.random.permutation(r1, emo.shape[0])),
              np.asarray(jax.random.permutation(r2, audio.shape[0])))

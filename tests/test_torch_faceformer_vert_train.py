@@ -418,9 +418,18 @@ def test_first_mead_batch_equals_the_jax_commands(mead_root):
     (["--bf16"], "float32"),
     (["--checkpoint", "ck"], "seeded random weights"),
 ])
-def test_command_refuses(flags, what):
-    with pytest.raises(SystemExit, match=what):
-        cli_main(BASE + ["--steps", "1", *flags])
+def test_command_refuses(flags, what, capsys):
+    """--emo-cls without MEAD labels is refused; --bf16 and --checkpoint,
+    which the JAX command parses and never reads, are taken with a line on
+    stderr that says so (and why), and the run ends."""
+    if flags[0].startswith("--emo-cls"):
+        with pytest.raises(SystemExit, match=what):
+            cli_main(BASE + ["--steps", "1", *flags])
+        return
+    assert cli_main(BASE + ["--steps", "1", *flags]) == 0
+    out, err = capsys.readouterr()
+    assert f"{flags[0]} is ignored, as in the JAX command" in err and what in err
+    assert len([line for line in out.splitlines() if line.startswith("final:")]) == 1
 
 
 def test_command_needs_a_card_without_device(monkeypatch):

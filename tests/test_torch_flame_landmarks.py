@@ -31,6 +31,7 @@ from avi_talking_tpu_torch.models import faceformer as tff
 from avi_talking_tpu_torch.train import landmark_losses as tll
 from avi_talking_tpu_torch.train.faceformer_trainer import FaceFormerTrainer
 from avi_talking_tpu_torch.train.optim import adamw
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 KW = dict(num_vertices=300, n_shape=8, n_exp=6, num_faces=200, seed=3, n_static_landmarks=51)
@@ -146,8 +147,8 @@ def test_three_landmark_steps_match_optax():
     weights = dict(ldmk_weight=10.0, lipd_weight=1.0, eyed_weight=0.5)
 
     jm = jff.FaceFormerCoeff(cfg)
-    params = jm.init(jax.random.PRNGKey(0), jb[0]["audio"], jb[0]["coeff"], jb[0]["eye_embed"],
-                     jb[0]["emo_embed"], jb[0]["ref_coeff"])
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), jb[0]["audio"], jb[0]["coeff"],
+                              jb[0]["eye_embed"], jb[0]["emo_embed"], jb[0]["ref_coeff"])
     params = jax.tree.map(
         lambda a: (np.asarray(a) + rng.standard_normal(a.shape) * 0.05).astype(np.float32), params)
     tm = tff.FaceFormerCoeff.random_init(tcfg, device="cpu")

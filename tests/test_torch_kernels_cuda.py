@@ -111,9 +111,9 @@ def test_keybias_kernel_refuses_what_it_does_not_take():
     q, k, v, bias = _cuda_inputs(1, 2, 16, 16, 16, (16,))
     with pytest.raises(TypeError):
         kb.keybias_attention(q.half(), k.half(), v.half(), bias.half())
-    with pytest.raises(ValueError):  # head_dim not a multiple of 8
-        kb.keybias_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
-                             v[..., :12].contiguous(), bias)
+    wide = torch.zeros(1, 2, 16, 129, device="cuda")
+    with pytest.raises(ValueError, match="above 128"):  # head_dim past HEAD_DIM_MAX
+        kb.keybias_attention(wide, wide, wide, bias)
     with pytest.raises(ValueError):  # not contiguous
         kb.keybias_attention(q.transpose(2, 3), k, v, bias)
 
@@ -178,12 +178,11 @@ def test_keybias_bf16_kernel_matches_plain_version(B, H, T, S, d, lens):
 
 @pytest.mark.cuda
 def test_keybias_bf16_kernel_refuses_what_it_does_not_take():
-    q, k, v, bias = (t.bfloat16() for t in _cuda_inputs(1, 2, 16, 16, 24, (16,)))
-    with pytest.raises(ValueError):  # head_dim 24: a multiple of 8, not of 16
-        kb.keybias_attention(q, k, v, bias)
     q, k, v, bias = (t.bfloat16() for t in _cuda_inputs(1, 2, 16, 16, 32, (16,)))
-    with pytest.raises(TypeError):  # mixed dtypes
-        kb.keybias_attention(q, k, v, bias.float())
+    with pytest.raises(TypeError):  # q, k and v of mixed dtypes
+        kb.keybias_attention(q, k.float(), v, bias)
+    with pytest.raises(TypeError):  # a float16 key bias
+        kb.keybias_attention(q, k, v, bias.half())
 
 
 BIAS_CASES = [
@@ -274,11 +273,102 @@ def test_bias_kernel_refuses_what_it_does_not_take():
         kba.fused_bias_attention(q.transpose(2, 3), k, v, bias)
     with pytest.raises(ValueError):  # a bias that is not contiguous in its own shape
         kba.fused_bias_attention(q, k, v, bias.transpose(1, 2))
-    with pytest.raises(ValueError):  # head_dim not a multiple of 8
-        kba.fused_bias_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
-                                 v[..., :12].contiguous(), bias)
+    wide = torch.zeros(1, 2, 16, 129, device="cuda")
+    with pytest.raises(ValueError, match="above 128"):  # head_dim past HEAD_DIM_MAX
+        kba.fused_bias_attention(wide, wide, wide, bias)
     with pytest.raises(ValueError):  # a bias that does not broadcast
         kba.fused_bias_attention(q, k, v, bias[:, :8].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,S,d,bshape,layout", BIAS_CASES)
+def test_bias_bf16_kernel_matches_plain_version(B, H, T, S, d, bshape, layout, bias_dtype):
+    """K3's bfloat16 entry on bfloat16 q, k, v with a float32 or bfloat16
+    bias read through its strides: one bf16 launch and no fp32 one, within
+    bf16_within_limit of the plain version; the fully masked row averages
+    v. A "keys first" bias goes through ``kba._launch`` with the strides of
+    its transpose."""
+    q, k, v, bias = _bias_inputs(B, H, T, S, d, bshape)
+    q, k, v, bias = q.bfloat16(), k.bfloat16(), v.bfloat16(), bias.to(bias_dtype)
+    before, before16 = kba.launches, kba.launches_bf16
+    if layout == "keys first":
+        stored = bias.transpose(2, 3).contiguous()
+        got = kba._launch(q, k, v, stored, stored.transpose(2, 3).stride())
+    else:
+        got = kba.fused_bias_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert (kba.launches, kba.launches_bf16) == (before, before16 + 1)
+    assert got.dtype == torch.bfloat16
+    bf16_within_limit(got, kba.fused_bias_attention_reference(q, k, v, bias))
+    mean = v.float().mean(2).expand(got[..., T // 2, :].shape)
+    bf16_within_limit(got[..., T // 2, :], mean, rms=False)
+
+
+# every head dim past the kernels' steps, through each entry
+CONTRACT_DIMS = [1, 3, 8, 12, 16, 24, 33, 48, 100, 127, 128]
+
+
+def _entry_inputs(entry, B, H, T, S, d, bias_dtype=None, seed=6):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    dt = torch.bfloat16 if entry.endswith("bf16") else torch.float32
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = (torch.randn(B, H, T, d, device="cuda", generator=g) * d ** -0.5).to(dt)
+    k, v = (torch.randn(B, H, S, d, device="cuda", generator=g).to(dt) for _ in range(2))
+    if entry.startswith("keybias"):
+        lens = torch.randint(1, S + 1, (B,), device="cuda", generator=g)
+        bias = torch.where(torch.arange(S, device="cuda")[None] < lens[:, None], 0.0, -1e9)
+        fn, plain, mod = kb.keybias_attention, kb.keybias_attention_reference, kb
+    else:
+        bias = torch.where(torch.rand(H, T, S, device="cuda", generator=g) < 0.2, -1e9,
+                           torch.randn(H, T, S, device="cuda", generator=g))
+        fn, plain, mod = kba.fused_bias_attention, kba.fused_bias_attention_reference, kba
+    return fn, plain, mod, q, k, v, bias.to(bias_dtype or dt)
+
+
+def _entry_check(entry, fn, plain, mod, q, k, v, bias):
+    counter = "launches_bf16" if entry.endswith("bf16") else "launches"
+    before = getattr(mod, counter)
+    got = fn(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert getattr(mod, counter) == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype and got.is_contiguous()
+    ref = plain(q, k, v, bias)
+    if q.dtype == torch.bfloat16:
+        bf16_within_limit(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+ENTRIES = ["keybias_attention", "keybias_attention_bf16", "fused_bias_attention",
+           "fused_bias_attention_bf16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ENTRIES)
+@pytest.mark.parametrize("d", CONTRACT_DIMS)
+def test_every_entry_takes_any_head_dim(entry, d):
+    """Each of the four entries at head dims off the kernels' steps (the
+    wrapper zero-pads q, k and v to the step and drops the padding)."""
+    _entry_check(entry, *_entry_inputs(entry, 2, 3, 37, 45, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_every_entry_takes_bh_past_the_grid_y_limit(entry):
+    """B*H = 65,544 (B=5462 H=12), past the 65,535 a grid's y dimension
+    holds: the (query tile, b*h) pairs fold into x."""
+    _entry_check(entry, *_entry_inputs(entry, 5462, 12, 8, 8, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_every_entry_takes_a_bias_of_the_other_dtype(entry):
+    """A float32 bias beside bfloat16 q, k, v and a bfloat16 one beside
+    float32: read as float32, as the Pallas kernels read it."""
+    other = torch.float32 if entry.endswith("bf16") else torch.bfloat16
+    _entry_check(entry, *_entry_inputs(entry, 2, 12, 200, 200, 64, bias_dtype=other))
 
 
 @pytest.mark.cuda

@@ -27,6 +27,7 @@ from avi_talking_tpu_torch.data import mead as tmead
 from avi_talking_tpu_torch.data.splits import mead_identity_split as t_split
 from avi_talking_tpu_torch.data.stats import CoeffStats as TStats
 from avi_talking_tpu_torch.data.train_batches import FaceFormerBatchBuilder as TBuilder
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N_FRAMES = 20
 CLIPS = [f"{ident}_front_{emo}_level{lvl}_001" for ident in ("M003", "W009")

@@ -17,6 +17,7 @@ from avi_talking_tpu_torch.infra.jax_params import transformer_encoder_state_fro
 from avi_talking_tpu_torch.ops import positional as tpos
 from avi_talking_tpu_torch.ops.resample import linear_interpolate as t_interp
 from avi_talking_tpu_torch.ops.transformer import TransformerEncoder as TEncoder
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _port(factory, state):
@@ -74,9 +75,9 @@ def test_transformer_encoder_matches_jax(activation, bias_kind):
                        0.0, -1e9).astype(np.float32),
     }[bias_kind]
     jm = JEncoder(num_layers=2, d_model=D, nhead=H, dim_feedforward=F, activation=activation)
-    params = jm.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    params = jax.jit(jm.init)(jax.random.PRNGKey(1), jnp.asarray(x))
     jb = None if bias is None else jnp.asarray(bias)
-    ref = np.asarray(jm.apply(params, jnp.asarray(x), jb))
+    ref = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x), jb))
     tm = _port(lambda: TEncoder(2, D, H, F, activation),
                transformer_encoder_state_from_jax(jax.tree.map(np.asarray, params["params"])))
     with torch.no_grad():

@@ -25,6 +25,7 @@ from avi_talking_tpu_torch.core import assets as tassets
 from avi_talking_tpu_torch.infra.jax_params import pipeline_state_from_jax
 from avi_talking_tpu_torch.pipeline import Intervals as TIntervals
 from avi_talking_tpu_torch.pipeline import generate as tgen
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INSTRUCTION = "A fairly angry man speaks with brow fairly down"

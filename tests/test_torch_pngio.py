@@ -14,6 +14,7 @@ import pytest
 
 from avi_talking_tpu.viz import pngio as jpng
 from avi_talking_tpu_torch.viz import pngio as tpng
+from _torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN = Path(__file__).parent / "golden"
 

@@ -34,6 +34,7 @@ from avi_talking_tpu_torch.infra.jax_params import (
 )
 from avi_talking_tpu_torch.models.clip_text import ClipTextConfig, ClipTextModel
 from avi_talking_tpu_torch.models.conditioning import EmotionStyleEncoder
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 JSON_DIR = str(REPO / "experiments" / "json_dir")

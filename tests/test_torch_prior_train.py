@@ -38,6 +38,7 @@ from avi_talking_tpu_torch.train import losses as tl
 from avi_talking_tpu_torch.train import prior as tp
 from avi_talking_tpu_torch.train.driver import PriorTrainingConfig, synthetic_batches, train_prior
 from avi_talking_tpu_torch.train.optim import adamw
+from _torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "tiny_train.json")
 DIM, IN, B, T_STEPS = 32, 48, 4, 10

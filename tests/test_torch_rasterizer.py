@@ -18,6 +18,7 @@ from avi_talking_tpu.viz import shading as jshade
 from avi_talking_tpu_torch.ops.kernels import rasterize as tras
 from avi_talking_tpu_torch.viz import rasterizer as tr
 from avi_talking_tpu_torch.viz import shading as tshade
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def head_proxy_mesh(n_lat=48, n_lon=44):

@@ -19,6 +19,7 @@ import torch
 
 from avi_talking_tpu.ops.pallas import rasterize as jras
 from avi_talking_tpu_torch.ops.kernels import rasterize as tras
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -15,6 +15,7 @@ from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
 from avi_talking_tpu_torch.ops.kernels import rasterize as kras
 from avi_talking_tpu_torch.pipeline import AviTalkingPipeline, PipelineConfig
 from avi_talking_tpu_torch.pipeline.server import InferenceServer, ServingConfig
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

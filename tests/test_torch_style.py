@@ -30,6 +30,7 @@ from avi_talking_tpu_torch.models import clip_text as tclip
 from avi_talking_tpu_torch.models import diffusion as tdiff
 from avi_talking_tpu_torch.models import prior_transformer as tprior
 from avi_talking_tpu_torch.pipeline import generate as tgen
+from _torch_threads import one_torch_thread  # noqa: F401
 
 INSTRUCTIONS = [
     "A fairly angry man speaks with brow fairly down",

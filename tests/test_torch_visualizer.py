@@ -22,6 +22,7 @@ from avi_talking_tpu_torch.core.flame import FlameModel
 from avi_talking_tpu_torch.viz import pngio as tpng
 from avi_talking_tpu_torch.viz import visualizer as tviz
 from test_torch_rasterizer import head_proxy_mesh
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def tiny_sequence(T=5):

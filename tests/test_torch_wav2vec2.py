@@ -11,6 +11,7 @@ from avi_talking_tpu.audio import wav2vec2 as jw
 from avi_talking_tpu_torch.audio import wav2vec2 as tw
 from avi_talking_tpu_torch.infra.init import random_module
 from avi_talking_tpu_torch.infra.jax_params import wav2vec2_state_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _port(factory, state):
