@@ -35,19 +35,30 @@
 // bias is 5.76 MB against 0.46 MB of q, k and v and 0.15 MB of out, 6.38 MB
 // in all, 1.9 us at 3.35 TB/s, while its 184 MFLOP take 0.19 us at 989
 // TFLOP/s: the bias's bytes bound it, at about 1 operation per byte. What
-// the design does about them: each thread reads the bias of its own score
-// fragment (rows g and g + 8, keys 2t and 2t + 1 of each 8-key tile) from
-// device memory after the chunk's products (the other warps of the SM hide
-// the trip; held across the products, the values cost registers that the
-// d = 128 instantiations spill); a key bias (one row per (b, h)) is staged
-// in shared memory instead. Each pass (the softmax's statistics, then P . V) reads the bias
-// once, so it is read twice; the second read finds the tile in L2 (50 MB on
-// the H100) unless the grid's working set evicts it. Reading it once would
-// take the (rows x S) tile in shared memory, 38 KB a 16-row group at S = 600
-// in fp32, which caps the row groups a block holds: left for a later change,
-// with the time it costs written down beside the bound. Either way a launch
-// at these shapes is a few microseconds of work, so latency, the grid and
-// the launch count too.
+// the design does about them: the bias goes through shared memory, and each
+// element of it leaves device memory once per block where it fits. A bias
+// of one row per (b, h) (st = 0: K1's key bias) is staged in fp32 at the
+// block's set-up. Any other is kept as stored: whole (the block's rows x
+// every key, 41 KB a 16-row group at S = 600 in fp32) where it fits beside
+// resident K and V, serving both passes (the softmax's statistics, then
+// P . V); else ringed, RING slots of one tile, refilled in pass 2.
+// pick_groups counts its bytes: at the decoder's shape a block holds 2 row
+// groups, 76 blocks, one per SM. A whole bias whose rows are multiples of
+// 16 bytes on 16-byte boundaries (the decoder's float32 rows of 2,400
+// bytes) comes by bulk copies, one a row, from the async copy unit, counted
+// by the first copy group's barrier; any other goes tile by tile in the
+// copy group of each K tile, by cp.async of 16 bytes, 4 or a plain load
+// (copy_chunk). Each consumer thread reads its fragment (rows g and g + 8,
+// keys 2t and 2t + 1 of each 8-key tile) from shared memory after the
+// chunk's products, in rows padded so that the 8 rows a read touches fall
+// in distinct banks. Read from device memory by the consumers themselves,
+// as an earlier version did, the bias cost each warp two dependent trips a
+// tile in each pass, 20 at T = 600, with one block of 4 consumer warps on
+// most SMs to hide them; copied tile by tile with K by cp.async, it ran no
+// faster: an SM takes cp.async copies at about 7 bytes a cycle, and a
+// block's K, V and bias (154 KB) took that long. The bulk copies go beside
+// them. A launch at these shapes is a few microseconds of work either way,
+// so latency, the grid and the launch count matter too.
 //
 // Design. The first version (one 4-warp block per 64 query rows, every warp
 // walking every key, K read twice through synchronous tile copies, expf and
@@ -61,7 +72,8 @@
 //     the fewest waves of blocks, each block weighted by its rows plus what
 //     its set-up costs (pick_groups): 156 blocks of 16 rows at B=1 H=12
 //     T=200, 252 of 16 at T=333, 264 of 48 at B=2 T=512 and 120 of 64 at
-//     T=600. More rows a block read K and V fewer times from L2.
+//     T=600; K3 76 of 32 at B=1 H=4 T=600. More rows a block read K, V and
+//     the bias fewer times.
 //   * K was read from device memory twice and every copy waited. K and V of the
 //     (b, h) now go into dynamic shared memory once per block, in 64-key tiles,
 //     by PRODUCERS producer warps beside the consumers: q with K's first tile,
@@ -76,11 +88,12 @@
 //     padded to d + 8 bfloat16, so the ldmatrix reads of 8 rows fall in
 //     distinct banks. The blocks of one (b, h) start on different tiles, so
 //     that they do not ask L2 for the same lines at once. When K and V do not
-//     fit (4*S*(d+8) bytes past the 227 KB a block may take: d=128 at S >= 428,
-//     d=64 from S of about 760, by the block's rows) they stream through rings
-//     of RING tiles each instead: pass 1 reads K, pass 2 K again with V, and a
-//     slot is refilled once every consumer warp has arrived on its empty
-//     barrier.
+//     fit with a ringed bias (4*S*(d+8) bytes and the ring past the 227 KB a
+//     block may take: d=128 at S >= 428, d=64 from S of about 700, by the
+//     block's rows and the bias) they stream through rings of RING tiles
+//     each instead, the bias with K: pass 1 reads K, pass 2 K again with V,
+//     and a slot is refilled once every consumer warp has arrived on its
+//     empty barrier.
 //   * Each warp walked every key. Keys are now dealt to the 4 consumer
 //     warps of a row group in 16-key chunks (chunk c to warp c % 4, so all
 //     four work on every tile as it lands). Pass 1: each warp keeps its
@@ -91,8 +104,8 @@
 //     are added in fp32 through shared memory (warps in order, into the
 //     space K and V held) before the one bf16 rounding of the output.
 //   * The inner loops are cheaper: exp as ex2 of (s - m) * log2(e), the
-//     reciprocal of L taken once per row, the key bias staged in fp32 with
-//     -inf past S, q's A fragments and K's B fragments by ldmatrix and V's
+//     reciprocal of L taken once per row, the bias in shared memory, q's A
+//     fragments and K's B fragments by ldmatrix and V's
 //     by ldmatrix.trans from shared memory (one instruction per 8x8 pair of
 //     operands instead of scalar loads). These move P's fp32 value by a few
 //     ulp, well inside the 2^-20 relative differences kb.bf16_disagreement's
@@ -134,6 +147,7 @@
 #include <algorithm>
 #include <atomic>
 #include <climits>
+#include <type_traits>
 
 namespace {
 
@@ -147,7 +161,15 @@ constexpr int PRODUCERS = 4;      // warps that issue the copies
 constexpr int LAG = 2;            // copy groups the producers keep in flight past a released one
 constexpr int PRE = 2;            // copy groups the producers issue before the set-up barrier
 static_assert(PRE <= LAG && LAG <= RING - 1, "group 0 is released once group LAG goes out");
+constexpr int BP = BK + 8;        // a bias ring slot's row pitch (rows g, g + 8: other banks)
 constexpr float LOG2E = 1.4426950408889634f;
+
+// Where the bias lies in shared memory.
+enum Place : int {
+  STAGED = 0,  // one row per (b, h) (st = 0, K1's key bias): fp32, -inf past S, at set-up
+  WHOLE = 1,   // the block's rows x every key, as stored, copied with K's tiles in pass 1
+  RINGED = 2,  // the block's rows x one tile's keys a slot, RING slots, copied with every group
+};
 
 // Row groups of 16 query rows a block may hold (4 only up to d = 64, where
 // the registers allow them).
@@ -156,26 +178,36 @@ constexpr int max_groups() {
   return D <= 64 ? 4 : 2;
 }
 
+// The row pitch (elements) of a bias kept whole: every tile's 64 keys and 8
+// more, so that rows g and g + 8 fall in distinct banks.
+__host__ __device__ inline int whole_pitch(int tiles) { return tiles * BK + 8; }
+
 // Byte offsets of a block's dynamic shared memory: the mbarriers (resident:
-// one per copy group, full; streamed: RING full and RING empty), each row
-// group's (m, l) per consumer warp and row, the key bias in fp32 (resident
-// only), the q rows, K, V. After pass 2 the K / V space holds the warps'
-// partial sums. K and V are resident (every tile, S rounded up to 16 rows)
-// or stream through rings of RING 64-row tiles each.
+// one per copy group, full, then RING empty ones when the bias is ringed;
+// streamed: RING full and RING empty), each row group's (m, l) per consumer
+// warp and row, the bias (`place`; `esize` bytes an element as stored), the
+// q rows, K, V. After pass 2 the K / V space holds the warps' partial sums.
+// K and V are resident (every tile, S rounded up to 16 rows) or stream
+// through rings of RING 64-row tiles each.
 struct Plan {
   size_t stats, bias, q, k, v, bytes;
 };
 
 template <int D>
-__host__ __device__ inline Plan plan(int S, int groups, bool resident) {
+__host__ __device__ inline Plan plan(int S, int groups, bool resident, int place, int esize) {
   constexpr size_t P = D + 8;
   const int tiles = (S + BK - 1) / BK;
   const size_t s16 = (size_t)(S + 15) / 16 * 16;
   const size_t rows = resident ? s16 : (size_t)RING * BK;
+  const size_t qrows = (size_t)16 * groups;
+  const int bars = resident ? 2 * tiles + (place == RINGED ? RING : 0) : 2 * RING;
+  const size_t bias = place == STAGED  ? s16 * sizeof(float)
+                      : place == WHOLE ? qrows * whole_pitch(tiles) * esize
+                                       : (size_t)RING * qrows * BP * esize;
   Plan p;
-  p.stats = ((size_t)(resident ? 2 * tiles : 2 * RING) * 8 + 15) / 16 * 16;
+  p.stats = ((size_t)bars * 8 + 15) / 16 * 16;
   p.bias = p.stats + (size_t)groups * SHARES * 16 * sizeof(float2);
-  p.q = p.bias + (resident ? s16 * sizeof(float) : 0);
+  p.q = p.bias + (bias + 15) / 16 * 16;
   p.k = p.q + (size_t)16 * groups * P * 2;
   p.v = p.k + rows * P * 2;
   const size_t kv_end = p.v + rows * P * 2;
@@ -191,6 +223,30 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
+}
+
+// The same, reading only the first n bytes of src and zero-filling the rest.
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_n(void* dst, const void* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(n)
+               : "memory");
+}
+
+// n bytes (a multiple of 16; src and dst 16-byte aligned) by the async copy
+// unit, which reports them to `bar` as they land (the barrier's phase waits
+// for them once mbar_expect_tx has counted them in).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int n, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(n), "r"(smem_addr(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -209,6 +265,12 @@ __device__ __forceinline__ void cp_async_wait(int n) {
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
                : "memory");
 }
 
@@ -293,31 +355,52 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-// A bias element as float32, whatever its stored type.
+// A bias element as float32, whatever its stored type, and two adjacent ones.
 __device__ __forceinline__ float bias_f32(const float* p) { return *p; }
 __device__ __forceinline__ float bias_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float2 bias_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 bias_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
 
-// Where a thread's scores find their bias: bias_s (fp32 in shared memory,
-// -inf past S) when the bias is one row for every query of the (b, h) and K
-// and V are resident; else rows r0 (the thread's row g) and r1 (row g + 8) in
-// device memory, key `key` at r[key * ss].
+// Rows 0..rows-1 of one tile of the bias, keys 0..keys-1 (row r's key c at
+// src[r * st + c * ss]), into rows of `pitch` elements as stored, by the
+// lanes of the producer warps, `chunk` bytes a copy: 16 (ss = 1, every row
+// on a 16-byte boundary), 4 (a float32 key, or two bfloat16 keys with ss = 1
+// on a 4-byte boundary) or 0 (a plain load of one key). A copy that reaches
+// past key `keys` reads the keys before it and zero-fills the rest.
 template <typename BT>
-struct BiasRows {
-  const float* bias_s;
-  const BT* r0;
-  const BT* r1;
-  int ss;  // (S - 1) * ss fits an int (launch checks): a register fewer; d = 128 spilled
-};
+__device__ __forceinline__ void copy_bias(BT* dst, int pitch, const BT* src, long long st, int ss,
+                                          int rows, int keys, int chunk, int lane) {
+  const int per = chunk ? chunk / (int)sizeof(BT) : 1;  // keys a copy
+  const int n = (keys + per - 1) / per;                  // copies a row
+  for (int e = lane; e < rows * n; e += 32 * PRODUCERS) {
+    const int r = e / n, c = (e - r * n) * per;
+    BT* d = dst + r * pitch + c;
+    const BT* from = src + r * st + c * ss;
+    const int bytes = min(per, keys - c) * (int)sizeof(BT);
+    if (chunk == 16)
+      cp_async16_n(d, from, bytes);
+    else if (chunk == 4)
+      cp_async4_n(d, from, bytes);
+    else
+      *d = *from;
+  }
+}
 
 // s[j] = q . K^T for the warp's 16 rows and keys key0 + 8j .. + 7 (k_c: the
-// chunk's first K row in shared memory), plus the bias; keys past S are
-// -inf. The bias is read after the products and added as it lands: read
-// before them, it held 8 more registers across them, and the d = 128
-// instantiations spilled.
-template <int D, typename BT>
+// chunk's first K row in shared memory), plus the bias from shared memory:
+// `staged` (fp32, -inf past S) when the bias is one row per (b, h)
+// (kStaged), else `bt`, the thread's row g at the chunk's key 2t in its
+// tile's place (row g + 8 lies 8 pitches on); keys past S are -inf. The
+// bias is read after the products: read before them, it held 8 more
+// registers across them, and the d = 128 instantiations spilled.
+template <int D, bool kStaged, typename BT>
 __device__ __forceinline__ void scores(float (&s)[2][4], const uint32_t (&qf)[D / 16][4],
-                                       const __nv_bfloat16* k_c, const BiasRows<BT>& br,
-                                       int key0, int S, int lane) {
+                                       const __nv_bfloat16* k_c, const float* staged,
+                                       const BT* bt, int pitch, int key0, int S, int lane) {
   // ldmatrix x4: keys 0-7 / dims 0-7, keys 0-7 / dims 8-15, keys 8-15 / ...
   const __nv_bfloat16* kaddr =
       k_c + ((lane & 7) + 8 * (lane >> 4)) * (D + 8) + 8 * ((lane >> 3) & 1);
@@ -337,20 +420,19 @@ __device__ __forceinline__ void scores(float (&s)[2][4], const uint32_t (&qf)[D 
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int key = key0 + 8 * j + 2 * t;
-    if (br.bias_s) {
-      const float2 b = *reinterpret_cast<const float2*>(br.bias_s + key);
-      s[j][0] += b.x;
-      s[j][1] += b.y;
-      s[j][2] += b.x;
-      s[j][3] += b.y;
+    float2 b0, b1;
+    if constexpr (kStaged) {
+      b0 = b1 = *reinterpret_cast<const float2*>(staged + key);
     } else {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = key + e < S;
-        s[j][e] += ok ? bias_f32(br.r0 + (key + e) * br.ss) : -INFINITY;
-        s[j][2 + e] += ok ? bias_f32(br.r1 + (key + e) * br.ss) : -INFINITY;
-      }
+      b0 = bias_pair(bt + 8 * j);
+      b1 = bias_pair(bt + 8 * pitch + 8 * j);
+      if (key >= S) b0.x = b1.x = -INFINITY;
+      if (key + 1 >= S) b0.y = b1.y = -INFINITY;
     }
+    s[j][0] += b0.x;
+    s[j][1] += b0.y;
+    s[j][2] += b1.x;
+    s[j][3] += b1.y;
   }
 }
 
@@ -364,7 +446,7 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
                                   const BT* __restrict__ bias, long long sb, long long sh,
                                   long long st, long long ss,
                                   __nv_bfloat16* __restrict__ out, int H, int T, int S,
-                                  bool resident) {
+                                  bool resident, int place, int chunk) {
   constexpr int P = D + 8;
   constexpr int NT = D / 8;  // 8-column output tiles
   extern __shared__ __align__(16) unsigned char smem[];
@@ -372,16 +454,19 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
   const int groups = (blockDim.x - 32 * PRODUCERS) / (32 * SHARES);
   const int consumers = 32 * SHARES * groups;
   const int tiles = (S + BK - 1) / BK;
-  const Plan pl = plan<D>(S, groups, resident);
+  const int G = 2 * tiles;  // copy groups: K's entries, then V's (resident) or K's with V's
+  const Plan pl = plan<D>(S, groups, resident, place, sizeof(BT));
   // Resident: full[g] for copy group g (K's entry g, then V's entry g -
-  // tiles). Streamed: full[g % RING] and empty[g % RING], once a lap.
+  // tiles). Streamed: full[g % RING]. Ringed (streamed, or a bias in ring
+  // slots): empty[g % RING] too, once a lap.
+  const bool ringed = !resident || place == RINGED;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* empty = full + RING;
+  uint64_t* empty = full + (resident ? G : RING);
   float2* stats = reinterpret_cast<float2*>(smem + pl.stats);
-  // A bias of one row per (b, h) (K1's key bias: st = sh = 0) is staged in
-  // fp32 when K and V are resident; any other is read from device memory.
-  const bool staged = resident && st == 0 && sh == 0;
-  float* bias_s = staged ? reinterpret_cast<float*>(smem + pl.bias) : nullptr;
+  float* bias_s = reinterpret_cast<float*>(smem + pl.bias);  // STAGED
+  BT* bias_t = reinterpret_cast<BT*>(smem + pl.bias);        // WHOLE or RINGED
+  const int pitch = place == WHOLE ? whole_pitch(tiles) : BP;
+  const int slot_elems = 16 * groups * BP;  // a ring slot
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + pl.q);
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + pl.k);
   __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + pl.v);
@@ -398,17 +483,22 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
   // sequence (pass 1's tiles, then, streamed, pass 2's) and of V's (pass
   // 2's) is tile (e + rot) % tiles.
   const int rot = qt % tiles;
-  const int G = 2 * tiles;  // copy groups: K's entries, then V's (resident) or K's with V's
 
   // The producer warps (the last PRODUCERS): copy group g (q with K's
   // entry 0; K's entry g; then V's entry g - tiles, streamed with K's entry
-  // g), one cp.async group each; before group g goes out, group g - lag has
-  // landed and its barrier takes the producers' arrivals. Streamed, a group
-  // waits until the consumers are done with the group a lap before it in
-  // the same slots. The first PRE groups go out before the block's set-up
-  // barrier, so that their trip to memory overlaps the set-up.
+  // g; the bias's tile of the same entry, in pass 1 when it is kept whole
+  // (unless bulk copies take its rows), in every group when it is ringed),
+  // one cp.async group each; before
+  // group g goes out, group g - lag has landed and its barrier takes the
+  // producers' arrivals. Ringed, a group waits until the consumers are done
+  // with the group a lap before it in the same slots. The first PRE groups
+  // go out before the block's set-up barrier, so that their trip to memory
+  // overlaps the set-up.
   const bool producer = tid >= consumers;
   const int plane = tid - consumers;  // a producer's lane among the producer warps
+  // A bias kept whole whose rows are multiples of 16 bytes on 16-byte
+  // boundaries goes by bulk copies instead, a row each, counted by full[0].
+  const bool bulk = place == WHOLE && chunk == 16 && S * (int)sizeof(BT) % 16 == 0;
   auto issue = [&](int gi) {
     const __nv_bfloat16* kb = k + (size_t)bh * S * D;
     const __nv_bfloat16* vb = v + (size_t)bh * S * D;
@@ -423,6 +513,12 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
       copy_rows<D>(v_s + (resident ? tile : e % RING) * BK * P, vb + (size_t)tile * BK * D,
                    min(BK, S - tile * BK), plane);
     }
+    if (place == RINGED || (place == WHOLE && !bulk && gi < tiles)) {
+      const int tile = (gi % tiles + rot) % tiles;
+      copy_bias(bias_t + (place == WHOLE ? tile * BK : gi % RING * slot_elems), pitch,
+                bias_bh + q0 * st + tile * BK * ss, st, (int)ss, qrows,
+                min(BK, S - tile * BK), chunk, plane);
+    }
     cp_async_commit();
   };
   if (producer)
@@ -430,16 +526,23 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
 
   if (tid == 0) {
     for (int i = 0; i < (resident ? G : RING); ++i) mbar_init(&full[i], 32 * PRODUCERS);
-    if (!resident)
+    if (ringed)
       for (int i = 0; i < RING; ++i) mbar_init(&empty[i], consumers / 32);
+    if (bulk)  // the barriers, seen by the bulk copies' completions
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  // Rows no copy fills: q rows past T, and the rows past S that the last
-  // tile's chunks read, in its place (resident) or in its slot when it is
-  // the slot's first tile (streamed; else an earlier tile's finite values
-  // are there).
+  // Rows no copy fills: q's and the bias's rows past T (in every slot),
+  // and the rows past S that the last tile's chunks read, in its place
+  // (resident) or in its slot when it is the slot's first tile (streamed;
+  // else an earlier tile's finite values are there).
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   for (int e = tid; e < (16 * groups - qrows) * (D / 8); e += blockDim.x)
     *reinterpret_cast<uint4*>(q_s + (qrows + e / (D / 8)) * P + 8 * (e % (D / 8))) = zero;
+  if (place != STAGED) {
+    const int n = (16 * groups - qrows) * pitch * (int)sizeof(BT) / 16;  // uint4 a slot
+    for (int e = tid; e < (place == WHOLE ? 1 : RING) * n; e += blockDim.x)
+      reinterpret_cast<uint4*>(bias_t + e / n * slot_elems + qrows * pitch)[e % n] = zero;
+  }
   const int last = S - (tiles - 1) * BK, pad = (last + 15) / 16 * 16 - last;
   const int first = tiles - 1 - rot;  // the last tile's entry in the sequence
   if (resident || first < RING) {
@@ -450,12 +553,19 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
       *reinterpret_cast<uint4*>(v_s + off) = zero;
     }
   }
-  if (staged)  // the bias in fp32, -inf past S
+  if (place == STAGED)  // the bias in fp32, -inf past S
     for (int j = tid; j < S + pad; j += blockDim.x)
       bias_s[j] = j < S ? bias_f32(bias_bh + j * ss) : -INFINITY;
   __syncthreads();
 
   if (producer) {
+    if (bulk && plane < 32) {  // the bias's rows, by the first producer warp
+      const int bytes = S * (int)sizeof(BT);
+      if (plane == 0) mbar_expect_tx(&full[0], qrows * bytes);
+      __syncwarp();
+      for (int r = plane; r < qrows; r += 32)
+        bulk_copy(bias_t + r * pitch, bias_bh + (q0 + r) * st, bytes, &full[0]);
+    }
     // Streamed, at most RING - 1 groups run ahead of the one released, or
     // the producer would wait for a slot that the consumers free only after
     // that release.
@@ -467,7 +577,7 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
         mbar_arrive(&full[resident ? done : done % RING]);
       }
       if (gi < G) {
-        if (!resident && gi >= RING) mbar_wait(&empty[gi % RING], (gi / RING - 1) & 1);
+        if (ringed && gi >= RING) mbar_wait(&empty[gi % RING], (gi / RING - 1) & 1);
         issue(gi);
       }
     }
@@ -476,135 +586,150 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
 
   const int group = warp / SHARES, share = warp % SHARES;
   const int g = lane / 4, t = lane % 4;
-  // this thread's rows g and g + 8 of the group; a row past T reads row T - 1
-  // (its output is never written)
+  // this thread's rows g and g + 8 of the group (their output is written
+  // where they are below T)
   const int ra = q0 + 16 * group + g, rb = ra + 8;
-  const BiasRows<BT> br = {bias_s, bias_bh + min(ra, T - 1) * st, bias_bh + min(rb, T - 1) * st,
-                           (int)ss};
+  // the bias of the thread's row g at the chunk's key 2t in the place of
+  // entry gi of tile `tile` (unless staged)
+  const BT* bt0 = bias_t + (16 * group + g) * pitch + 16 * share + 2 * t;
+  auto bias_of = [&](int tile, int gi) {
+    return bt0 + (place == WHOLE ? tile * BK : gi % RING * slot_elems);
+  };
   auto wait_group_of = [&](int gi) {
     mbar_wait(&full[resident ? gi : gi % RING], resident ? 0 : (gi / RING) & 1);
   };
-  auto release = [&](int gi) {  // streamed: this warp is done with group gi's slots
-    if (!resident) {
+  auto release = [&](int gi) {  // ringed: this warp is done with group gi's slots
+    if (ringed) {
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[gi % RING]);
     }
   };
 
-  // The warp's q fragments (A of m16n8k16), by ldmatrix x4: rows 0-7 / 8-15
-  // of the group's 16, columns 0-7 / 8-15 of each 16-column step.
-  wait_group_of(0);
-  uint32_t qf[D / 16][4];
-  const __nv_bfloat16* qaddr = q_s + (16 * group + (lane & 15)) * P + 8 * (lane >> 4);
+  // The consumers' work, compiled twice: with the staged row's reads, or
+  // with the reads of the bias's rows in their places.
+  auto consume = [&](auto staged_tag) {
+    constexpr bool kStaged = decltype(staged_tag)::value;
+    // The warp's q fragments (A of m16n8k16), by ldmatrix x4: rows 0-7 / 8-15
+    // of the group's 16, columns 0-7 / 8-15 of each 16-column step.
+    wait_group_of(0);
+    uint32_t qf[D / 16][4];
+    const __nv_bfloat16* qaddr = q_s + (16 * group + (lane & 15)) * P + 8 * (lane >> 4);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], qaddr + 16 * kk);
+    for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], qaddr + 16 * kk);
 
-  // Pass 1: the max m and the sum l of exp(s - m) over the warp's keys, per
-  // row (g for r = 0, g + 8 for r = 1). A thread keeps the sum of its own
-  // keys; the quad's four are added at the end.
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int i = 0, tile = rot; i < tiles; ++i, tile = tile + 1 == tiles ? 0 : tile + 1) {
-    wait_group_of(i);
-    const int key0 = tile * BK + 16 * share;
-    if (key0 < S) {
-      const int slot = resident ? tile : i % RING;
-      float s[2][4];
-      scores<D>(s, qf, k_s + (slot * BK + 16 * share) * P, br, key0, S, lane);
+    // Pass 1: the max m and the sum l of exp(s - m) over the warp's keys, per
+    // row (g for r = 0, g + 8 for r = 1). A thread keeps the sum of its own
+    // keys; the quad's four are added at the end.
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int i = 0, tile = rot; i < tiles; ++i, tile = tile + 1 == tiles ? 0 : tile + 1) {
+      wait_group_of(i);
+      const int key0 = tile * BK + 16 * share;
+      if (key0 < S) {
+        const int slot = resident ? tile : i % RING;
+        float s[2][4];
+        scores<D, kStaged>(s, qf, k_s + (slot * BK + 16 * share) * P, bias_s, bias_of(tile, i),
+                           pitch, key0, S, lane);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float n = fmaxf(m[r], quad_max(fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
-                                                   fmaxf(s[1][2 * r], s[1][2 * r + 1]))));
-        // n is -inf while every key the warp has seen of this row has bias
-        // -inf: shift by 0 then, so that no exp(-inf - -inf) arises
-        const float z = n == -INFINITY ? 0.f : n;
-        l[r] = l[r] * exp_from(m[r], z) + exp_from(s[0][2 * r], z) +
-               exp_from(s[0][2 * r + 1], z) + exp_from(s[1][2 * r], z) +
-               exp_from(s[1][2 * r + 1], z);
-        m[r] = n;
+        for (int r = 0; r < 2; ++r) {
+          const float n = fmaxf(m[r], quad_max(fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                                     fmaxf(s[1][2 * r], s[1][2 * r + 1]))));
+          // n is -inf while every key the warp has seen of this row has bias
+          // -inf: shift by 0 then, so that no exp(-inf - -inf) arises
+          const float z = n == -INFINITY ? 0.f : n;
+          l[r] = l[r] * exp_from(m[r], z) + exp_from(s[0][2 * r], z) +
+                 exp_from(s[0][2 * r + 1], z) + exp_from(s[1][2 * r], z) +
+                 exp_from(s[1][2 * r + 1], z);
+          m[r] = n;
+        }
       }
+      release(i);
     }
-    release(i);
-  }
 
-  // The row group's M and L over its four warps, in warp order. A warp that
-  // saw no key has m = -inf and l = 0, and adds 0.
+    // The row group's M and L over its four warps, in warp order. A warp that
+    // saw no key has m = -inf and l = 0, and adds 0.
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float sum = quad_sum(l[r]);
-    if (t == 0) stats[(group * SHARES + share) * 16 + g + 8 * r] = make_float2(m[r], sum);
-  }
-  consumers_sync(consumers);
-  float M[2], R[2];  // the row's max and the reciprocal of its sum
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float top = -INFINITY, sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < SHARES; ++w)
-      top = fmaxf(top, stats[(group * SHARES + w) * 16 + g + 8 * r].x);
-#pragma unroll
-    for (int w = 0; w < SHARES; ++w) {
-      const float2 a = stats[(group * SHARES + w) * 16 + g + 8 * r];
-      sum += a.y * exp_from(a.x, top);
+    for (int r = 0; r < 2; ++r) {
+      const float sum = quad_sum(l[r]);
+      if (t == 0) stats[(group * SHARES + share) * 16 + g + 8 * r] = make_float2(m[r], sum);
     }
-    M[r] = top;
-    R[r] = 1.f / sum;
-  }
-
-  // Pass 2: P = bf16(exp(s - M) * (1 / L)), acc += P . V over the warp's keys.
-  float acc[NT][4];
+    consumers_sync(consumers);
+    float M[2], R[2];  // the row's max and the reciprocal of its sum
 #pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int i = 0, tile = rot; i < tiles; ++i, tile = tile + 1 == tiles ? 0 : tile + 1) {
-    wait_group_of(tiles + i);  // resident: V's entry i (K is still in place); streamed: both
-    const int key0 = tile * BK + 16 * share;
-    if (key0 < S) {
-      const int kslot = resident ? tile : (tiles + i) % RING, vslot = resident ? tile : i % RING;
-      float s[2][4];
-      scores<D>(s, qf, k_s + (kslot * BK + 16 * share) * P, br, key0, S, lane);
-      const uint32_t p[4] = {
-          pack_bf16(exp_from(s[0][0], M[0]) * R[0], exp_from(s[0][1], M[0]) * R[0]),
-          pack_bf16(exp_from(s[0][2], M[1]) * R[1], exp_from(s[0][3], M[1]) * R[1]),
-          pack_bf16(exp_from(s[1][0], M[0]) * R[0], exp_from(s[1][1], M[0]) * R[0]),
-          pack_bf16(exp_from(s[1][2], M[1]) * R[1], exp_from(s[1][3], M[1]) * R[1])};
-      // ldmatrix x4.trans: keys 0-7 / 8-15 of the chunk, columns 8n.. / 8(n+1)..
-      const __nv_bfloat16* vaddr =
-          v_s + (vslot * BK + 16 * share + (lane & 15)) * P + 8 * (lane >> 4);
+    for (int r = 0; r < 2; ++r) {
+      float top = -INFINITY, sum = 0.f;
 #pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t bv[4];
-        ldsm_x4_trans(bv, vaddr + 8 * n);
-        mma_bf16(acc[n], p, bv[0], bv[1]);
-        mma_bf16(acc[n + 1], p, bv[2], bv[3]);
+      for (int w = 0; w < SHARES; ++w)
+        top = fmaxf(top, stats[(group * SHARES + w) * 16 + g + 8 * r].x);
+#pragma unroll
+      for (int w = 0; w < SHARES; ++w) {
+        const float2 a = stats[(group * SHARES + w) * 16 + g + 8 * r];
+        sum += a.y * exp_from(a.x, top);
       }
+      M[r] = top;
+      R[r] = 1.f / sum;
     }
-    release(tiles + i);
-  }
 
-  // The four warps' partial sums, added in fp32 in warp order through the
-  // space K and V held; warp `share` of the group writes output tiles
-  // share, share + 4, ...
-  consumers_sync(consumers);
-  float4* part = reinterpret_cast<float4*>(k_s);
+    // Pass 2: P = bf16(exp(s - M) * (1 / L)), acc += P . V over the warp's keys.
+    float acc[NT][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-    part[((group * SHARES + share) * NT + n) * 32 + lane] =
-        make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
-  consumers_sync(consumers);
-  __nv_bfloat16* ob = out + (size_t)bh * T * D;
-  for (int n = share; n < NT; n += SHARES) {
-    float4 a = part[(group * SHARES * NT + n) * 32 + lane];
+    for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    for (int i = 0, tile = rot; i < tiles; ++i, tile = tile + 1 == tiles ? 0 : tile + 1) {
+      wait_group_of(tiles + i);  // resident: V's entry i (K is still in place); streamed: both
+      const int key0 = tile * BK + 16 * share;
+      if (key0 < S) {
+        const int kslot = resident ? tile : (tiles + i) % RING, vslot = resident ? tile : i % RING;
+        float s[2][4];
+        scores<D, kStaged>(s, qf, k_s + (kslot * BK + 16 * share) * P, bias_s,
+                           bias_of(tile, tiles + i), pitch, key0, S, lane);
+        const uint32_t p[4] = {
+            pack_bf16(exp_from(s[0][0], M[0]) * R[0], exp_from(s[0][1], M[0]) * R[0]),
+            pack_bf16(exp_from(s[0][2], M[1]) * R[1], exp_from(s[0][3], M[1]) * R[1]),
+            pack_bf16(exp_from(s[1][0], M[0]) * R[0], exp_from(s[1][1], M[0]) * R[0]),
+            pack_bf16(exp_from(s[1][2], M[1]) * R[1], exp_from(s[1][3], M[1]) * R[1])};
+        // ldmatrix x4.trans: keys 0-7 / 8-15 of the chunk, columns 8n.. / 8(n+1)..
+        const __nv_bfloat16* vaddr =
+            v_s + (vslot * BK + 16 * share + (lane & 15)) * P + 8 * (lane >> 4);
 #pragma unroll
-    for (int w = 1; w < SHARES; ++w) {
-      const float4 c = part[((group * SHARES + w) * NT + n) * 32 + lane];
-      a.x += c.x;
-      a.y += c.y;
-      a.z += c.z;
-      a.w += c.w;
+        for (int n = 0; n < NT; n += 2) {
+          uint32_t bv[4];
+          ldsm_x4_trans(bv, vaddr + 8 * n);
+          mma_bf16(acc[n], p, bv[0], bv[1]);
+          mma_bf16(acc[n + 1], p, bv[2], bv[3]);
+        }
+      }
+      release(tiles + i);
     }
-    const int col = 8 * n + 2 * t;
-    if (ra < T) *reinterpret_cast<uint32_t*>(ob + (size_t)ra * D + col) = pack_bf16(a.x, a.y);
-    if (rb < T) *reinterpret_cast<uint32_t*>(ob + (size_t)rb * D + col) = pack_bf16(a.z, a.w);
-  }
+
+    // The four warps' partial sums, added in fp32 in warp order through the
+    // space K and V held; warp `share` of the group writes output tiles
+    // share, share + 4, ...
+    consumers_sync(consumers);
+    float4* part = reinterpret_cast<float4*>(k_s);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      part[((group * SHARES + share) * NT + n) * 32 + lane] =
+          make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+    consumers_sync(consumers);
+    __nv_bfloat16* ob = out + (size_t)bh * T * D;
+    for (int n = share; n < NT; n += SHARES) {
+      float4 a = part[(group * SHARES * NT + n) * 32 + lane];
+#pragma unroll
+      for (int w = 1; w < SHARES; ++w) {
+        const float4 c = part[((group * SHARES + w) * NT + n) * 32 + lane];
+        a.x += c.x;
+        a.y += c.y;
+        a.z += c.z;
+        a.w += c.w;
+      }
+      const int col = 8 * n + 2 * t;
+      if (ra < T) *reinterpret_cast<uint32_t*>(ob + (size_t)ra * D + col) = pack_bf16(a.x, a.y);
+      if (rb < T) *reinterpret_cast<uint32_t*>(ob + (size_t)rb * D + col) = pack_bf16(a.z, a.w);
+    }
+  };
+  if (place == STAGED)
+    consume(std::true_type{});
+  else
+    consume(std::false_type{});
 }
 
 // Read once per device: 0 until set, then 1 + the setter's cudaError_t.
@@ -621,18 +746,39 @@ cudaError_t raise_smem_limit(int dev) {
   return (cudaError_t)(val - 1);
 }
 
+// Where a launch's K, V and bias lie, and the shared memory that takes, the
+// first that fits of: K and V resident with the bias staged (one row per
+// (b, h)) or kept whole; K and V resident with the bias ringed; K and V
+// streamed with the bias staged or ringed; all three streamed (which always
+// fits: a staged row of a long S does not).
+struct Layout {
+  bool resident;
+  int place;
+  size_t bytes;
+};
+
+template <int D>
+Layout layout(int S, int groups, bool staged, int esize) {
+  const int whole = staged ? STAGED : WHOLE, ring = staged ? STAGED : RINGED;
+  const Layout tries[] = {{true, whole, 0}, {true, ring, 0}, {false, ring, 0}};
+  for (Layout lay : tries) {
+    lay.bytes = plan<D>(S, groups, lay.resident, lay.place, esize).bytes;
+    if (lay.bytes <= (size_t)SMEM_MAX) return lay;
+  }
+  return {false, RINGED, plan<D>(S, groups, false, RINGED, esize).bytes};
+}
+
 // The block's row groups (1 to 4: 16 to 64 query rows) that take the least
 // waves * (rows + 8192 / S): a block's set-up and first trip to memory cost
 // about as much as 8192 / S rows of work, and fewer rows a block make more
 // blocks, maybe another wave. A wave is as many blocks as fit on the SMs by
-// shared memory and threads.
+// shared memory (the bias's included) and threads.
 template <int D>
-int pick_groups(int B, int H, int T, int S, int sms) {
+int pick_groups(int B, int H, int T, int S, bool staged, int esize, int sms) {
   int best = 1;
   long long best_cost = -1;
   for (int groups = 1; groups <= max_groups<D>(); ++groups) {
-    const bool resident = plan<D>(S, groups, true).bytes <= (size_t)SMEM_MAX;
-    const long long bytes = (long long)plan<D>(S, groups, resident).bytes;
+    const long long bytes = (long long)layout<D>(S, groups, staged, esize).bytes;
     const int threads = 32 * (SHARES * groups + PRODUCERS);
     const long long fit = std::max(1LL, std::min(233472 / (bytes + 1024), 2048LL / threads));
     const long long blocks = (long long)((T + 16 * groups - 1) / (16 * groups)) * B * H;
@@ -649,6 +795,22 @@ struct Bias {
   long long sb, sh, st, ss;
 };
 
+// The bytes a producer lane copies of the bias at once (copy_bias): 16 where
+// the keys are adjacent and every row starts on a 16-byte boundary; else 4
+// where that holds whole keys (a float32 key anywhere; two adjacent bfloat16
+// keys on a 4-byte boundary); else 0, a plain load of each key.
+template <typename BT>
+int copy_chunk(const Bias<BT>& bias) {
+  const long long e = sizeof(BT);
+  auto rows_on = [&](long long a) {
+    return (uintptr_t)bias.p % a == 0 && bias.sb * e % a == 0 && bias.sh * e % a == 0 &&
+           bias.st * e % a == 0;
+  };
+  if (bias.ss == 1 && rows_on(16)) return 16;
+  if (e == 4 ? rows_on(4) : bias.ss == 1 && rows_on(4)) return 4;
+  return 0;
+}
+
 template <int D, typename BT>
 cudaError_t launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                      const Bias<BT>& bias, __nv_bfloat16* out, int B, int H, int T, int S,
@@ -661,13 +823,15 @@ cudaError_t launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int groups = pick_groups<D>(B, H, T, S, sms);
-  const bool resident = plan<D>(S, groups, true).bytes <= (size_t)SMEM_MAX;
+  const bool staged = bias.st == 0;
+  const int groups = pick_groups<D>(B, H, T, S, staged, sizeof(BT), sms);
+  const Layout lay = layout<D>(S, groups, staged, sizeof(BT));
   const long long blocks = (long long)((T + 16 * groups - 1) / (16 * groups)) * B * H;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  keybias_attention_bf16_kernel<D, BT><<<(unsigned)blocks, 32 * (SHARES * groups + PRODUCERS),
-                                         plan<D>(S, groups, resident).bytes, stream>>>(
-      q, k, v, bias.p, bias.sb, bias.sh, bias.st, bias.ss, out, H, T, S, resident);
+  keybias_attention_bf16_kernel<D, BT>
+      <<<(unsigned)blocks, 32 * (SHARES * groups + PRODUCERS), lay.bytes, stream>>>(
+          q, k, v, bias.p, bias.sb, bias.sh, bias.st, bias.ss, out, H, T, S, lay.resident,
+          lay.place, copy_chunk(bias));
   return cudaGetLastError();
 }
 

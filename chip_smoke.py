@@ -843,6 +843,27 @@ def _zero_counts(kb, kba) -> None:
     kb.launches = kb.launches_bf16 = kba.launches = kba.launches_bf16 = 0
 
 
+# K3 bf16's shapes on the FaceFormer family's bf16 forwards: name, B, H, T = S, d, bias
+K3_BF16_CASES = (("forward_self_HTT", 1, 4, 600, 32, "HTT"), ("forward_cross_TS", 1, 4, 600, 32, "TS"),
+                 ("train_self_HTT", 16, 4, 25, 32, "HTT"), ("vert_self_HTT_d16", 4, 4, 100, 16, "HTT"))
+
+
+def k3_bf16_inputs(B, H, T, d, kind, g):
+    """bfloat16 q (scaled by d^-1/2), k and v of (B, H, T, d) and the
+    decoder's float32 (H, T, T) bias ("HTT", period 25) or (T, S) alignment
+    bias ("TS"), S = T, on the card."""
+    import torch
+
+    from avi_talking_tpu_torch.ops.positional import enc_dec_alignment_bias, faceformer_bias
+
+    q = (torch.randn(B, H, T, d, device="cuda", generator=g) * d ** -0.5).bfloat16()
+    k = torch.randn(B, H, T, d, device="cuda", generator=g).bfloat16()
+    v = torch.randn(B, H, T, d, device="cuda", generator=g).bfloat16()
+    bias = (faceformer_bias(H, T, 25, device="cuda") if kind == "HTT"
+            else enc_dec_alignment_bias(T, T, device="cuda"))
+    return q, k, v, bias
+
+
 def bias_attention_bf16_row(name, B, H, T, d, kind, peaks, g):
     """K3's bfloat16 entry against its plain version on bfloat16 q, k, v
     (B, H, T, d), S = T, with the decoder's float32 (H, T, T) bias ("HTT",
@@ -858,14 +879,9 @@ def bias_attention_bf16_row(name, B, H, T, d, kind, peaks, g):
 
     from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
     from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
-    from avi_talking_tpu_torch.ops.positional import enc_dec_alignment_bias, faceformer_bias
 
     S = T
-    q = (torch.randn(B, H, T, d, device="cuda", generator=g) * d ** -0.5).bfloat16()
-    k = torch.randn(B, H, S, d, device="cuda", generator=g).bfloat16()
-    v = torch.randn(B, H, S, d, device="cuda", generator=g).bfloat16()
-    bias = (faceformer_bias(H, T, 25, device="cuda") if kind == "HTT"
-            else enc_dec_alignment_bias(T, S, device="cuda"))
+    q, k, v, bias = k3_bf16_inputs(B, H, T, d, kind, g)
     before = (kba.launches, kba.launches_bf16)
     out = kba.fused_bias_attention(q, k, v, bias)
     torch.cuda.synchronize()
@@ -907,8 +923,11 @@ def attention_contract_rows(kb, kba):
     bias of the other dtype (K1 and K3 at bfloat16 with a float32 bias, at
     float32 with a bfloat16 one). Float32 entries within 1e-5 of the plain
     version, bfloat16 ones within ``kb.bf16_disagreement``; each call counted
-    on its own entry. The d=8 and B*H cases are timed (wrapper and device)."""
+    on its own entry. The d=8 and B*H cases are timed (wrapper and device),
+    with scaled_dot_product_attention beside them on the same inputs (the
+    bias as its float mask)."""
     import torch
+    import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(11)
     entries = {  # name: (wrapper, plain version, q's dtype, the counter it moves)
@@ -963,9 +982,15 @@ def attention_contract_rows(kb, kba):
             if case in ("d8", "bh_65544"):
                 kernel_name = ("keybias_attention_bf16_kernel" if dt == torch.bfloat16
                                else "bias_attention_kernel")
+                mask = bias[:, None, None, :] if entry.startswith("keybias") else bias[None]
+
+                def library():
+                    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+
                 row.update({"ms": time_ms(lambda: fn(q, k, v, bias)),
                             "device_ms": device_ms(lambda: fn(q, k, v, bias), kernel_name),
-                            "plain_ms": time_ms(lambda: plain(q, k, v, bias), iters=3, reps=3)})
+                            "plain_ms": time_ms(lambda: plain(q, k, v, bias), iters=3, reps=3),
+                            "library_ms": time_ms(library), "library_device_ms": device_ms(library)})
             rows.append(row)
             del q, k, v, bias, out, ref
     emit({"phase": "attention_contract", "rows": rows})
@@ -1091,10 +1116,8 @@ def phase_faceformer_bf16(kb, kba, peaks):
     from avi_talking_tpu_torch.models.faceformer_vert import FaceFormerVertConfig
 
     g = torch.Generator(device="cuda").manual_seed(13)
-    k3_cases = (("forward_self_HTT", 1, 4, 600, 32, "HTT"), ("forward_cross_TS", 1, 4, 600, 32, "TS"),
-                ("train_self_HTT", 16, 4, 25, 32, "HTT"), ("vert_self_HTT_d16", 4, 4, 100, 16, "HTT"))
     k3_rows = [bias_attention_bf16_row(name, B, H, T, d, kind, peaks, g)
-               for name, B, H, T, d, kind in k3_cases]
+               for name, B, H, T, d, kind in K3_BF16_CASES]
     contract = attention_contract_rows(kb, kba)
     bf16, fp32 = torch.bfloat16, torch.float32
 

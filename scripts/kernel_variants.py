@@ -65,10 +65,17 @@ def build_variants(source: str, entry: str, argtypes, variants: dict, names) -> 
         print(json.dumps({"variant": name, "ptxas": [
             line.strip() for line in log.splitlines() if "Used" in line or "spill" in line]}),
             flush=True)
-        fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"lib{source}_{name}.so")), entry)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[name] = fn
+        fns[name] = bind(source, name, entry, argtypes)
     return fns
+
+
+def bind(source: str, name: str, entry: str, argtypes):
+    """The C entry ``entry`` of variant ``name`` of csrc/<source>.cu, once
+    build_variants has built it."""
+    lib = os.path.join(ROOT, "build", "variants", f"lib{source}_{name}.so")
+    fn = getattr(ctypes.CDLL(lib), entry)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
 
 
 def in_turns(fns: dict, measure, rounds: int = 2) -> dict:

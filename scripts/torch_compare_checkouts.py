@@ -10,7 +10,9 @@ the port from that side's root and builds its kernels there, then measures:
 
 * K1 / K3 at chip_smoke.py's kernel-check shapes, K1's bfloat16 entry at
   its bf16 kernel-check shapes (chip_smoke.BF16_CASES, the generate path's
-  four; keys ``bf16_<case>``), and K2 at its three
+  four; keys ``bf16_<case>``), K3's bfloat16 entry at the FaceFormer
+  family's (chip_smoke.K3_BF16_CASES, the float32 (H, T, T) and (T, S)
+  biases; keys ``bf16_k3_<case>``), and K2 at its three
   visibility shapes (chip_smoke.visibility_cases: the render path's launch
   on the 8 s clip's frames, the head mesh at 256^2 / tile 32 and 224^2 /
   tile 56): CUDA-event ms around the wrapper and the kernel's device ms
@@ -24,8 +26,9 @@ the port from that side's root and builds its kernels there, then measures:
   mean of 25 after 3 warm-up steps).
 
 With ``--kernels`` a side times the kernels only. Each side prints one
-JSON line; the last lines give every metric's values per side, in run
-order, and the card's name and power limit. The helpers
+JSON line and saves its K3 bfloat16 outputs under build/compare_outputs/;
+the last lines give every metric's values per side, in run order, the max
+|A - B| of those outputs per case, and the card's name and power limit. The helpers
 (timers, inputs, seeded models) are this checkout's chip_smoke.py for both
 sides, so both are measured the same way.
 """
@@ -36,6 +39,7 @@ import argparse
 import importlib.util
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -43,6 +47,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+OUTPUTS = os.path.join(ROOT, "build", "compare_outputs")  # each side's K3 bf16 outputs
 
 CASES = [  # chip_smoke.py's kernel_check shapes: name, B, H, T=S, d, bias
     ("generate", 1, 12, 200, 64, "key"), ("batch_512", 2, 12, 512, 64, "key"),
@@ -98,6 +103,17 @@ def side(root: str, label: str, kernels_only: bool) -> dict:
             return kb.keybias_attention(qb, kb16, vb, biasb)
 
         result["kernels"][f"bf16_{case}"] = {
+            "ms": cs.time_ms(fn), "device_ms": cs.device_ms(fn, "keybias_attention_bf16_kernel")}
+    gb = torch.Generator(device="cuda").manual_seed(13)
+    os.makedirs(OUTPUTS, exist_ok=True)
+    for case, B, H, T, d, kind in cs.K3_BF16_CASES:
+        qb, kb16, vb, biasb = cs.k3_bf16_inputs(B, H, T, d, kind, gb)
+
+        def fn():
+            return kba.fused_bias_attention(qb, kb16, vb, biasb)
+
+        torch.save(fn().cpu(), os.path.join(OUTPUTS, f"{label}_bf16_k3_{case}.pt"))
+        result["kernels"][f"bf16_k3_{case}"] = {
             "ms": cs.time_ms(fn), "device_ms": cs.device_ms(fn, "keybias_attention_bf16_kernel")}
 
     assets = synthetic_assets(num_vertices=5023, n_shape=300, n_exp=50, num_faces=9976)
@@ -173,6 +189,7 @@ def main() -> int:
         print("torch_compare_checkouts: no CUDA device", file=sys.stderr)
         return 2
     roots = {"A": os.path.abspath(args.other_root), "B": ROOT}
+    shutil.rmtree(OUTPUTS, ignore_errors=True)
     runs = []
     for label in args.order:
         cmd = [sys.executable, os.path.abspath(__file__), "--side", roots[label], label]
@@ -197,6 +214,13 @@ def main() -> int:
                 summary.setdefault(f"{key}.mean", {}).setdefault(r["side"], []).append(
                     statistics.mean(r[key]))
     print(json.dumps({"summary": summary, "order": args.order, "A": roots["A"], "B": roots["B"]}))
+    if {"A", "B"} <= set(args.order):
+        diff = {}
+        for name in sorted(os.listdir(OUTPUTS)):
+            if name.startswith("A_"):
+                a, b = (torch.load(os.path.join(OUTPUTS, x + name[1:])).float() for x in "AB")
+                diff[name[2:-3]] = float((a - b).abs().max())
+        print(json.dumps({"max_abs_diff_A_B": diff}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])

@@ -43,6 +43,7 @@ from avi_talking_tpu_torch.models import brain as tbrain
 from avi_talking_tpu_torch.models import clip_text as tclip
 from avi_talking_tpu_torch.models import emote as temote
 from avi_talking_tpu_torch.models import prior_transformer as tprior
+from avi_talking_tpu_torch.ops.kernels import bias_attention as kba
 from avi_talking_tpu_torch.ops.kernels import keybias_attention as kb
 from avi_talking_tpu_torch.ops.layers import Linear
 from avi_talking_tpu_torch.pipeline import generate as tgen
@@ -158,14 +159,14 @@ def _key_split_kernel(s, v):
 
 
 def _emulated_kernel(q, k, v, bias, variant):
-    """K1 at bfloat16 computed another way on the CPU: ``reordered`` with
+    """The bfloat16 kernel (K1's or K3's entry; ``bias`` broadcastable to
+    (B, H, T, S)) computed another way on the CPU: ``reordered`` with
     the plain version's rounding points but its sums in float64 (what a
     correct kernel may differ by), ``key_split`` in the card kernel's order
     (``_key_split_kernel``), ``one_pass`` rounding the unnormalised
     exponentials and dividing at the end, ``misnormalised`` with P 1% too
     large."""
-    s = (torch.einsum("bhtd,bhsd->bhts", q.double(), k.double())
-         + bias.double()[:, None, None, :]).float()
+    s = (torch.einsum("bhtd,bhsd->bhts", q.double(), k.double()) + bias.double()).float()
     if variant == "key_split":
         return _key_split_kernel(s, v)
     e = torch.exp(s - s.amax(-1, keepdim=True))
@@ -177,21 +178,42 @@ def _emulated_kernel(q, k, v, bias, variant):
     return torch.einsum("bhts,bhsd->bhtd", p.double(), v.double()).float().bfloat16()
 
 
-@pytest.mark.parametrize("variant,passes", [("reordered", True), ("key_split", True),
-                                            ("one_pass", False), ("misnormalised", False)])
-def test_bf16_kernel_limit_separates_a_wrong_kernel(variant, passes):
+def _general_bias(shape, g):
+    """A float32 bias of ``shape`` (K3's (H, T, T) or (T, S)): normal values
+    with a fifth of them -1e9, scattered."""
+    bias = torch.randn(*shape, generator=g)
+    return torch.where(torch.rand(*shape, generator=g) < 0.2, -1e9, bias)
+
+
+@pytest.mark.parametrize("variant,passes,bias_kind", [
+    pytest.param(variant, passes, "key", id=f"{variant}-{passes}")
+    for variant, passes in (("reordered", True), ("key_split", True), ("one_pass", False),
+                            ("misnormalised", False))] + [
+    pytest.param(variant, passes, kind, id=f"{kind}-{variant}-{passes}")
+    for kind in ("HTT", "TS")
+    for variant, passes in (("key_split", True), ("one_pass", False), ("misnormalised", False))])
+def test_bf16_kernel_limit_separates_a_wrong_kernel(variant, passes, bias_kind):
     """``kb.bf16_disagreement``, which holds the bfloat16 kernel to its
-    plain version on the card, at the generate shape (B=1, H=12, T=S=200,
-    d=64): a kernel that differs only in summation order passes, the card
-    kernel's key split with its exp2 and reciprocal too; one that rounds the
-    unnormalised exponentials, or mis-normalises P by 1%, fails."""
+    plain version on the card: a kernel that differs only in summation order
+    passes, the card kernel's key split with its exp2 and reciprocal too; one
+    that rounds the unnormalised exponentials, or mis-normalises P by 1%,
+    fails. K1's entry at the generate shape (B=1, H=12, T=S=200, d=64, a zero
+    key bias); K3's at B=1 H=4 T=S=100 d=32 with a float32 (H, T, T) or
+    (T, S) bias with scattered -1e9, against ``fused_bias_attention_reference``."""
     g = torch.Generator().manual_seed(1)
-    q = (torch.randn(1, 12, 200, 64, generator=g) * 64 ** -0.5).bfloat16()
-    k = torch.randn(1, 12, 200, 64, generator=g).bfloat16()
-    v = torch.randn(1, 12, 200, 64, generator=g).bfloat16()
-    bias = torch.zeros(1, 200, dtype=torch.bfloat16)
-    dis = kb.bf16_disagreement(_emulated_kernel(q, k, v, bias, variant),
-                               kb.keybias_attention_reference(q, k, v, bias))
+    H, T, d = (12, 200, 64) if bias_kind == "key" else (4, 100, 32)
+    q = (torch.randn(1, H, T, d, generator=g) * d ** -0.5).bfloat16()
+    k = torch.randn(1, H, T, d, generator=g).bfloat16()
+    v = torch.randn(1, H, T, d, generator=g).bfloat16()
+    if bias_kind == "key":
+        bias = torch.zeros(1, T, dtype=torch.bfloat16)
+        got = _emulated_kernel(q, k, v, bias[:, None, None, :], variant)
+        ref = kb.keybias_attention_reference(q, k, v, bias)
+    else:
+        bias = _general_bias((H, T, T) if bias_kind == "HTT" else (T, T), g)
+        got = _emulated_kernel(q, k, v, bias, variant)
+        ref = kba.fused_bias_attention_reference(q, k, v, bias)
+    dis = kb.bf16_disagreement(got, ref)
     assert (max(dis["worst"], dis["rms_worst"]) <= 1.0) == passes, dis
 
 

@@ -187,7 +187,8 @@ def test_keybias_bf16_kernel_refuses_what_it_does_not_take():
 
 BIAS_CASES = [
     # B, H, T, S, d, bias shape, bias layout ("keys last": as stored;
-    # "keys first": stored as (B, H, S, T) and read with key stride T)
+    # "keys first": stored as (B, H, S, T) and read with key stride T;
+    # "odd offset": as stored, one element past the start of its storage)
     (16, 4, 25, 25, 32, (4, 25, 25), "keys last"),  # the training step's self-attention
     (1, 4, 600, 600, 32, (4, 600, 600), "keys last"),  # predict-length self-attention
     (1, 4, 600, 600, 32, (600, 600), "keys last"),  # its cross-attention
@@ -202,12 +203,20 @@ BIAS_CASES = [
     (2, 2, 24, 36, 8, (2, 2, 24, 36), "keys last"),  # d=8
     (1, 2, 50, 90, 128, (2, 50, 90), "keys last"),  # d=128
     (2, 3, 40, 70, 32, (2, 3, 40, 70), "keys first"),  # non-unit key stride
+    # where the bfloat16 kernel keeps the bias: rows too wide to keep whole
+    # beside K and V, so K, V and the bias stream; K and V resident with the
+    # float32 bias in ring slots; copies of 4 bytes or plain loads off the
+    # 16-byte boundary; one row per (b, h), staged
+    (1, 2, 40, 600, 128, (2, 40, 600), "keys last"),  # d=128 S=600: all three streamed
+    (1, 2, 40, 700, 64, (2, 40, 700), "keys last"),  # d=64 S=700: the float32 bias ringed
+    (1, 3, 30, 64, 32, (3, 30, 64), "odd offset"),  # a bfloat16 bias on an odd element
+    (2, 3, 40, 70, 32, (2, 3, 1, 70), "keys last"),  # broadcast over t alone
 ]
 
 
 def _bias_inputs(B, H, T, S, d, bshape, seed=4):
-    """Random q, k, v and a bias with scattered -1e9 entries and one fully
-    masked row, on the card."""
+    """Random q, k, v and a bias with scattered -1e9 entries and, where it
+    has a row per query, one fully masked row, on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     rng = np.random.default_rng(seed)
@@ -216,7 +225,8 @@ def _bias_inputs(B, H, T, S, d, bshape, seed=4):
     v = rng.standard_normal((B, H, S, d)).astype(np.float32)
     bias = rng.standard_normal(bshape).astype(np.float32)
     bias = np.where(rng.random(bshape) < 0.2, np.float32(-1e9), bias)
-    bias[..., T // 2, :] = -1e9
+    if bshape[-2] == T:
+        bias[..., T // 2, :] = -1e9
     return [torch.from_numpy(a).cuda() for a in (q, k, v, bias)]
 
 
@@ -228,6 +238,8 @@ def test_bias_kernel_matches_plain_version(B, H, T, S, d, bshape, layout):
     "keys first" bias is stored (B, H, S, T) and launched with the strides
     of its (B, H, T, S) transpose, key stride T."""
     q, k, v, bias = _bias_inputs(B, H, T, S, d, bshape)
+    if layout == "odd offset":
+        bias = _off_by_one(bias)
     before = kba.launches
     if layout == "keys first":
         stored = bias.transpose(2, 3).contiguous()
@@ -240,7 +252,18 @@ def test_bias_kernel_matches_plain_version(B, H, T, S, d, bshape, layout):
     assert kba.launches == before + 1
     torch.testing.assert_close(got, kba.fused_bias_attention_reference(q, k, v, bias),
                                atol=1e-5, rtol=0)
-    torch.testing.assert_close(got[..., T // 2, :], v.mean(2), atol=1e-5, rtol=0)
+    if bshape[-2] == T:
+        torch.testing.assert_close(got[..., T // 2, :], v.mean(2), atol=1e-5, rtol=0)
+
+
+def _off_by_one(bias):
+    """``bias`` as a contiguous view one element past the start of its
+    storage: off the 16-byte boundary (and, in bfloat16, the 4-byte one)."""
+    buf = torch.empty(bias.numel() + 1, dtype=bias.dtype, device=bias.device)
+    view = buf[1:].view(bias.shape)
+    view.copy_(bias)
+    assert view.is_contiguous() and view.data_ptr() % 4 == (2 if bias.dtype == torch.bfloat16 else 0)
+    return view
 
 
 @pytest.mark.cuda
@@ -291,6 +314,8 @@ def test_bias_bf16_kernel_matches_plain_version(B, H, T, S, d, bshape, layout, b
     its transpose."""
     q, k, v, bias = _bias_inputs(B, H, T, S, d, bshape)
     q, k, v, bias = q.bfloat16(), k.bfloat16(), v.bfloat16(), bias.to(bias_dtype)
+    if layout == "odd offset":
+        bias = _off_by_one(bias)
     before, before16 = kba.launches, kba.launches_bf16
     if layout == "keys first":
         stored = bias.transpose(2, 3).contiguous()
@@ -301,8 +326,9 @@ def test_bias_bf16_kernel_matches_plain_version(B, H, T, S, d, bshape, layout, b
     assert (kba.launches, kba.launches_bf16) == (before, before16 + 1)
     assert got.dtype == torch.bfloat16
     bf16_within_limit(got, kba.fused_bias_attention_reference(q, k, v, bias))
-    mean = v.float().mean(2).expand(got[..., T // 2, :].shape)
-    bf16_within_limit(got[..., T // 2, :], mean, rms=False)
+    if bshape[-2] == T:
+        mean = v.float().mean(2).expand(got[..., T // 2, :].shape)
+        bf16_within_limit(got[..., T // 2, :], mean, rms=False)
 
 
 # every head dim past the kernels' steps, through each entry
