@@ -38,27 +38,35 @@
 // the design does about them: the bias goes through shared memory, and each
 // element of it leaves device memory once per block where it fits. A bias
 // of one row per (b, h) (st = 0: K1's key bias) is staged in fp32 at the
-// block's set-up. Any other is kept as stored: whole (the block's rows x
-// every key, 41 KB a 16-row group at S = 600 in fp32) where it fits beside
-// resident K and V, serving both passes (the softmax's statistics, then
-// P . V); else ringed, RING slots of one tile, refilled in pass 2.
+// block's set-up, by a kernel compiled apart (kStaged) that carries no other
+// bias code. Any other is kept as stored: whole (the block's rows x every
+// key, 41 KB a 16-row group at S = 600 in fp32) beside resident K and V,
+// serving both passes (the softmax's statistics, then P . V), or, where
+// that does not fit, in ring slots with K's tiles as K and V stream.
 // pick_groups counts its bytes: at the decoder's shape a block holds 2 row
-// groups, 76 blocks, one per SM. A whole bias whose rows are multiples of
-// 16 bytes on 16-byte boundaries (the decoder's float32 rows of 2,400
-// bytes) comes by bulk copies, one a row, from the async copy unit, counted
-// by the first copy group's barrier; any other goes tile by tile in the
-// copy group of each K tile, by cp.async of 16 bytes, 4 or a plain load
+// groups, 76 blocks, one per SM. A whole bias with adjacent keys and rows
+// S to 64 * tiles keys apart (every layout the decoders give it) comes in
+// the block's set-up as one span of device memory, the block's rows with
+// the gaps between them: its 16-byte-aligned middle by one bulk copy of
+// the async copy unit, issued by one thread as soon as the barriers are
+// set up and counted by the first copy group's barrier, its ragged ends
+// (under 16 bytes) by plain loads, the span shifted in shared memory by its
+// address's offset from a 16-byte boundary. One copy a block: a bulk copy
+// a row cost about 100 cycles of the copy unit each, and at B=16 T=25 the
+// rows' 16 copies took 2,200 cycles to land, where the earlier version's
+// one trip to the bias took 700. Any other bias goes tile by tile in the
+// copy group of each K tile, in rows padded so that rows g and g + 8 fall
+// in distinct banks, by cp.async of 16 bytes, 4 or a plain load
 // (copy_chunk). Each consumer thread reads its fragment (rows g and g + 8,
-// keys 2t and 2t + 1 of each 8-key tile) from shared memory after the
-// chunk's products, in rows padded so that the 8 rows a read touches fall
-// in distinct banks. Read from device memory by the consumers themselves,
-// as an earlier version did, the bias cost each warp two dependent trips a
-// tile in each pass, 20 at T = 600, with one block of 4 consumer warps on
-// most SMs to hide them; copied tile by tile with K by cp.async, it ran no
-// faster: an SM takes cp.async copies at about 7 bytes a cycle, and a
-// block's K, V and bias (154 KB) took that long. The bulk copies go beside
-// them. A launch at these shapes is a few microseconds of work either way,
-// so latency, the grid and the launch count matter too.
+// keys 2t and 2t + 1 of each 8-key tile) key by key from shared memory
+// after the chunk's products. Read from device memory by the consumers
+// themselves, as an earlier version did, the bias cost each warp two
+// dependent trips a tile in each pass, 20 at T = 600, with one block of 4
+// consumer warps on most SMs to hide them; copied tile by tile with K by
+// cp.async, it ran no faster: an SM takes cp.async copies at about 7 bytes
+// a cycle, and a block's K, V and bias (154 KB) took that long. The bulk
+// copy goes beside them. A launch at these shapes is a few microseconds of
+// work either way, so latency, the grid and the launch count matter too.
 //
 // Design. The first version (one 4-warp block per 64 query rows, every warp
 // walking every key, K read twice through synchronous tile copies, expf and
@@ -88,12 +96,12 @@
 //     padded to d + 8 bfloat16, so the ldmatrix reads of 8 rows fall in
 //     distinct banks. The blocks of one (b, h) start on different tiles, so
 //     that they do not ask L2 for the same lines at once. When K and V do not
-//     fit with a ringed bias (4*S*(d+8) bytes and the ring past the 227 KB a
-//     block may take: d=128 at S >= 428, d=64 from S of about 700, by the
-//     block's rows and the bias) they stream through rings of RING tiles
-//     each instead, the bias with K: pass 1 reads K, pass 2 K again with V,
-//     and a slot is refilled once every consumer warp has arrived on its
-//     empty barrier.
+//     fit with the bias (4*S*(d+8) bytes and the bias staged or kept whole
+//     past the 227 KB a block may take; at 16 rows, with the key bias d=128
+//     from S = 401 and d=64 from 785, with a float32 bias kept whole 369 and
+//     641) they stream through rings of RING tiles each instead, a bias not
+//     staged with K: pass 1 reads K, pass 2 K again with V, and a slot is
+//     refilled once every consumer warp has arrived on its empty barrier.
 //   * Each warp walked every key. Keys are now dealt to the 4 consumer
 //     warps of a row group in 16-key chunks (chunk c to warp c % 4, so all
 //     four work on every tile as it lands). Pass 1: each warp keeps its
@@ -128,8 +136,9 @@
 // straight from the score accumulators: for m16n8k16 the accumulator of key
 // columns 2t, 2t+1 of an 8-key tile is the A fragment's layout, two 8-key
 // tiles making one 16-key k step. Instantiations for d = 16, 32, ..., 128
-// (a multiple of 16; wav2vec2's is 64, the decoders' 32 and 16) and for a
-// float32 or bfloat16 bias; __launch_bounds__ of the largest block and 1
+// (a multiple of 16; wav2vec2's is 64, the decoders' 32 and 16), for a
+// float32 or bfloat16 bias, each for a staged bias and for any other (32
+// kernels, two of half the code where one held both); __launch_bounds__ of the largest block and 1
 // block per SM, so ptxas may take the registers it needs and does not
 // spill. A block's (query tile, b*h) comes from the grid's x dimension
 // alone, query tiles fastest, so B*H is not held to the y dimension's 65535.
@@ -147,7 +156,6 @@
 #include <algorithm>
 #include <atomic>
 #include <climits>
-#include <type_traits>
 
 namespace {
 
@@ -164,13 +172,6 @@ static_assert(PRE <= LAG && LAG <= RING - 1, "group 0 is released once group LAG
 constexpr int BP = BK + 8;        // a bias ring slot's row pitch (rows g, g + 8: other banks)
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Where the bias lies in shared memory.
-enum Place : int {
-  STAGED = 0,  // one row per (b, h) (st = 0, K1's key bias): fp32, -inf past S, at set-up
-  WHOLE = 1,   // the block's rows x every key, as stored, copied with K's tiles in pass 1
-  RINGED = 2,  // the block's rows x one tile's keys a slot, RING slots, copied with every group
-};
-
 // Row groups of 16 query rows a block may hold (4 only up to d = 64, where
 // the registers allow them).
 template <int D>
@@ -178,34 +179,35 @@ constexpr int max_groups() {
   return D <= 64 ? 4 : 2;
 }
 
-// The row pitch (elements) of a bias kept whole: every tile's 64 keys and 8
-// more, so that rows g and g + 8 fall in distinct banks.
+// The row pitch (elements) of a bias kept whole and copied tile by tile:
+// every tile's 64 keys and 8 more, so that rows g and g + 8 fall in
+// distinct banks; the room it takes also holds a span (span_of).
 __host__ __device__ inline int whole_pitch(int tiles) { return tiles * BK + 8; }
 
 // Byte offsets of a block's dynamic shared memory: the mbarriers (resident:
-// one per copy group, full, then RING empty ones when the bias is ringed;
-// streamed: RING full and RING empty), each row group's (m, l) per consumer
-// warp and row, the bias (`place`; `esize` bytes an element as stored), the
-// q rows, K, V. After pass 2 the K / V space holds the warps' partial sums.
-// K and V are resident (every tile, S rounded up to 16 rows) or stream
-// through rings of RING 64-row tiles each.
+// one per copy group, full; streamed: RING full and RING empty), each row
+// group's (m, l) per consumer warp and row, the bias (`staged`: one row in
+// fp32; else as stored, `esize` bytes an element: kept whole when K and V
+// are resident, in RING one-tile slots when they stream), the q rows, K, V.
+// After pass 2 the K / V space holds the warps' partial sums. K and V are
+// resident (every tile, S rounded up to 16 rows) or stream through rings of
+// RING 64-row tiles each.
 struct Plan {
   size_t stats, bias, q, k, v, bytes;
 };
 
 template <int D>
-__host__ __device__ inline Plan plan(int S, int groups, bool resident, int place, int esize) {
+__host__ __device__ inline Plan plan(int S, int groups, bool resident, bool staged, int esize) {
   constexpr size_t P = D + 8;
   const int tiles = (S + BK - 1) / BK;
   const size_t s16 = (size_t)(S + 15) / 16 * 16;
   const size_t rows = resident ? s16 : (size_t)RING * BK;
   const size_t qrows = (size_t)16 * groups;
-  const int bars = resident ? 2 * tiles + (place == RINGED ? RING : 0) : 2 * RING;
-  const size_t bias = place == STAGED  ? s16 * sizeof(float)
-                      : place == WHOLE ? qrows * whole_pitch(tiles) * esize
-                                       : (size_t)RING * qrows * BP * esize;
+  const size_t bias = staged     ? s16 * sizeof(float)
+                      : resident ? qrows * whole_pitch(tiles) * esize
+                                 : (size_t)RING * qrows * BP * esize;
   Plan p;
-  p.stats = ((size_t)bars * 8 + 15) / 16 * 16;
+  p.stats = ((size_t)(resident ? 2 * tiles : 2 * RING) * 8 + 15) / 16 * 16;
   p.bias = p.stats + (size_t)groups * SHARES * 16 * sizeof(float2);
   p.q = p.bias + (bias + 15) / 16 * 16;
   p.k = p.q + (size_t)16 * groups * P * 2;
@@ -355,22 +357,31 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-// A bias element as float32, whatever its stored type, and two adjacent ones.
+// A bias element as float32, whatever its stored type.
 __device__ __forceinline__ float bias_f32(const float* p) { return *p; }
 __device__ __forceinline__ float bias_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float2 bias_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 bias_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+
+// The bytes a producer lane copies of the bias at once (copy_bias): 16 where
+// the keys are adjacent and every row starts on a 16-byte boundary; else 4
+// where that holds whole keys (a float32 key anywhere; two adjacent bfloat16
+// keys on a 4-byte boundary); else 0, a plain load of each key.
+template <typename BT>
+__device__ __forceinline__ int copy_chunk(const BT* p, long long sb, long long sh, long long st,
+                                          long long ss) {
+  constexpr long long e = sizeof(BT);
+  auto rows_on = [&](long long a) {
+    return (uintptr_t)p % a == 0 && sb * e % a == 0 && sh * e % a == 0 && st * e % a == 0;
+  };
+  if (ss == 1 && rows_on(16)) return 16;
+  if (e == 4 ? rows_on(4) : ss == 1 && rows_on(4)) return 4;
+  return 0;
 }
 
 // Rows 0..rows-1 of one tile of the bias, keys 0..keys-1 (row r's key c at
 // src[r * st + c * ss]), into rows of `pitch` elements as stored, by the
-// lanes of the producer warps, `chunk` bytes a copy: 16 (ss = 1, every row
-// on a 16-byte boundary), 4 (a float32 key, or two bfloat16 keys with ss = 1
-// on a 4-byte boundary) or 0 (a plain load of one key). A copy that reaches
-// past key `keys` reads the keys before it and zero-fills the rest.
+// lanes of the producer warps, `chunk` bytes a copy (copy_chunk). A copy
+// that reaches past key `keys` reads the keys before it and zero-fills the
+// rest.
 template <typename BT>
 __device__ __forceinline__ void copy_bias(BT* dst, int pitch, const BT* src, long long st, int ss,
                                           int rows, int keys, int chunk, int lane) {
@@ -390,17 +401,36 @@ __device__ __forceinline__ void copy_bias(BT* dst, int pitch, const BT* src, lon
   }
 }
 
+// A block's rows of a bias kept whole, as one span of device memory when
+// its keys are adjacent and its rows S to 64 * tiles keys apart (every
+// layout the decoders give it): bytes [a, a + n) from the first row's
+// first key to the last row's last, the gaps between rows included. Its
+// middle [lo, hi), from its first 16-byte boundary to its last, goes by one
+// bulk copy (none when lo = hi), its ends (under 16 bytes each) by plain
+// loads. In shared memory the span lies a % 16 bytes into its place, so
+// that the middle lands on a 16-byte boundary there too.
+struct Span {
+  uintptr_t a, lo, hi;
+};
+
+__device__ __forceinline__ Span span_of(const void* first, int n) {
+  const uintptr_t a = (uintptr_t)first, end = a + n;
+  uintptr_t lo = (a + 15) & ~(uintptr_t)15, hi = end & ~(uintptr_t)15;
+  if (hi < lo) lo = hi = end;  // no boundary inside: all of it is the first end
+  return {a, lo, hi};
+}
+
 // s[j] = q . K^T for the warp's 16 rows and keys key0 + 8j .. + 7 (k_c: the
 // chunk's first K row in shared memory), plus the bias from shared memory:
-// `staged` (fp32, -inf past S) when the bias is one row per (b, h)
-// (kStaged), else `bt`, the thread's row g at the chunk's key 2t in its
-// tile's place (row g + 8 lies 8 pitches on); keys past S are -inf. The
-// bias is read after the products: read before them, it held 8 more
-// registers across them, and the d = 128 instantiations spilled.
+// the staged row (fp32, -inf past S) when kStaged, else `bt`, the thread's
+// row g at the chunk's key 2t (row g + 8's at bt + off8), read key by key
+// (a span lies at any element's offset); keys past S are -inf. The bias
+// is read after the products: read before them, it held 8 more registers
+// across them, and the d = 128 instantiations spilled.
 template <int D, bool kStaged, typename BT>
 __device__ __forceinline__ void scores(float (&s)[2][4], const uint32_t (&qf)[D / 16][4],
                                        const __nv_bfloat16* k_c, const float* staged,
-                                       const BT* bt, int pitch, int key0, int S, int lane) {
+                                       const BT* bt, int off8, int key0, int S, int lane) {
   // ldmatrix x4: keys 0-7 / dims 0-7, keys 0-7 / dims 8-15, keys 8-15 / ...
   const __nv_bfloat16* kaddr =
       k_c + ((lane & 7) + 8 * (lane >> 4)) * (D + 8) + 8 * ((lane >> 3) & 1);
@@ -420,25 +450,29 @@ __device__ __forceinline__ void scores(float (&s)[2][4], const uint32_t (&qf)[D 
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int key = key0 + 8 * j + 2 * t;
-    float2 b0, b1;
     if constexpr (kStaged) {
-      b0 = b1 = *reinterpret_cast<const float2*>(staged + key);
+      const float2 b = *reinterpret_cast<const float2*>(staged + key);
+      s[j][0] += b.x;
+      s[j][1] += b.y;
+      s[j][2] += b.x;
+      s[j][3] += b.y;
     } else {
-      b0 = bias_pair(bt + 8 * j);
-      b1 = bias_pair(bt + 8 * pitch + 8 * j);
-      if (key >= S) b0.x = b1.x = -INFINITY;
-      if (key + 1 >= S) b0.y = b1.y = -INFINITY;
+      const BT* p = bt + 8 * j;
+      const bool in0 = key < S, in1 = key + 1 < S;
+      s[j][0] += in0 ? bias_f32(p) : -INFINITY;
+      s[j][1] += in1 ? bias_f32(p + 1) : -INFINITY;
+      s[j][2] += in0 ? bias_f32(p + off8) : -INFINITY;
+      s[j][3] += in1 ? bias_f32(p + off8 + 1) : -INFINITY;
     }
-    s[j][0] += b0.x;
-    s[j][1] += b0.y;
-    s[j][2] += b1.x;
-    s[j][3] += b1.y;
   }
 }
 
 // BT: the bias's stored type (float or bfloat16); the bias is read at
-// bias[b*sb + h*sh + t*st + s*ss].
-template <int D, typename BT>
+// bias[b*sb + h*sh + t*st + s*ss]. kStaged: it is one row per (b, h) (st =
+// 0), staged in fp32 at the block's set-up; else it is kept whole as stored
+// when K and V are resident, and rides in ring slots with K when they
+// stream.
+template <int D, typename BT, bool kStaged>
 __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1)
     keybias_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                   const __nv_bfloat16* __restrict__ k,
@@ -446,7 +480,7 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
                                   const BT* __restrict__ bias, long long sb, long long sh,
                                   long long st, long long ss,
                                   __nv_bfloat16* __restrict__ out, int H, int T, int S,
-                                  bool resident, int place, int chunk) {
+                                  bool resident) {
   constexpr int P = D + 8;
   constexpr int NT = D / 8;  // 8-column output tiles
   extern __shared__ __align__(16) unsigned char smem[];
@@ -454,18 +488,14 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
   const int groups = (blockDim.x - 32 * PRODUCERS) / (32 * SHARES);
   const int consumers = 32 * SHARES * groups;
   const int tiles = (S + BK - 1) / BK;
-  const int G = 2 * tiles;  // copy groups: K's entries, then V's (resident) or K's with V's
-  const Plan pl = plan<D>(S, groups, resident, place, sizeof(BT));
+  const Plan pl = plan<D>(S, groups, resident, kStaged, sizeof(BT));
   // Resident: full[g] for copy group g (K's entry g, then V's entry g -
-  // tiles). Streamed: full[g % RING]. Ringed (streamed, or a bias in ring
-  // slots): empty[g % RING] too, once a lap.
-  const bool ringed = !resident || place == RINGED;
+  // tiles). Streamed: full[g % RING] and empty[g % RING], once a lap.
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* empty = full + (resident ? G : RING);
+  uint64_t* empty = full + RING;
   float2* stats = reinterpret_cast<float2*>(smem + pl.stats);
-  float* bias_s = reinterpret_cast<float*>(smem + pl.bias);  // STAGED
-  BT* bias_t = reinterpret_cast<BT*>(smem + pl.bias);        // WHOLE or RINGED
-  const int pitch = place == WHOLE ? whole_pitch(tiles) : BP;
+  float* bias_s = reinterpret_cast<float*>(smem + pl.bias);  // staged
+  BT* bias_t = reinterpret_cast<BT*>(smem + pl.bias);        // kept whole or ringed
   const int slot_elems = 16 * groups * BP;  // a ring slot
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + pl.q);
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + pl.k);
@@ -483,22 +513,28 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
   // sequence (pass 1's tiles, then, streamed, pass 2's) and of V's (pass
   // 2's) is tile (e + rot) % tiles.
   const int rot = qt % tiles;
+  const int G = 2 * tiles;  // copy groups: K's entries, then V's (resident) or K's with V's
 
   // The producer warps (the last PRODUCERS): copy group g (q with K's
   // entry 0; K's entry g; then V's entry g - tiles, streamed with K's entry
-  // g; the bias's tile of the same entry, in pass 1 when it is kept whole
-  // (unless bulk copies take its rows), in every group when it is ringed),
-  // one cp.async group each; before
-  // group g goes out, group g - lag has landed and its barrier takes the
-  // producers' arrivals. Ringed, a group waits until the consumers are done
-  // with the group a lap before it in the same slots. The first PRE groups
-  // go out before the block's set-up barrier, so that their trip to memory
-  // overlaps the set-up.
+  // g), one cp.async group each; before group g goes out, group g - lag has
+  // landed and its barrier takes the producers' arrivals. Streamed, a group
+  // waits until the consumers are done with the group a lap before it in
+  // the same slots. The first PRE groups go out before the block's set-up
+  // barrier, so that their trip to memory overlaps the set-up. A bias that
+  // is not staged goes with K's tiles (copy_bias): in pass 1's groups when
+  // it is kept whole, in every group when it is ringed; except a bias kept
+  // whole as one span (span_of), which goes in the set-up: its middle
+  // issued first, by one bulk copy.
   const bool producer = tid >= consumers;
   const int plane = tid - consumers;  // a producer's lane among the producer warps
-  // A bias kept whole whose rows are multiples of 16 bytes on 16-byte
-  // boundaries goes by bulk copies instead, a row each, counted by full[0].
-  const bool bulk = place == WHOLE && chunk == 16 && S * (int)sizeof(BT) % 16 == 0;
+  const bool by_span = !kStaged && resident && ss == 1 && st >= S && st <= tiles * BK;
+  const int pitch = by_span ? (int)st : resident ? whole_pitch(tiles) : BP;
+  const BT* span = bias_bh + q0 * st;                      // its first key
+  const int span_len = by_span ? (qrows - 1) * (int)st + S : 0;  // keys, gaps included
+  const Span sp = span_of(span, span_len * (int)sizeof(BT));
+  const int shift = by_span ? (int)((sp.a & 15) / sizeof(BT)) : 0;  // its place's offset
+  const int chunk = kStaged ? 0 : copy_chunk(bias, sb, sh, st, ss);
   auto issue = [&](int gi) {
     const __nv_bfloat16* kb = k + (size_t)bh * S * D;
     const __nv_bfloat16* vb = v + (size_t)bh * S * D;
@@ -507,17 +543,15 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
       const int tile = (gi + rot) % tiles;
       copy_rows<D>(k_s + (resident ? tile : gi % RING) * BK * P, kb + (size_t)tile * BK * D,
                    min(BK, S - tile * BK), plane);
+      if (!kStaged && !by_span)
+        copy_bias(bias_t + (resident ? tile * BK : gi % RING * slot_elems), pitch,
+                  bias_bh + q0 * st + tile * BK * ss, st, (int)ss, qrows,
+                  min(BK, S - tile * BK), chunk, plane);
     }
     if (gi >= tiles) {
       const int e = gi - tiles, tile = (e + rot) % tiles;
       copy_rows<D>(v_s + (resident ? tile : e % RING) * BK * P, vb + (size_t)tile * BK * D,
                    min(BK, S - tile * BK), plane);
-    }
-    if (place == RINGED || (place == WHOLE && !bulk && gi < tiles)) {
-      const int tile = (gi % tiles + rot) % tiles;
-      copy_bias(bias_t + (place == WHOLE ? tile * BK : gi % RING * slot_elems), pitch,
-                bias_bh + q0 * st + tile * BK * ss, st, (int)ss, qrows,
-                min(BK, S - tile * BK), chunk, plane);
     }
     cp_async_commit();
   };
@@ -526,22 +560,32 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
 
   if (tid == 0) {
     for (int i = 0; i < (resident ? G : RING); ++i) mbar_init(&full[i], 32 * PRODUCERS);
-    if (ringed)
+    if (!resident)
       for (int i = 0; i < RING; ++i) mbar_init(&empty[i], consumers / 32);
-    if (bulk)  // the barriers, seen by the bulk copies' completions
+    if (by_span && sp.hi > sp.lo) {
+      // the barriers, seen by the bulk copy's completion; then the span's
+      // middle, counted by full[0]
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      mbar_expect_tx(&full[0], (int)(sp.hi - sp.lo));
+      bulk_copy(reinterpret_cast<char*>(bias_t) + (sp.lo - (sp.a & ~(uintptr_t)15)),
+                reinterpret_cast<const void*>(sp.lo), (int)(sp.hi - sp.lo), &full[0]);
+    }
   }
-  // Rows no copy fills: q's and the bias's rows past T (in every slot),
-  // and the rows past S that the last tile's chunks read, in its place
-  // (resident) or in its slot when it is the slot's first tile (streamed;
-  // else an earlier tile's finite values are there).
+  // Rows no copy fills: q rows past T, the bias's rows past T (in its place,
+  // past a span's end, or in every slot), and the rows past S that the
+  // last tile's chunks read, in its place (resident) or in its slot when it
+  // is the slot's first tile (streamed; else an earlier tile's finite
+  // values are there).
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   for (int e = tid; e < (16 * groups - qrows) * (D / 8); e += blockDim.x)
     *reinterpret_cast<uint4*>(q_s + (qrows + e / (D / 8)) * P + 8 * (e % (D / 8))) = zero;
-  if (place != STAGED) {
-    const int n = (16 * groups - qrows) * pitch * (int)sizeof(BT) / 16;  // uint4 a slot
-    for (int e = tid; e < (place == WHOLE ? 1 : RING) * n; e += blockDim.x)
-      reinterpret_cast<uint4*>(bias_t + e / n * slot_elems + qrows * pitch)[e % n] = zero;
+  if (!kStaged && qrows < 16 * groups) {
+    const int end = 16 * groups * (resident ? whole_pitch(tiles) : BP) * (int)sizeof(BT) / 16;
+    const int from = by_span ? ((shift + span_len) * (int)sizeof(BT) + 15) / 16
+                             : qrows * pitch * (int)sizeof(BT) / 16;  // uint4 of a slot
+    const int n = end - from;
+    for (int e = tid; e < (resident ? 1 : RING) * n; e += blockDim.x)
+      reinterpret_cast<uint4*>(bias_t + e / n * slot_elems)[from + e % n] = zero;
   }
   const int last = S - (tiles - 1) * BK, pad = (last + 15) / 16 * 16 - last;
   const int first = tiles - 1 - rot;  // the last tile's entry in the sequence
@@ -553,19 +597,24 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
       *reinterpret_cast<uint4*>(v_s + off) = zero;
     }
   }
-  if (place == STAGED)  // the bias in fp32, -inf past S
+  if constexpr (kStaged)  // the bias in fp32, -inf past S
     for (int j = tid; j < S + pad; j += blockDim.x)
       bias_s[j] = j < S ? bias_f32(bias_bh + j * ss) : -INFINITY;
+  if (by_span) {
+    // the span's ends, by plain loads; past its end, zeros up to the next
+    // 16-byte boundary, where the rows past T start
+    constexpr int E = 16 / sizeof(BT);  // more keys than an end holds
+    for (int e = tid; e < 2 * E; e += blockDim.x) {
+      const int i = e < E ? e : (int)((sp.hi - sp.a) / sizeof(BT)) + e - E;
+      if (e >= E)
+        bias_t[shift + i] = i < span_len ? span[i] : BT(0.f);
+      else if (sp.a + i * sizeof(BT) < sp.lo)
+        bias_t[shift + i] = span[i];
+    }
+  }
   __syncthreads();
 
   if (producer) {
-    if (bulk && plane < 32) {  // the bias's rows, by the first producer warp
-      const int bytes = S * (int)sizeof(BT);
-      if (plane == 0) mbar_expect_tx(&full[0], qrows * bytes);
-      __syncwarp();
-      for (int r = plane; r < qrows; r += 32)
-        bulk_copy(bias_t + r * pitch, bias_bh + (q0 + r) * st, bytes, &full[0]);
-    }
     // Streamed, at most RING - 1 groups run ahead of the one released, or
     // the producer would wait for a slot that the consumers free only after
     // that release.
@@ -577,7 +626,7 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
         mbar_arrive(&full[resident ? done : done % RING]);
       }
       if (gi < G) {
-        if (ringed && gi >= RING) mbar_wait(&empty[gi % RING], (gi / RING - 1) & 1);
+        if (!resident && gi >= RING) mbar_wait(&empty[gi % RING], (gi / RING - 1) & 1);
         issue(gi);
       }
     }
@@ -589,183 +638,172 @@ __global__ void __launch_bounds__(32 * (SHARES * max_groups<D>() + PRODUCERS), 1
   // this thread's rows g and g + 8 of the group (their output is written
   // where they are below T)
   const int ra = q0 + 16 * group + g, rb = ra + 8;
-  // the bias of the thread's row g at the chunk's key 2t in the place of
-  // entry gi of tile `tile` (unless staged)
-  const BT* bt0 = bias_t + (16 * group + g) * pitch + 16 * share + 2 * t;
+  // Unless staged: the bias of the thread's row g at the chunk's key 2t in
+  // the place of entry gi of tile `tile`, and row g + 8's off8 further.
+  const BT* bt0 = bias_t + shift + (16 * group + g) * pitch + 16 * share + 2 * t;
+  const int off8 = 8 * pitch;
   auto bias_of = [&](int tile, int gi) {
-    return bt0 + (place == WHOLE ? tile * BK : gi % RING * slot_elems);
+    return bt0 + (resident ? tile * BK : gi % RING * slot_elems);
   };
   auto wait_group_of = [&](int gi) {
     mbar_wait(&full[resident ? gi : gi % RING], resident ? 0 : (gi / RING) & 1);
   };
-  auto release = [&](int gi) {  // ringed: this warp is done with group gi's slots
-    if (ringed) {
+  auto release = [&](int gi) {  // streamed: this warp is done with group gi's slots
+    if (!resident) {
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[gi % RING]);
     }
   };
 
-  // The consumers' work, compiled twice: with the staged row's reads, or
-  // with the reads of the bias's rows in their places.
-  auto consume = [&](auto staged_tag) {
-    constexpr bool kStaged = decltype(staged_tag)::value;
-    // The warp's q fragments (A of m16n8k16), by ldmatrix x4: rows 0-7 / 8-15
-    // of the group's 16, columns 0-7 / 8-15 of each 16-column step.
-    wait_group_of(0);
-    uint32_t qf[D / 16][4];
-    const __nv_bfloat16* qaddr = q_s + (16 * group + (lane & 15)) * P + 8 * (lane >> 4);
+  // The warp's q fragments (A of m16n8k16), by ldmatrix x4: rows 0-7 / 8-15
+  // of the group's 16, columns 0-7 / 8-15 of each 16-column step.
+  wait_group_of(0);
+  uint32_t qf[D / 16][4];
+  const __nv_bfloat16* qaddr = q_s + (16 * group + (lane & 15)) * P + 8 * (lane >> 4);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], qaddr + 16 * kk);
+  for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], qaddr + 16 * kk);
 
-    // Pass 1: the max m and the sum l of exp(s - m) over the warp's keys, per
-    // row (g for r = 0, g + 8 for r = 1). A thread keeps the sum of its own
-    // keys; the quad's four are added at the end.
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    for (int i = 0, tile = rot; i < tiles; ++i, tile = tile + 1 == tiles ? 0 : tile + 1) {
-      wait_group_of(i);
-      const int key0 = tile * BK + 16 * share;
-      if (key0 < S) {
-        const int slot = resident ? tile : i % RING;
-        float s[2][4];
-        scores<D, kStaged>(s, qf, k_s + (slot * BK + 16 * share) * P, bias_s, bias_of(tile, i),
-                           pitch, key0, S, lane);
+  // Pass 1: the max m and the sum l of exp(s - m) over the warp's keys, per
+  // row (g for r = 0, g + 8 for r = 1). A thread keeps the sum of its own
+  // keys; the quad's four are added at the end.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int i = 0, tile = rot; i < tiles; ++i, tile = tile + 1 == tiles ? 0 : tile + 1) {
+    wait_group_of(i);
+    const int key0 = tile * BK + 16 * share;
+    if (key0 < S) {
+      const int slot = resident ? tile : i % RING;
+      float s[2][4];
+      scores<D, kStaged>(s, qf, k_s + (slot * BK + 16 * share) * P, bias_s, bias_of(tile, i),
+                         off8, key0, S, lane);
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float n = fmaxf(m[r], quad_max(fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
-                                                     fmaxf(s[1][2 * r], s[1][2 * r + 1]))));
-          // n is -inf while every key the warp has seen of this row has bias
-          // -inf: shift by 0 then, so that no exp(-inf - -inf) arises
-          const float z = n == -INFINITY ? 0.f : n;
-          l[r] = l[r] * exp_from(m[r], z) + exp_from(s[0][2 * r], z) +
-                 exp_from(s[0][2 * r + 1], z) + exp_from(s[1][2 * r], z) +
-                 exp_from(s[1][2 * r + 1], z);
-          m[r] = n;
-        }
+      for (int r = 0; r < 2; ++r) {
+        const float n = fmaxf(m[r], quad_max(fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                                   fmaxf(s[1][2 * r], s[1][2 * r + 1]))));
+        // n is -inf while every key the warp has seen of this row has bias
+        // -inf: shift by 0 then, so that no exp(-inf - -inf) arises
+        const float z = n == -INFINITY ? 0.f : n;
+        l[r] = l[r] * exp_from(m[r], z) + exp_from(s[0][2 * r], z) +
+               exp_from(s[0][2 * r + 1], z) + exp_from(s[1][2 * r], z) +
+               exp_from(s[1][2 * r + 1], z);
+        m[r] = n;
       }
-      release(i);
     }
+    release(i);
+  }
 
-    // The row group's M and L over its four warps, in warp order. A warp that
-    // saw no key has m = -inf and l = 0, and adds 0.
+  // The row group's M and L over its four warps, in warp order. A warp that
+  // saw no key has m = -inf and l = 0, and adds 0.
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float sum = quad_sum(l[r]);
-      if (t == 0) stats[(group * SHARES + share) * 16 + g + 8 * r] = make_float2(m[r], sum);
+  for (int r = 0; r < 2; ++r) {
+    const float sum = quad_sum(l[r]);
+    if (t == 0) stats[(group * SHARES + share) * 16 + g + 8 * r] = make_float2(m[r], sum);
+  }
+  consumers_sync(consumers);
+  float M[2], R[2];  // the row's max and the reciprocal of its sum
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float top = -INFINITY, sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < SHARES; ++w)
+      top = fmaxf(top, stats[(group * SHARES + w) * 16 + g + 8 * r].x);
+#pragma unroll
+    for (int w = 0; w < SHARES; ++w) {
+      const float2 a = stats[(group * SHARES + w) * 16 + g + 8 * r];
+      sum += a.y * exp_from(a.x, top);
     }
-    consumers_sync(consumers);
-    float M[2], R[2];  // the row's max and the reciprocal of its sum
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float top = -INFINITY, sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < SHARES; ++w)
-        top = fmaxf(top, stats[(group * SHARES + w) * 16 + g + 8 * r].x);
-#pragma unroll
-      for (int w = 0; w < SHARES; ++w) {
-        const float2 a = stats[(group * SHARES + w) * 16 + g + 8 * r];
-        sum += a.y * exp_from(a.x, top);
-      }
-      M[r] = top;
-      R[r] = 1.f / sum;
-    }
+    M[r] = top;
+    R[r] = 1.f / sum;
+  }
 
-    // Pass 2: P = bf16(exp(s - M) * (1 / L)), acc += P . V over the warp's keys.
-    float acc[NT][4];
+  // Pass 2: P = bf16(exp(s - M) * (1 / L)), acc += P . V over the warp's keys.
+  float acc[NT][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    for (int i = 0, tile = rot; i < tiles; ++i, tile = tile + 1 == tiles ? 0 : tile + 1) {
-      wait_group_of(tiles + i);  // resident: V's entry i (K is still in place); streamed: both
-      const int key0 = tile * BK + 16 * share;
-      if (key0 < S) {
-        const int kslot = resident ? tile : (tiles + i) % RING, vslot = resident ? tile : i % RING;
-        float s[2][4];
-        scores<D, kStaged>(s, qf, k_s + (kslot * BK + 16 * share) * P, bias_s,
-                           bias_of(tile, tiles + i), pitch, key0, S, lane);
-        const uint32_t p[4] = {
-            pack_bf16(exp_from(s[0][0], M[0]) * R[0], exp_from(s[0][1], M[0]) * R[0]),
-            pack_bf16(exp_from(s[0][2], M[1]) * R[1], exp_from(s[0][3], M[1]) * R[1]),
-            pack_bf16(exp_from(s[1][0], M[0]) * R[0], exp_from(s[1][1], M[0]) * R[0]),
-            pack_bf16(exp_from(s[1][2], M[1]) * R[1], exp_from(s[1][3], M[1]) * R[1])};
-        // ldmatrix x4.trans: keys 0-7 / 8-15 of the chunk, columns 8n.. / 8(n+1)..
-        const __nv_bfloat16* vaddr =
-            v_s + (vslot * BK + 16 * share + (lane & 15)) * P + 8 * (lane >> 4);
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0, tile = rot; i < tiles; ++i, tile = tile + 1 == tiles ? 0 : tile + 1) {
+    wait_group_of(tiles + i);  // resident: V's entry i (K is still in place); streamed: both
+    const int key0 = tile * BK + 16 * share;
+    if (key0 < S) {
+      const int kslot = resident ? tile : (tiles + i) % RING, vslot = resident ? tile : i % RING;
+      float s[2][4];
+      scores<D, kStaged>(s, qf, k_s + (kslot * BK + 16 * share) * P, bias_s,
+                         bias_of(tile, tiles + i), off8, key0, S, lane);
+      const uint32_t p[4] = {
+          pack_bf16(exp_from(s[0][0], M[0]) * R[0], exp_from(s[0][1], M[0]) * R[0]),
+          pack_bf16(exp_from(s[0][2], M[1]) * R[1], exp_from(s[0][3], M[1]) * R[1]),
+          pack_bf16(exp_from(s[1][0], M[0]) * R[0], exp_from(s[1][1], M[0]) * R[0]),
+          pack_bf16(exp_from(s[1][2], M[1]) * R[1], exp_from(s[1][3], M[1]) * R[1])};
+      // ldmatrix x4.trans: keys 0-7 / 8-15 of the chunk, columns 8n.. / 8(n+1)..
+      const __nv_bfloat16* vaddr =
+          v_s + (vslot * BK + 16 * share + (lane & 15)) * P + 8 * (lane >> 4);
 #pragma unroll
-        for (int n = 0; n < NT; n += 2) {
-          uint32_t bv[4];
-          ldsm_x4_trans(bv, vaddr + 8 * n);
-          mma_bf16(acc[n], p, bv[0], bv[1]);
-          mma_bf16(acc[n + 1], p, bv[2], bv[3]);
-        }
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, vaddr + 8 * n);
+        mma_bf16(acc[n], p, bv[0], bv[1]);
+        mma_bf16(acc[n + 1], p, bv[2], bv[3]);
       }
-      release(tiles + i);
     }
+    release(tiles + i);
+  }
 
-    // The four warps' partial sums, added in fp32 in warp order through the
-    // space K and V held; warp `share` of the group writes output tiles
-    // share, share + 4, ...
-    consumers_sync(consumers);
-    float4* part = reinterpret_cast<float4*>(k_s);
+  // The four warps' partial sums, added in fp32 in warp order through the
+  // space K and V held; warp `share` of the group writes output tiles
+  // share, share + 4, ...
+  consumers_sync(consumers);
+  float4* part = reinterpret_cast<float4*>(k_s);
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      part[((group * SHARES + share) * NT + n) * 32 + lane] =
-          make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
-    consumers_sync(consumers);
-    __nv_bfloat16* ob = out + (size_t)bh * T * D;
-    for (int n = share; n < NT; n += SHARES) {
-      float4 a = part[(group * SHARES * NT + n) * 32 + lane];
+  for (int n = 0; n < NT; ++n)
+    part[((group * SHARES + share) * NT + n) * 32 + lane] =
+        make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+  consumers_sync(consumers);
+  __nv_bfloat16* ob = out + (size_t)bh * T * D;
+  for (int n = share; n < NT; n += SHARES) {
+    float4 a = part[(group * SHARES * NT + n) * 32 + lane];
 #pragma unroll
-      for (int w = 1; w < SHARES; ++w) {
-        const float4 c = part[((group * SHARES + w) * NT + n) * 32 + lane];
-        a.x += c.x;
-        a.y += c.y;
-        a.z += c.z;
-        a.w += c.w;
-      }
-      const int col = 8 * n + 2 * t;
-      if (ra < T) *reinterpret_cast<uint32_t*>(ob + (size_t)ra * D + col) = pack_bf16(a.x, a.y);
-      if (rb < T) *reinterpret_cast<uint32_t*>(ob + (size_t)rb * D + col) = pack_bf16(a.z, a.w);
+    for (int w = 1; w < SHARES; ++w) {
+      const float4 c = part[((group * SHARES + w) * NT + n) * 32 + lane];
+      a.x += c.x;
+      a.y += c.y;
+      a.z += c.z;
+      a.w += c.w;
     }
-  };
-  if (place == STAGED)
-    consume(std::true_type{});
-  else
-    consume(std::false_type{});
+    const int col = 8 * n + 2 * t;
+    if (ra < T) *reinterpret_cast<uint32_t*>(ob + (size_t)ra * D + col) = pack_bf16(a.x, a.y);
+    if (rb < T) *reinterpret_cast<uint32_t*>(ob + (size_t)rb * D + col) = pack_bf16(a.z, a.w);
+  }
 }
 
 // Read once per device: 0 until set, then 1 + the setter's cudaError_t.
 // Two threads racing to set it both store the same value, which is harmless.
-template <int D, typename BT>
+template <int D, typename BT, bool kStaged>
 cudaError_t raise_smem_limit(int dev) {
   static std::atomic<int> state[MAX_DEVICES];
   int val = state[dev].load(std::memory_order_acquire);
   if (val == 0) {
-    val = 1 + (int)cudaFuncSetAttribute(keybias_attention_bf16_kernel<D, BT>,
+    val = 1 + (int)cudaFuncSetAttribute(keybias_attention_bf16_kernel<D, BT, kStaged>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     state[dev].store(val, std::memory_order_release);
   }
   return (cudaError_t)(val - 1);
 }
 
-// Where a launch's K, V and bias lie, and the shared memory that takes, the
-// first that fits of: K and V resident with the bias staged (one row per
-// (b, h)) or kept whole; K and V resident with the bias ringed; K and V
-// streamed with the bias staged or ringed; all three streamed (which always
-// fits: a staged row of a long S does not).
+// Where a launch's K, V and bias lie, and the shared memory that takes: K
+// and V resident, else streamed, with the bias staged (one row per (b, h))
+// or else kept whole (resident) or ringed (streamed); where neither fits
+// (a staged row of a long S), all three streamed, which always fits.
 struct Layout {
-  bool resident;
-  int place;
+  bool resident, staged;
   size_t bytes;
 };
 
 template <int D>
 Layout layout(int S, int groups, bool staged, int esize) {
-  const int whole = staged ? STAGED : WHOLE, ring = staged ? STAGED : RINGED;
-  const Layout tries[] = {{true, whole, 0}, {true, ring, 0}, {false, ring, 0}};
-  for (Layout lay : tries) {
-    lay.bytes = plan<D>(S, groups, lay.resident, lay.place, esize).bytes;
-    if (lay.bytes <= (size_t)SMEM_MAX) return lay;
+  for (int i = 0; i < 2; ++i) {
+    const bool resident = i == 0;
+    const size_t bytes = plan<D>(S, groups, resident, staged, esize).bytes;
+    if (bytes <= (size_t)SMEM_MAX) return {resident, staged, bytes};
   }
-  return {false, RINGED, plan<D>(S, groups, false, RINGED, esize).bytes};
+  return {false, false, plan<D>(S, groups, false, false, esize).bytes};
 }
 
 // The block's row groups (1 to 4: 16 to 64 query rows) that take the least
@@ -795,22 +833,6 @@ struct Bias {
   long long sb, sh, st, ss;
 };
 
-// The bytes a producer lane copies of the bias at once (copy_bias): 16 where
-// the keys are adjacent and every row starts on a 16-byte boundary; else 4
-// where that holds whole keys (a float32 key anywhere; two adjacent bfloat16
-// keys on a 4-byte boundary); else 0, a plain load of each key.
-template <typename BT>
-int copy_chunk(const Bias<BT>& bias) {
-  const long long e = sizeof(BT);
-  auto rows_on = [&](long long a) {
-    return (uintptr_t)bias.p % a == 0 && bias.sb * e % a == 0 && bias.sh * e % a == 0 &&
-           bias.st * e % a == 0;
-  };
-  if (bias.ss == 1 && rows_on(16)) return 16;
-  if (e == 4 ? rows_on(4) : bias.ss == 1 && rows_on(4)) return 4;
-  return 0;
-}
-
 template <int D, typename BT>
 cudaError_t launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                      const Bias<BT>& bias, __nv_bfloat16* out, int B, int H, int T, int S,
@@ -819,19 +841,22 @@ cudaError_t launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  err = raise_smem_limit<D, BT>(dev);
-  if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const bool staged = bias.st == 0;
   const int groups = pick_groups<D>(B, H, T, S, staged, sizeof(BT), sms);
   const Layout lay = layout<D>(S, groups, staged, sizeof(BT));
+  err = lay.staged ? raise_smem_limit<D, BT, true>(dev) : raise_smem_limit<D, BT, false>(dev);
+  if (err != cudaSuccess) return err;
   const long long blocks = (long long)((T + 16 * groups - 1) / (16 * groups)) * B * H;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  keybias_attention_bf16_kernel<D, BT>
-      <<<(unsigned)blocks, 32 * (SHARES * groups + PRODUCERS), lay.bytes, stream>>>(
-          q, k, v, bias.p, bias.sb, bias.sh, bias.st, bias.ss, out, H, T, S, lay.resident,
-          lay.place, copy_chunk(bias));
+  const unsigned grid = (unsigned)blocks, threads = 32 * (SHARES * groups + PRODUCERS);
+  if (lay.staged)
+    keybias_attention_bf16_kernel<D, BT, true><<<grid, threads, lay.bytes, stream>>>(
+        q, k, v, bias.p, bias.sb, bias.sh, bias.st, bias.ss, out, H, T, S, lay.resident);
+  else
+    keybias_attention_bf16_kernel<D, BT, false><<<grid, threads, lay.bytes, stream>>>(
+        q, k, v, bias.p, bias.sb, bias.sh, bias.st, bias.ss, out, H, T, S, lay.resident);
   return cudaGetLastError();
 }
 

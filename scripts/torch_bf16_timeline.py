@@ -11,12 +11,12 @@ kernel-check shapes (chip_smoke.BF16_CASES and BF16_STREAMED) and K3's bias
 entry at the FaceFormer family's (chip_smoke.K3_BF16_CASES: the float32
 (H, T, T) or (T, S) bias), and prints one JSON line per shape: the launch
 (row groups of 16 query rows a block, blocks, K and V resident or streamed,
-where the bias lies when the source says so, the dynamic shared memory a
-block takes, and how many blocks ran on each SM: {blocks: SMs}); per
-section, the median over blocks of the cycles from the block's start to the
-section's end (set-up: barriers, zero rows and a staged bias; q: the first
-copy group released; tile0: pass 1's first tile; pass1, merge, pass2, end);
-and the spread of the blocks' start times (ns, %globaltimer), which shows
+where the bias lies (staged, kept whole or ringed), the dynamic shared
+memory a block takes, and how many blocks ran on each SM: {blocks: SMs});
+per section, the median over blocks of the cycles from the block's start
+to the section's end (set-up: barriers, zero rows, a staged bias or a
+span's ends; q: the first copy group released; tile0: pass 1's first
+tile; pass1, merge, pass2, end); and the spread of the blocks' start times (ns, %globaltimer), which shows
 the waves. The marks cost a few instructions of one thread; the build goes
 to build/variants/.
 """
@@ -34,16 +34,16 @@ import kernel_variants
 
 SECTIONS = [  # (mark, the text it goes before), in order; "end" goes after the output loop
     ("start", "  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;"),
-    ("setup", "  if (producer) {\n    if (bulk"),
-    ("q", "    uint32_t qf[D / 16][4];"),
-    ("tile0", "      if (key0 < S) {\n        const int slot"),
-    ("pass1", "    // The row group's M and L"),
-    ("merge", "    // Pass 2: P = bf16"),
-    ("pass2", "    // The four warps' partial sums"),
+    ("setup", "  if (producer) {\n    // Streamed, at most"),
+    ("q", "  uint32_t qf[D / 16][4];"),
+    ("tile0", "    if (key0 < S) {\n      const int slot"),
+    ("pass1", "  // The row group's M and L"),
+    ("merge", "  // Pass 2: P = bf16"),
+    ("pass2", "  // The four warps' partial sums"),
 ]
-END = ("      if (rb < T) *reinterpret_cast<uint32_t*>(ob + (size_t)rb * D + col) = "
-       "pack_bf16(a.z, a.w);\n    }\n")
-PLACES = ("staged", "whole", "ringed")  # the source's Place, in order
+END = ("    if (rb < T) *reinterpret_cast<uint32_t*>(ob + (size_t)rb * D + col) = "
+       "pack_bf16(a.z, a.w);\n  }\n")
+PLACES = ("staged", "whole", "ringed")
 HEADER = r"""
 #include <cuda_runtime.h>
 __device__ long long avi_marks[8192][10];
@@ -75,23 +75,22 @@ extern "C" int avi_marks_clear() {
 }
 """
 # what block 0 records of its launch: threads, blocks, K / V resident, shared
-# memory bytes, where the bias lies (the source's Place; -1 where it has none)
-LAUNCH = """  if (blockIdx.x == 0 && threadIdx.x == 0) {{
+# memory bytes, where the bias lies (an index into PLACES)
+LAUNCH = """  if (blockIdx.x == 0 && threadIdx.x == 0) {
     avi_launch[0] = blockDim.x;
     avi_launch[1] = gridDim.x;
     avi_launch[2] = resident;
     avi_launch[3] = (long long)pl.bytes;
-    avi_launch[4] = {place};
-  }}
+    avi_launch[4] = kStaged ? 0 : resident ? 1 : 2;
+  }
 """
 
 
 def marked_source(text: str) -> str:
-    place = "place" if "int place" in text else "-1"
     for k, (_, anchor) in enumerate(SECTIONS):
         if text.count(anchor) != 1:
             raise SystemExit(f"the mark {SECTIONS[k][0]} no longer applies")
-        extra = LAUNCH.format(place=place) if k == 0 else ""
+        extra = LAUNCH if k == 0 else ""
         text = text.replace(anchor, extra + f"  MARK({k});\n" + anchor)
     if text.count(END) != 1:
         raise SystemExit("the end mark no longer applies")
@@ -164,7 +163,7 @@ def main() -> int:
             "case": case, "shape": shape, "bias": bias_kind,
             "groups": int((launch[0] - 32 * 4) // (32 * 4)), "threads": int(launch[0]),
             "blocks": int(launch[1]), "resident": bool(launch[2]),
-            "bias_place": None if launch[4] < 0 else PLACES[launch[4]],
+            "bias_place": PLACES[launch[4]],
             "smem_bytes": int(launch[3]),
             "blocks_per_sm": {str(n): c for n, c in sorted(per_sm.items())},
             "median_cycles_from_start": {n: float(np.median(cycles[:, i]))

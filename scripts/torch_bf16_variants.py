@@ -11,12 +11,10 @@ rows of a block at 16 to 64 (1 to 4 row groups; ``pick_groups`` chooses
 otherwise, and above d = 64 takes at most 2), ``producers1`` and
 ``producers2`` issue the copies from one or two warps instead of four,
 ``streamed`` streams K, V and the bias through the rings at every shape,
-``no_rot`` starts every block on tile 0, ``bias_ring`` never keeps a
-per-(t, s) bias whole: it rings it through 3 slots of one tile (RING = 3,
-the streamed rings too), refilled in pass 2, so that a 16-row block at the
-decoder's T = 600 leaves room for two on an SM, ``bias_cp_async`` copies
-a bias kept whole tile by tile with K, by cp.async of 16 bytes a lane,
-instead of whole rows by bulk copies with the first group, ``lag3`` keeps
+``no_rot`` starts every block on tile 0, ``bias_cp_async`` copies a
+bias kept whole tile by tile with K, by cp.async of 16 (or 4) bytes a
+lane, instead of as one span (a bulk copy of its aligned middle and
+plain loads of its ends) in the set-up, ``lag3`` keeps
 three copy groups in flight past the released one instead of two, ``pre0``
 issues no copy group before the block's set-up barrier (instead of two). These
 compute the same
@@ -46,7 +44,6 @@ import kernel_variants
 PICK = "  const int groups = pick_groups<D>(B, H, T, S, staged, sizeof(BT), sms);"
 COPY = "cp_async16(dst + r * (D + 8) + 8 * c, src + (size_t)r * D + 8 * c);"
 START = "  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;"
-PLACES = "  const int whole = staged ? STAGED : WHOLE, ring = staged ? STAGED : RINGED;"
 VARIANTS = {
     "kernel": [],
     "rows16": [(PICK, "  const int groups = 1;")],
@@ -55,26 +52,27 @@ VARIANTS = {
     "rows64": [(PICK, "  const int groups = max_groups<D>();")],
     "producers1": [("constexpr int PRODUCERS = 4;", "constexpr int PRODUCERS = 1;")],
     "producers2": [("constexpr int PRODUCERS = 4;", "constexpr int PRODUCERS = 2;")],
-    "streamed": [("    if (lay.bytes <= (size_t)SMEM_MAX) return lay;",
-                  "    if (!lay.resident && lay.bytes <= (size_t)SMEM_MAX) return lay;")],
+    "streamed": [("    const bool resident = i == 0;", "    const bool resident = false;")],
     "no_rot": [("  const int rot = qt % tiles;", "  const int rot = 0;")],
-    "bias_ring": [(PLACES, "  const int ring = staged ? STAGED : RINGED, whole = ring;"),
-                  ("constexpr int RING = 4;", "constexpr int RING = 3;")],
-    "bias_cp_async": [("const bool bulk = place == WHOLE && chunk == 16",
-                       "const bool bulk = place == WHOLE && chunk < 0")],
+    "bias_cp_async": [("const bool by_span = !kStaged && resident && ss == 1 && st >= S",
+                       "const bool by_span = false && ss == 1 && st >= S")],
     "pre0": [("constexpr int PRE = 2;", "constexpr int PRE = 0;")],
     "lag3": [("constexpr int LAG = 2;", "constexpr int LAG = 3;")],
     # ablations
     "null": [(START, "  if (S > 0) return;\n" + START)],
     "no_copy": [(COPY, "if (n < 0) " + COPY)],
-    "no_pass1": [("      if (key0 < S) {\n        const int slot",
-                  "      if (key0 < 0) {\n        const int slot")],
-    "no_bias": [("    s[j][0] += b0.x;\n    s[j][1] += b0.y;\n    s[j][2] += b1.x;\n"
-                 "    s[j][3] += b1.y;\n", "")],
-    "no_pv": [("          mma_bf16(acc[n], p, bv[0], bv[1]);\n"
-               "          mma_bf16(acc[n + 1], p, bv[2], bv[3]);",
-               "          acc[n][0] += __uint_as_float(p[0] ^ bv[0] ^ bv[1]);\n"
-               "          acc[n + 1][0] += __uint_as_float(p[1] ^ bv[2] ^ bv[3]);")],
+    "no_pass1": [("    if (key0 < S) {\n      const int slot",
+                  "    if (key0 < 0) {\n      const int slot")],
+    "no_bias": [("      s[j][0] += b.x;\n      s[j][1] += b.y;\n      s[j][2] += b.x;\n"
+                 "      s[j][3] += b.y;\n", ""),
+                ("      s[j][0] += in0 ? bias_f32(p) : -INFINITY;\n"
+                 "      s[j][1] += in1 ? bias_f32(p + 1) : -INFINITY;\n"
+                 "      s[j][2] += in0 ? bias_f32(p + off8) : -INFINITY;\n"
+                 "      s[j][3] += in1 ? bias_f32(p + off8 + 1) : -INFINITY;\n", "")],
+    "no_pv": [("        mma_bf16(acc[n], p, bv[0], bv[1]);\n"
+               "        mma_bf16(acc[n + 1], p, bv[2], bv[3]);",
+               "        acc[n][0] += __uint_as_float(p[0] ^ bv[0] ^ bv[1]);\n"
+               "        acc[n + 1][0] += __uint_as_float(p[1] ^ bv[2] ^ bv[3]);")],
 }
 SOURCE = "keybias_attention_bf16"
 KEY_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]

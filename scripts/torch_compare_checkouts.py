@@ -10,9 +10,11 @@ the port from that side's root and builds its kernels there, then measures:
 
 * K1 / K3 at chip_smoke.py's kernel-check shapes, K1's bfloat16 entry at
   its bf16 kernel-check shapes (chip_smoke.BF16_CASES, the generate path's
-  four; keys ``bf16_<case>``), K3's bfloat16 entry at the FaceFormer
-  family's (chip_smoke.K3_BF16_CASES, the float32 (H, T, T) and (T, S)
-  biases; keys ``bf16_k3_<case>``), and K2 at its three
+  four, and BF16_STREAMED, K and V streamed; keys ``bf16_<case>``), K3's
+  bfloat16 entry at the FaceFormer family's (chip_smoke.K3_BF16_CASES, the
+  float32 (H, T, T) and (T, S) biases) and at the attention contract's
+  timed d=8 case (B=2 H=4 T=37 S=45, a bfloat16 (H, T, S) bias, a fifth of
+  it -1e9; keys ``bf16_k3_<case>``), and K2 at its three
   visibility shapes (chip_smoke.visibility_cases: the render path's launch
   on the 8 s clip's frames, the head mesh at 256^2 / tile 32 and 224^2 /
   tile 56): CUDA-event ms around the wrapper and the kernel's device ms
@@ -96,7 +98,7 @@ def side(root: str, label: str, kernels_only: bool) -> dict:
         result["kernels"][case] = {"ms": cs.time_ms(fn),
                                    "device_ms": cs.device_ms(fn, "bias_attention_kernel")}
     gb = torch.Generator(device="cuda").manual_seed(1)
-    for case, B, H, T, S, d, lens in cs.BF16_CASES:
+    for case, B, H, T, S, d, lens in cs.BF16_CASES + cs.BF16_STREAMED:
         qb, kb16, vb, biasb = cs.bf16_inputs(B, H, T, S, d, lens, gb)
 
         def fn():
@@ -106,8 +108,16 @@ def side(root: str, label: str, kernels_only: bool) -> dict:
             "ms": cs.time_ms(fn), "device_ms": cs.device_ms(fn, "keybias_attention_bf16_kernel")}
     gb = torch.Generator(device="cuda").manual_seed(13)
     os.makedirs(OUTPUTS, exist_ok=True)
-    for case, B, H, T, d, kind in cs.K3_BF16_CASES:
-        qb, kb16, vb, biasb = cs.k3_bf16_inputs(B, H, T, d, kind, gb)
+    k3_cases = [(case, cs.k3_bf16_inputs(B, H, T, d, kind, gb))
+                for case, B, H, T, d, kind in cs.K3_BF16_CASES]
+    B, H, T, S, d = 2, 4, 37, 45, 8
+    k3_cases.append(("contract_d8", (
+        (torch.randn(B, H, T, d, device="cuda", generator=gb) * d ** -0.5).bfloat16(),
+        torch.randn(B, H, S, d, device="cuda", generator=gb).bfloat16(),
+        torch.randn(B, H, S, d, device="cuda", generator=gb).bfloat16(),
+        torch.where(torch.rand(H, T, S, device="cuda", generator=gb) < 0.2, -1e9,
+                    torch.randn(H, T, S, device="cuda", generator=gb)).bfloat16())))
+    for case, (qb, kb16, vb, biasb) in k3_cases:
 
         def fn():
             return kba.fused_bias_attention(qb, kb16, vb, biasb)

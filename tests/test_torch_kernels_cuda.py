@@ -204,11 +204,11 @@ BIAS_CASES = [
     (1, 2, 50, 90, 128, (2, 50, 90), "keys last"),  # d=128
     (2, 3, 40, 70, 32, (2, 3, 40, 70), "keys first"),  # non-unit key stride
     # where the bfloat16 kernel keeps the bias: rows too wide to keep whole
-    # beside K and V, so K, V and the bias stream; K and V resident with the
-    # float32 bias in ring slots; copies of 4 bytes or plain loads off the
-    # 16-byte boundary; one row per (b, h), staged
+    # beside K and V, so K, V and the bias stream (at d=128 and at d=64);
+    # rows off the 16-byte boundary, their ends by plain loads; one row per
+    # (b, h), staged
     (1, 2, 40, 600, 128, (2, 40, 600), "keys last"),  # d=128 S=600: all three streamed
-    (1, 2, 40, 700, 64, (2, 40, 700), "keys last"),  # d=64 S=700: the float32 bias ringed
+    (1, 2, 40, 700, 64, (2, 40, 700), "keys last"),  # d=64 S=700: all three streamed
     (1, 3, 30, 64, 32, (3, 30, 64), "odd offset"),  # a bfloat16 bias on an odd element
     (2, 3, 40, 70, 32, (2, 3, 1, 70), "keys last"),  # broadcast over t alone
 ]
